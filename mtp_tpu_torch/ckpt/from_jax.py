@@ -1,0 +1,229 @@
+"""JAX parameters → the port's state_dict, and the port's random init.
+
+Pure numpy: the inverse of `mtp_tpu/ckpt/torch_convert.py` `convert_backbone`
+and `mtp_tpu/ckpt/full_convert.py` `convert_upernet_head` (which import jax,
+so they cannot run where the port does).  Layout maps (flax → torch):
+- Dense kernel (in, out)            → Linear weight (out, in)
+- Conv kernel (kh, kw, in, out)     → Conv2d weight (out, in, kh, kw)
+- ConvTranspose kernel (kh, kw, in, out) → ConvTranspose2d weight
+  (in, out, kh, kw) with the spatial dims flipped back
+- LayerNorm / BatchNorm scale       → weight; batch_stats mean/var →
+  running_mean / running_var
+- Dense regressor (in, out)         → 1×1 Conv2d weight (out, in, 1, 1)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from mtp_tpu_torch.config import BackboneConfig
+from mtp_tpu_torch.models.vit_rvsa import ViTRVSA
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable copy
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def unscan_blocks(params: dict, depth: int, interval: int) -> dict:
+    """Inverse of `to_scan_layout`: block_groups/{rvsa_p, full}/... with a
+    leading group axis → blocks_i."""
+    out = {k: v for k, v in params.items() if k != "block_groups"}
+    groups = params["block_groups"]
+    for pos in range(interval):
+        name = "full" if pos == interval - 1 else f"rvsa_{pos}"
+        for g in range(depth // interval):
+            out[f"blocks_{g * interval + pos}"] = _map_tree(
+                groups[name], lambda leaf, g=g: _np(leaf)[g])
+    return out
+
+
+def _dense(sd: dict, dst: str, p: dict) -> None:
+    sd[dst + ".weight"] = _tensor(_np(p["kernel"]).T)
+    if "bias" in p:
+        sd[dst + ".bias"] = _tensor(p["bias"])
+
+
+def _norm(sd: dict, dst: str, p: dict) -> None:
+    sd[dst + ".weight"] = _tensor(p["scale"])
+    sd[dst + ".bias"] = _tensor(p["bias"])
+
+
+def _conv(sd: dict, dst: str, p: dict) -> None:
+    sd[dst + ".weight"] = _tensor(_np(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[dst + ".bias"] = _tensor(p["bias"])
+
+
+def _deconv(sd: dict, dst: str, p: dict) -> None:
+    w = _np(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[dst + ".weight"] = _tensor(w)
+    sd[dst + ".bias"] = _tensor(p["bias"])
+
+
+def attention_from_jax(a: dict, full: bool) -> StateDict:
+    """`FullAttention` / `RVSAAttention` params → the port module's
+    state_dict."""
+    sd: StateDict = {}
+    _dense(sd, "qkv", a["qkv"])
+    _dense(sd, "proj", a["proj"])
+    if full:
+        sd["full_attn_rel_pos_h"] = _tensor(a["rel_pos_h"])
+        sd["full_attn_rel_pos_w"] = _tensor(a["rel_pos_w"])
+        return sd
+    sd["rel_pos_h"] = _tensor(a["rel_pos_h"])
+    sd["rel_pos_w"] = _tensor(a["rel_pos_w"])
+    sd["relative_position_bias_table"] = _tensor(a["relative_position_bias_table"])
+    for name in ("sampling_offsets", "sampling_scales", "sampling_angles"):
+        k = _np(a[name]["kernel"]).T  # (out, in)
+        sd[name + ".2.weight"] = _tensor(k[:, :, None, None])
+        sd[name + ".2.bias"] = _tensor(a[name]["bias"])
+    return sd
+
+
+def block_from_jax(blk: dict, full: bool) -> StateDict:
+    """`Block` params → the port `Block`'s state_dict."""
+    sd: StateDict = {}
+    _norm(sd, "norm1", blk["norm1"])
+    _norm(sd, "norm2", blk["norm2"])
+    _dense(sd, "mlp.fc1", blk["mlp"]["fc1"])
+    _dense(sd, "mlp.fc2", blk["mlp"]["fc2"])
+    for g in ("gamma_1", "gamma_2"):
+        if g in blk:
+            sd[g] = _tensor(blk[g])
+    sd.update({"attn." + k: v for k, v in attention_from_jax(blk["attn"], full).items()})
+    return sd
+
+
+def backbone_from_jax(params: dict, cfg: BackboneConfig) -> StateDict:
+    """`ViTRVSA` params (unrolled `blocks_i` or scanned `block_groups`)
+    → the port's `ViTRVSA` state_dict."""
+    p = params.get("params", params)
+    if "block_groups" in p:
+        p = unscan_blocks(p, cfg.depth, cfg.interval)
+    sd: StateDict = {}
+    _conv(sd, "patch_embed.proj", p["patch_embed"])
+    if "pos_embed" in p:
+        pe = _np(p["pos_embed"])
+        sd["pos_embed"] = _tensor(pe.reshape(1, -1, pe.shape[-1]))
+    for i in range(cfg.depth):
+        full = (i + 1) % cfg.interval == 0
+        for k, v in block_from_jax(p[f"blocks_{i}"], full).items():
+            sd[f"blocks.{i}.{k}"] = v
+    fpn = p["fpn"]
+    _deconv(sd, "fpn1.0", fpn["fpn1_deconv1"])
+    _norm(sd, "fpn1.1.ln", fpn["fpn1_norm"]["ln"])
+    _deconv(sd, "fpn1.3", fpn["fpn1_deconv2"])
+    _deconv(sd, "fpn2.0", fpn["fpn2_deconv1"])
+    return sd
+
+
+def _convmodule(sd: dict, dst: str, p: dict, s: dict) -> None:
+    _conv(sd, dst + ".conv", p["conv"])
+    _norm(sd, dst + ".bn", p["bn"])
+    sd[dst + ".bn.running_mean"] = _tensor(s["bn"]["mean"])
+    sd[dst + ".bn.running_var"] = _tensor(s["bn"]["var"])
+    sd[dst + ".bn.num_batches_tracked"] = torch.tensor(0)
+
+
+def upernet_from_jax(params: dict, batch_stats: dict) -> StateDict:
+    """`UperNetHead` params + batch_stats → the port's `UperNetHead`
+    state_dict (mmseg names, no prefix)."""
+    sd: StateDict = {}
+    psp, psp_s = params["psp"], batch_stats["psp"]
+    k = 0
+    while f"pool_{k}" in psp:
+        _convmodule(sd, f"psp_modules.{k}.1", psp[f"pool_{k}"], psp_s[f"pool_{k}"])
+        k += 1
+    _convmodule(sd, "bottleneck", psp["bottleneck"], psp_s["bottleneck"])
+    i = 0
+    while f"lateral_{i}" in params:
+        _convmodule(sd, f"lateral_convs.{i}", params[f"lateral_{i}"],
+                    batch_stats[f"lateral_{i}"])
+        _convmodule(sd, f"fpn_convs.{i}", params[f"fpn_{i}"],
+                    batch_stats[f"fpn_{i}"])
+        i += 1
+    _convmodule(sd, "fpn_bottleneck", params["fpn_bottleneck"],
+                batch_stats["fpn_bottleneck"])
+    _conv(sd, "conv_seg", params["conv_seg"])
+    return sd
+
+
+def segmentor_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
+    """JAX `Segmentor` variables {"params", "batch_stats"} → the port's
+    `Segmentor` state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = {"backbone." + k: v
+          for k, v in backbone_from_jax(params["backbone"], cfg).items()}
+    sd.update({"decode_head." + k: v for k, v in upernet_from_jax(
+        params["decode_head"], stats["decode_head"]).items()})
+    return sd
+
+
+# ------------------------------------------------------------------ init --
+
+_LECUN_STD = 0.87962566103423978  # std of the unit normal truncated at ±2
+
+
+def _trunc_normal(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+def _lecun(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's default kernel init: truncated normal, variance 1/fan_in."""
+    _trunc_normal(t, math.sqrt(1.0 / fan_in) / _LECUN_STD, gen)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn as the JAX modules draw them (not the same
+    numbers): trunc-normal(0.02) on every Dense-like weight, the regressors,
+    `pos_embed` and the Swin bias table (vit_rvsa.py:47-48); zeros on the
+    decomposed rel-pos tables; flax's lecun-normal on convolutions; zero
+    biases; unit norms; then `rescale_block_init` (vit_rvsa.py:490-518).
+    BatchNorm keeps running mean 0 and variance 1."""
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Linear):
+            _trunc_normal(mod.weight, 0.02, generator)
+        elif isinstance(mod, nn.Conv2d) and ".sampling_" in name:
+            _trunc_normal(mod.weight, 0.02, generator)
+        elif isinstance(mod, nn.Conv2d):
+            fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            _lecun(mod.weight, fan_in, generator)
+        elif isinstance(mod, nn.ConvTranspose2d):
+            # flax ConvTranspose: fan_in = kh·kw·in (kernel (kh, kw, in, out))
+            _lecun(mod.weight, mod.in_channels * mod.kernel_size[0]
+                   * mod.kernel_size[1], generator)
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            mod.weight.fill_(1.0)
+        if getattr(mod, "bias", None) is not None and \
+                isinstance(mod.bias, torch.Tensor):
+            mod.bias.zero_()
+    for name, prm in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("pos_embed", "relative_position_bias_table"):
+            _trunc_normal(prm, 0.02, generator)
+        elif "rel_pos_" in leaf:
+            prm.zero_()
+    for vit in (m for m in model.modules() if isinstance(m, ViTRVSA)):
+        for i, blk in enumerate(vit.blocks):
+            r = 1.0 / math.sqrt(2.0 * (i + 1))
+            blk.attn.proj.weight.mul_(r)
+            blk.mlp.fc2.weight.mul_(r)
+    return model

@@ -1,0 +1,107 @@
+"""UperNet decode head (PSP + FPN fusion), inference.
+
+Port of `mtp_tpu/heads/upernet.py` (mmseg `UPerHead` as the reference
+configures it: pool scales (1, 2, 3, 6), BN + ReLU conv modules, bilinear
+align_corners=False resizes, 1×1 classifier).  Features are NHWC; parameter
+names are mmseg's (`psp_modules.{k}.1.conv`, `bottleneck`, `lateral_convs`,
+`fpn_convs`, `fpn_bottleneck`, `conv_seg`), as read by
+`mtp_tpu/ckpt/full_convert.py` `convert_upernet_head`.  BatchNorm runs on
+its running statistics (eval); dropout before the classifier is inactive at
+inference and not modelled.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """NHWC bilinear resize with F.interpolate semantics (no antialias)."""
+    if tuple(x.shape[1:3]) == tuple(size):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                      align_corners=align_corners, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+class ConvModule(nn.Module):
+    """Conv (no bias) + BatchNorm (eps 1e-5) + ReLU, NHWC in and out."""
+
+    def __init__(self, cin: int, cout: int, kernel: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x.permute(0, 3, 1, 2)))).permute(0, 2, 3, 1)
+
+
+class PoolTo(nn.Module):
+    """Adaptive average pool to (s, s) as the JAX head computes it: a mean
+    over equal bins when H and W divide by s, a bilinear resize otherwise
+    (not `adaptive_avg_pool2d`)."""
+
+    def __init__(self, s: int):
+        super().__init__()
+        self.s = s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        s = self.s
+        if H % s == 0 and W % s == 0:
+            return x.reshape(B, s, H // s, s, W // s, C).mean((2, 4))
+        return resize_bilinear(x, (s, s))
+
+
+class PSPModule(nn.ModuleList):
+    """Pyramid pooling branches over the coarsest map (mmseg `PPM`: each
+    branch is Sequential(pool, ConvModule)).  Returns [x] + the upsampled
+    branch outputs; the head's `bottleneck` fuses them."""
+
+    def __init__(self, cin: int, channels: int,
+                 pool_scales: Tuple[int, ...] = (1, 2, 3, 6)):
+        super().__init__(nn.Sequential(PoolTo(s), ConvModule(cin, channels, 1))
+                         for s in pool_scales)
+
+    def forward(self, x: torch.Tensor) -> list:
+        H, W = x.shape[1:3]
+        return [x] + [resize_bilinear(branch(x), (H, W)) for branch in self]
+
+
+class UperNetHead(nn.Module):
+    """PSP + top-down FPN fusion to a stride-4 map, then the 1×1 classifier.
+    `in_channels` are the 4 pyramid levels' widths."""
+
+    def __init__(self, in_channels: Sequence[int], num_classes: int,
+                 channels: int = 512, pool_scales: Tuple[int, ...] = (1, 2, 3, 6),
+                 align_corners: bool = False):
+        super().__init__()
+        self.align_corners = align_corners
+        self.psp_modules = PSPModule(in_channels[-1], channels, pool_scales)
+        self.bottleneck = ConvModule(in_channels[-1] + len(pool_scales) * channels,
+                                     channels, 3)
+        self.lateral_convs = nn.ModuleList(
+            ConvModule(c, channels, 1) for c in in_channels[:-1])
+        self.fpn_convs = nn.ModuleList(
+            ConvModule(channels, channels, 3) for _ in in_channels[:-1])
+        self.fpn_bottleneck = ConvModule(len(in_channels) * channels, channels, 3)
+        self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        laterals = [conv(f) for conv, f in zip(self.lateral_convs, feats)]
+        laterals.append(self.bottleneck(torch.cat(self.psp_modules(feats[-1]), -1)))
+        for i in range(len(laterals) - 1, 0, -1):
+            h, w = laterals[i - 1].shape[1:3]
+            laterals[i - 1] = laterals[i - 1] + resize_bilinear(
+                laterals[i], (h, w), self.align_corners)
+        outs = [conv(l) for conv, l in zip(self.fpn_convs, laterals)]
+        outs.append(laterals[-1])
+        h, w = outs[0].shape[1:3]
+        outs = [resize_bilinear(o, (h, w), self.align_corners) for o in outs]
+        x = self.fpn_bottleneck(torch.cat(outs, -1))
+        return self.conv_seg(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels.
+
+`csrc/*.cu` are compiled by `nvcc` into one shared library with a plain C
+interface, `_build/libmtp_kernels.so`, and loaded with ctypes.  The build
+happens at the first launch on a CUDA tensor (never at import) and again
+whenever a source is newer than the library.  There is no fallback: a
+missing `nvcc` or a failed compile raises with the compiler's output.
+
+Every launcher takes its pointers and the CUDA stream as `void*`, sizes as
+`int`, and returns the `cudaError_t` of its launch (0 on success).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+LIB = BUILD / "libmtp_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# launcher name → argtypes; the trailing (dtype code, stream) are common
+SIGNATURES = {
+    # q, k, v, bias, out, W·nH, N, D, scale
+    "mtp_window_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
+    # q, k, v, rel_h, rel_w, out, BH, N, D, Hk, Wk, scale
+    "mtp_flash_attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F],
+    # img, py, px, m, out, BG, H, W, C, HWo, P
+    "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+}
+
+# storage types the kernels are instantiated for (csrc/common.cuh DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+# ptxas's report (registers, shared memory, spills per kernel) of the last
+# compile in this process
+PTXAS_LOG: list[str] = []
+
+
+def find_nvcc() -> str:
+    """`nvcc` on PATH, else `$CUDA_HOME/bin/nvcc` (CUDA_HOME defaults to
+    /usr/local/cuda).  Raises if neither exists."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        f"nvcc not found on PATH or at {cand}: the CUDA kernels of "
+        f"mtp_tpu_torch cannot be built (set CUDA_HOME or PATH)")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def stale(lib: Path = LIB) -> bool:
+    """True when the library is missing or older than any source."""
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built
+               for p in sources() + sorted(CSRC.glob("*.cuh")))
+
+
+def build(force: bool = False) -> Path:
+    """Compile `csrc/*.cu` into `_build/libmtp_kernels.so` if stale."""
+    if not force and not stale():
+        return LIB
+    nvcc = find_nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, LIB)
+    PTXAS_LOG[:] = _ptxas_summary(res.stdout + res.stderr)
+    return LIB
+
+
+def _ptxas_summary(text: str) -> list[str]:
+    """One line per compiled kernel from `-Xptxas -v`: registers, spills."""
+    out = []
+    for line in text.splitlines():
+        entry = re.search(r"entry function '.*?\d+([a-z_]+_kernel)I(?:\d+)?(\w+?)E", line)
+        if entry:
+            out.append(f"{entry[1]}<{entry[2].strip('_')}>:")
+        elif out and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.split(":")[-1].strip()
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, args in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = args + [_I, _P]
+            fn.restype = _I
+        _lib = handle
+    return _lib
+
+
+def use_kernel(*tensors: torch.Tensor) -> bool:
+    """Dispatch by device: True when every tensor lies on one CUDA device
+    (launch the kernel), False when all lie on the CPU (run the plain
+    version).  Anything else raises; there is no switch and no fallback."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version for device {device}")
+
+
+def check_launchable(**tensors: torch.Tensor) -> None:
+    """The kernels take dense row-major storage only."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"CUDA kernels take {list(DTYPE_CODES)}, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def launch(name: str, *args) -> None:
+    """Call launcher `name` on the current stream; raise on a launch error."""
+    err = getattr(lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError {err}")

@@ -1,0 +1,31 @@
+"""Encoder-decoder semantic segmentor: ViT+RVSA → UperNet (port of
+`mtp_tpu/models/segmentor.py`).  Submodules `backbone` and `decode_head`
+carry the mmseg `EncoderDecoder` key prefixes."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from mtp_tpu_torch.config import BackboneConfig
+from mtp_tpu_torch.heads.upernet import UperNetHead, resize_bilinear
+from mtp_tpu_torch.models.backbones import build_backbone
+
+
+class Segmentor(nn.Module):
+    def __init__(self, cfg: BackboneConfig, num_classes: int,
+                 channels: int = 512,
+                 input_hw: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        self.backbone = build_backbone(cfg, input_hw)
+        self.decode_head = UperNetHead([cfg.embed_dim] * 4, num_classes, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) → stride-4 logits (B, H/4, W/4, num_classes)."""
+        return self.decode_head(self.backbone(x))
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        """Full-resolution logits (B, H, W, num_classes)."""
+        return resize_bilinear(self(x), tuple(x.shape[1:3]))
