@@ -10,6 +10,11 @@ so they cannot run where the port does).  Layout maps (flax → torch):
 - LayerNorm / BatchNorm scale       → weight; batch_stats mean/var →
   running_mean / running_var
 - Dense regressor (in, out)         → 1×1 Conv2d weight (out, in, 1, 1)
+
+Every map is a permutation of elements (transposes, reshapes, flips), so
+the same functions carry anything shaped like the parameters — gradients,
+Adam moments — to the port's parameter names (`params_from_jax`,
+`opt_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -174,6 +179,29 @@ def segmentor_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
     sd.update({"decode_head." + k: v for k, v in upernet_from_jax(
         params["decode_head"], stats["decode_head"]).items()})
     return sd
+
+
+_BN_BUFFERS = (".running_mean", ".running_var", ".num_batches_tracked")
+
+
+def params_from_jax(tree: dict, batch_stats: dict, cfg: BackboneConfig) -> StateDict:
+    """A pytree shaped like the JAX `Segmentor`'s params (the params, their
+    gradients, an Adam moment) → {port parameter name: tensor}, through
+    `segmentor_from_jax` (batch_stats only fills the BatchNorm buffers,
+    which are dropped)."""
+    sd = segmentor_from_jax({"params": tree, "batch_stats": batch_stats}, cfg)
+    return {k: v for k, v in sd.items() if not k.endswith(_BN_BUFFERS)}
+
+
+def opt_state_from_jax(opt_state, batch_stats: dict, cfg: BackboneConfig):
+    """The optax state of `mtp_tpu.core.optim.make_optimizer` (a chain whose
+    second entry is `ScaleByAdamState(count, mu, nu)`) → (count, {port
+    parameter name: (exp_avg, exp_avg_sq)}), the torch AdamW state that
+    `LayerDecayAdamW.load_moments` takes."""
+    adam = opt_state[1]
+    mu = params_from_jax(adam.mu, batch_stats, cfg)
+    nu = params_from_jax(adam.nu, batch_stats, cfg)
+    return int(np.asarray(adam.count)), {k: (mu[k], nu[k]) for k in mu}
 
 
 # ------------------------------------------------------------------ init --

@@ -9,7 +9,7 @@ only attributes, so they accept either.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -35,7 +35,8 @@ class BackboneConfig:
     drop_rate: float = 0.0
     use_abs_pos_emb: bool = True
     init_values: Optional[float] = None
-    # the JAX package's training and layout switches; inference ignores them
+    # the JAX package's layout switches: the port has one (unrolled) layout
+    # and no remat (it raises when a backward could follow)
     remat: bool = False
     scan: bool = False
     pallas_attn: bool = False
@@ -63,3 +64,97 @@ class SlideConfig:
 
     crop: int = 512
     stride: int = 256
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + layer decay + grad clip (reference main_pretrain.py:424-457,
+    layer_decay_optimizer_constructor_vit.py)."""
+
+    lr: float = 1e-4
+    weight_decay: float = 0.05
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    layer_decay: float = 0.9
+    clip_norm: float = 5.0
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """LR schedule: linear warmup then cosine, poly, constant or step."""
+
+    kind: str = "cosine"  # cosine | poly | constant | step
+    total_steps: int = 1000
+    warmup_steps: int = 0
+    warmup_ratio: float = 1e-6
+    min_lr_ratio: float = 0.0
+    poly_power: float = 1.0
+    # kind='step': LR multiplied by step_gamma at each fraction of the
+    # post-warmup steps
+    step_milestones: tuple = (8 / 12, 11 / 12)
+    step_gamma: float = 0.1
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh shape of the JAX package.  The port runs on one device:
+    it carries the field so the copies stay equal, and raises on any mesh
+    other than data, model in {1, -1} (`check_single_device`)."""
+
+    data: int = -1  # -1: all remaining devices
+    model: int = 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 64  # global
+    seed: int = 2023
+    log_every: int = 50
+    ckpt_every: int = 1000
+    eval_every: int = 1000
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+
+
+@dataclass(frozen=True)
+class TaskConfig:
+    """One downstream task recipe."""
+
+    task: str = "classification"  # classification|segmentation|detection_h|detection_r|instseg|change_detection
+    num_classes: int = 10
+    backbone: BackboneConfig = field(default_factory=vit_b_rvsa)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    slide: Optional[SlideConfig] = None
+    ignore_index: int = 255
+
+
+def check_single_device(mesh: MeshConfig) -> None:
+    """The port runs on one device (data-parallel training is not ported
+    yet): any mesh axis other than 1 or -1 raises."""
+    for axis in ("data", "model"):
+        if getattr(mesh, axis) not in (1, -1):
+            raise NotImplementedError(
+                f"mesh {axis}={getattr(mesh, axis)}: the port runs on one "
+                f"device (DDP is not ported yet)")
+
+
+def rvsa_l_upernet_384_spacenetv1() -> TaskConfig:
+    """The recipe `rvsa-l-upernet-384-mae-mtp-spacenetv1` (and its `-mae-`
+    twin, which differs only in the checkpoint it loads): ViT-L+RVSA at
+    384² (`mtp_tpu.configs._bb("rvsa_l", 384)`) → UperNet, 2 classes, with
+    the segmentation recipe shape (`mtp_tpu.configs._seg`; reference mmseg
+    config spacenetv1/rvsa-l-upernet-384-...py:92-114: AdamW 6e-5, layer
+    decay 0.9, no clipping, LinearLR 1500 iters + CosineAnnealingLR to 80k,
+    batch 8, slide eval stride 256)."""
+    return TaskConfig(
+        task="segmentation", num_classes=2,
+        backbone=vit_l_rvsa(384, drop_path_rate=0.3, scan=True,
+                            out_indices=(7, 11, 15, 23)),
+        train=TrainConfig(
+            batch_size=8,
+            optimizer=OptimizerConfig(lr=6e-5, weight_decay=0.05,
+                                      layer_decay=0.9, clip_norm=0.0),
+            schedule=ScheduleConfig(kind="cosine", total_steps=80000,
+                                    warmup_steps=1500)),
+        slide=SlideConfig(crop=384, stride=256))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` are compiled by `nvcc` into one shared library with a plain C
-interface, `_build/libmtp_kernels.so`, and loaded with ctypes.  The build
-happens at the first launch on a CUDA tensor (never at import) and again
-whenever a source is newer than the library.  There is no fallback: a
-missing `nvcc` or a failed compile raises with the compiler's output.
+`csrc/*.cu` are compiled by `nvcc`, one process per source and all at once,
+and linked into one shared library with a plain C interface,
+`_build/libmtp_kernels.so`, loaded with ctypes.  The build happens at the
+first launch on a CUDA tensor (never at import) and again whenever a source
+is newer than the library.  There is no fallback: a missing `nvcc` or a
+failed compile raises with the compiler's output.
 
 Every launcher takes its pointers and the CUDA stream as `void*`, sizes as
 `int`, and returns the `cudaError_t` of its launch (0 on success).
@@ -26,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 LIB = BUILD / "libmtp_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher name → argtypes; the trailing (dtype code, stream) are common
@@ -37,6 +38,13 @@ SIGNATURES = {
     "mtp_flash_attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F],
     # img, py, px, m, out, BG, H, W, C, HWo, P
     "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # q, k, v, bias, dout, dq, dk, dv, dbias, W·nH, N, D, scale
+    "mtp_window_attn_bwd": [_P] * 9 + [_I, _I, _I, _F],
+    # q, k, v, rel_h, rel_w, dout, dq, dk, dv, drel_h, drel_w, stats,
+    # BH, N, D, Hk, Wk, scale
+    "mtp_flash_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F],
+    # img, py, px, m, g, dimg (fp32), dpy, dpx, dm, BG, H, W, C, HWo, P
+    "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 6,
 }
 
 # storage types the kernels are instantiated for (csrc/common.cuh DType)
@@ -77,19 +85,42 @@ def stale(lib: Path = LIB) -> bool:
 
 
 def build(force: bool = False) -> Path:
-    """Compile `csrc/*.cu` into `_build/libmtp_kernels.so` if stale."""
+    """Compile `csrc/*.cu` into `_build/libmtp_kernels.so` if stale: one
+    `nvcc -c` per source, all started together, then one link."""
     if not force and not stale():
         return LIB
     nvcc = find_nvcc()
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIB)
-    PTXAS_LOG[:] = _ptxas_summary(res.stdout + res.stderr)
+    tag = os.getpid()
+    objs = [BUILD / f"{src.stem}.{tag}.o" for src in sources()]
+    jobs = []
+    try:
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+            logs.append(out)
+        tmp = LIB.with_suffix(f".{tag}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, LIB)
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    PTXAS_LOG[:] = _ptxas_summary("\n".join(logs))
     return LIB
 
 

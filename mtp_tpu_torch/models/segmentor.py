@@ -22,9 +22,16 @@ class Segmentor(nn.Module):
         self.backbone = build_backbone(cfg, input_hw)
         self.decode_head = UperNetHead([cfg.embed_dim] * 4, num_classes, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) → stride-4 logits (B, H/4, W/4, num_classes)."""
-        return self.decode_head(self.backbone(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, 3) → stride-4 logits (B, H/4, W/4, num_classes).
+
+        JAX meanings: `train` runs the head's BatchNorm on batch statistics
+        and updates its running ones; `deterministic=False` turns on
+        drop-path, dropout and the head's dropout, drawn from `generator`."""
+        feats = self.backbone(x, deterministic, generator)
+        return self.decode_head(feats, train, deterministic, generator)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """Full-resolution logits (B, H, W, num_classes)."""

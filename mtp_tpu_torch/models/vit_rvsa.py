@@ -1,4 +1,4 @@
-"""ViT + RVSA (Rotated Varied-Size Window Attention) backbone, inference.
+"""ViT + RVSA (Rotated Varied-Size Window Attention) backbone.
 
 Port of `mtp_tpu/models/vit_rvsa.py` (itself a re-design of the reference
 `ViT_Win_RVSA_V3_WSZ7`).  Features are NHWC; modules permute to NCHW only
@@ -22,7 +22,13 @@ Numeric semantics kept from the reference, quirks included:
 
 Kernels: RVSA blocks run K1 (window attention) and K3 twice (K and V
 sampling); full blocks run K2 when max(H, W) <= 128, else K1 with a
-materialised bias, as the JAX package routes them.
+materialised bias, as the JAX package routes them.  Their backwards run K4,
+K6 (twice) and K5.
+
+Train mode follows the JAX meaning of `deterministic`: when False, each
+block's residual branches go through per-sample drop-path at the rates
+linspace(0, drop_path_rate, depth), and the patch tokens through dropout at
+drop_rate, every mask drawn from the generator passed in.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtp_tpu_torch.config import BackboneConfig
+from mtp_tpu_torch.ops.dropout import drop_path, dropout
 from mtp_tpu_torch.ops.fused_attn import (flash_full_attention,
                                           fused_window_attention)
 from mtp_tpu_torch.ops.grid_sample import grid_sample
@@ -218,8 +225,10 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  full_attn: bool, grid_size: Tuple[int, int],
                  window_size: int = 7, qkv_bias: bool = True,
-                 init_values: Optional[float] = None):
+                 init_values: Optional[float] = None,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         if full_attn:
             self.attn = FullAttention(dim, num_heads, grid_size, qkv_bias)
@@ -233,11 +242,15 @@ class Block(nn.Module):
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.drop_path_rate
         a = self.attn(self.norm1(x))
-        x = x + (a if self.gamma_1 is None else a * self.gamma_1)
+        a = a if self.gamma_1 is None else a * self.gamma_1
+        x = x + drop_path(a, rate, deterministic, generator)
         m = self.mlp(self.norm2(x))
-        return x + (m if self.gamma_2 is None else m * self.gamma_2)
+        m = m if self.gamma_2 is None else m * self.gamma_2
+        return x + drop_path(m, rate, deterministic, generator)
 
 
 class Norm2d(nn.Module):
@@ -282,11 +295,12 @@ class ViTRVSA(nn.Module):
         self.patch_embed = PatchEmbed(p, cfg.in_chans, D)
         self.pos_embed = (nn.Parameter(torch.zeros(1, grid[0] * grid[1], D))
                           if cfg.use_abs_pos_emb else None)
+        dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth)
         self.blocks = nn.ModuleList(
             Block(D, cfg.num_heads, cfg.mlp_ratio,
                   full_attn=((i + 1) % cfg.interval == 0), grid_size=grid,
                   window_size=cfg.window_size, qkv_bias=cfg.qkv_bias,
-                  init_values=cfg.init_values)
+                  init_values=cfg.init_values, drop_path_rate=float(dpr[i]))
             for i in range(cfg.depth))
         # the simple feature pyramid (ViTDet-style, reference fpn1..fpn4):
         # strides 4, 8, 16, 32 from the stride-16 grid, all D channels
@@ -296,14 +310,23 @@ class ViTRVSA(nn.Module):
         self.fpn3 = nn.Identity()
         self.fpn4 = nn.MaxPool2d(2, stride=2)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        if self.cfg.remat and torch.is_grad_enabled():
+            # torch.utils.checkpoint restores the global RNGs, not an
+            # explicit generator: a recomputed block would draw other
+            # drop-path masks than its forward did
+            raise NotImplementedError(
+                "remat is not ported: the recipe does not use it, and the "
+                "drop-path masks must be drawn outside the recomputed blocks")
         x = self.patch_embed(x)  # (B, Hp, Wp, D)
         B, Hp, Wp, D = x.shape
         if self.pos_embed is not None:
             x = x + self.pos_embed.reshape(1, Hp, Wp, D)
+        x = dropout(x, self.cfg.drop_rate, deterministic, generator)
         taps = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, deterministic, generator)
             if i in self.cfg.out_indices:
                 taps[i] = x
         ops = (self.fpn1, self.fpn2, self.fpn3, self.fpn4)

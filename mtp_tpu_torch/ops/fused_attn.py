@@ -1,11 +1,13 @@
-"""Fused attention forwards: window attention (K1) and flash full attention
-with the decomposed rel-pos bias (K2).
+"""Fused attention: window attention (K1 forward, K4 backward) and flash full
+attention with the decomposed rel-pos bias (K2 forward, K5 backward).
 
-Port of the forward functions of `mtp_tpu/ops/pallas_attn.py`, with the JAX
-signatures minus `interpret`.  Each public function runs its plain version
-(`*_ref`, einsum + fp32 softmax) on CPU tensors and launches its CUDA kernel
-(`csrc/window_attn_fwd.cu`, `csrc/flash_attn_fwd.cu`) on CUDA tensors.
-Inference only: no backward yet.
+Port of `mtp_tpu/ops/pallas_attn.py`, with the JAX signatures minus
+`interpret`.  `fused_window_attention` and `flash_full_attention` are
+`torch.autograd.Function`s, as the JAX functions are `custom_vjp`s: the
+forward runs K1/K2, the backward K4/K5 (`csrc/window_attn_bwd.cu`,
+`csrc/flash_attn_bwd.cu`).  Every kernel wrapper runs its plain version
+(`*_ref`: einsum + fp32 softmax, and the explicit VJPs `*_bwd_ref`) on CPU
+tensors and launches its CUDA kernel on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import torch
 
 from mtp_tpu_torch.kernels import _build
 
-LAUNCHES = {"window": 0, "flash": 0}
+LAUNCHES = {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0}
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _FLASH_BQ = _FLASH_BK = 64  # query / key tile of csrc/flash_attn_fwd.cu
+_FLASH_BWD_BQ = 32  # query tile of csrc/flash_attn_bwd.cu (its key tile is 64)
 
 
 def window_smem_bytes(N: int, D: int) -> int:
@@ -25,11 +28,29 @@ def window_smem_bytes(N: int, D: int) -> int:
     return (3 * N * (D + 1) + N * N) * 4
 
 
+def window_bwd_smem_bytes(N: int, D: int) -> int:
+    """Shared memory of one K4 block: fp32 q, k, v, dO rows of D+1, the N×N
+    probabilities and dP/dS."""
+    return (4 * N * (D + 1) + 2 * N * N) * 4
+
+
 def flash_smem_bytes(D: int, Hk: int, Wk: int) -> int:
     """Shared memory of one K2 block (see csrc/flash_attn_fwd.cu)."""
     return ((2 * _FLASH_BQ + 2 * _FLASH_BK) * (D + 1)
             + _FLASH_BQ * (_FLASH_BK + 1) + _FLASH_BQ * (Hk + Wk)
             + 3 * _FLASH_BQ) * 4
+
+
+def flash_bwd_smem_bytes(D: int, Hk: int, Wk: int) -> int:
+    """Shared memory of the larger of K5's two blocks (csrc/flash_attn_bwd.cu):
+    the q-major pass holds q, dO, dQ of a 32-row tile, k, v of a 64-key tile,
+    two 32×65 score tiles, the tile's rel_h/rel_w rows and 3 row statistics;
+    the k-major pass holds k, v, dK, dV of a 64-key tile, q, dO and two score
+    tiles of 32 rows, the rel rows and 2 statistics."""
+    q, k, sp = _FLASH_BWD_BQ, _FLASH_BK, _FLASH_BK + 1
+    dq_pass = (3 * q + 2 * k) * (D + 1) + 2 * q * sp + q * (Hk + Wk) + 3 * q
+    dkv_pass = (4 * k + 2 * q) * (D + 1) + 2 * q * sp + q * (Hk + Wk) + 2 * q
+    return max(dq_pass, dkv_pass) * 4
 
 
 def _check_qkv(q, k, v, ndim):
@@ -47,35 +68,64 @@ def _check_f32(**tensors):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
 
 
-# --------------------------------------------------------------------- K1 --
+def _check_dout(q, dout):
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+
+
+def _smem_guard(what: str, need: int) -> None:
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {need} B of shared memory, over the "
+                         f"{SMEM_LIMIT} B of one block")
+
+
+# ------------------------------------------------------------------ K1, K4 --
+
+def _window_probs(q, k, bias, scale):
+    s = torch.einsum("whqd,whkd->whqk", q.float(), k.float()) * scale
+    return torch.softmax(s + bias, dim=-1)
+
 
 def fused_window_attention_ref(q, k, v, bias, scale: float) -> torch.Tensor:
     """Plain version of K1: fp32 einsum + softmax, output in q's dtype."""
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.einsum("whqd,whkd->whqk", q.float(), k.float()) * scale
-        p = torch.softmax(s + bias, dim=-1)
+        p = _window_probs(q, k, bias, scale)
         return torch.einsum("whqk,whkd->whqd", p, v.float()).to(q.dtype)
 
 
-def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """softmax(q·kᵀ·scale + bias)·v per (window, head).
+def fused_window_attention_bwd_ref(q, k, v, bias, dout, scale: float):
+    """Plain version of K4, the explicit VJP of K1 (mtp_tpu
+    `_win_bwd_kernel`): with P the recomputed probabilities,
+        dV = Pᵀ dO,  dP = dO Vᵀ,  dS = P ∘ (dP − rowsum(P ∘ dP)),
+        dQ = dS K · scale,  dK = dSᵀ Q · scale,  dbias = dS.
+    Returns (dq, dk, dv) in q's dtype and dbias fp32."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+        p = _window_probs(q, k, bias, scale)
+        dv = torch.einsum("whqk,whqd->whkd", p, do)
+        dp = torch.einsum("whqd,whkd->whqk", do, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq = torch.einsum("whqk,whkd->whqd", ds, kf) * scale
+        dk = torch.einsum("whqk,whqd->whkd", ds, qf) * scale
+        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds
 
-    q/k/v (W, nH, N, D) fp32 or bf16; bias (W, nH, N, N) fp32 → (W, nH, N, D)
-    in q's dtype."""
+
+def _check_window(q, k, v, bias):
     _check_qkv(q, k, v, 4)
-    W, nH, N, D = q.shape
+    W, nH, N, _ = q.shape
     if bias.shape != (W, nH, N, N):
         raise ValueError(f"bias must be {(W, nH, N, N)}, got {tuple(bias.shape)}")
     _check_f32(bias=bias)
+
+
+def _window_fwd(q, k, v, bias, scale):
+    _check_window(q, k, v, bias)
     if not _build.use_kernel(q, k, v, bias):
         return fused_window_attention_ref(q, k, v, bias, scale)
-    if window_smem_bytes(N, D) > SMEM_LIMIT:
-        raise ValueError(
-            f"window attention with N={N}, D={D} needs "
-            f"{window_smem_bytes(N, D)} B of shared memory, over the "
-            f"{SMEM_LIMIT} B of one block (the q-blocked path for such "
-            f"windows is not ported yet)")
+    W, nH, N, D = q.shape
+    _smem_guard(f"window attention with N={N}, D={D} (the q-blocked path for "
+                f"such windows is not ported yet)", window_smem_bytes(N, D))
     _build.check_launchable(q=q, k=k, v=v, bias=bias)
     out = torch.empty_like(q)
     _build.launch("mtp_window_attn_fwd", q.data_ptr(), k.data_ptr(),
@@ -85,31 +135,101 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-# --------------------------------------------------------------------- K2 --
+def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               dout: torch.Tensor, scale: float):
+    """Gradients of `fused_window_attention` for the output cotangent dout
+    (q's shape and dtype) → (dq, dk, dv) in q's dtype and dbias fp32.
+
+    CPU tensors run `fused_window_attention_bwd_ref`; CUDA tensors launch
+    the K4 kernel."""
+    _check_window(q, k, v, bias)
+    _check_dout(q, dout)
+    if not _build.use_kernel(q, k, v, bias, dout):
+        return fused_window_attention_bwd_ref(q, k, v, bias, dout, scale)
+    W, nH, N, D = q.shape
+    _smem_guard(f"the window attention backward with N={N}, D={D}",
+                window_bwd_smem_bytes(N, D))
+    _build.check_launchable(q=q, k=k, v=v, bias=bias, dout=dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    _build.launch("mtp_window_attn_bwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  dbias.data_ptr(), W * nH, N, D, float(scale),
+                  _build.dtype_code(q))
+    LAUNCHES["window_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias)
+        return _window_fwd(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        grads = fused_window_attention_bwd(
+            q, k, v, bias, dout.to(q.dtype).contiguous(), ctx.scale)
+        return (*grads, None)
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + bias)·v per (window, head), differentiable in q,
+    k, v and bias.
+
+    q/k/v (W, nH, N, D) fp32 or bf16; bias (W, nH, N, N) fp32 → (W, nH, N, D)
+    in q's dtype."""
+    return _WindowAttention.apply(q, k, v, bias, scale)
+
+
+# ------------------------------------------------------------------ K2, K5 --
+
+def _flash_probs(q, k, rel_h, rel_w, grid_hw, scale):
+    BH, N, _ = q.shape
+    Hk, Wk = grid_hw
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = s.reshape(BH, N, Hk, Wk) + rel_h[..., :, None] + rel_w[..., None, :]
+    return torch.softmax(s.reshape(BH, N, N), dim=-1)
+
 
 def flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw,
                              scale: float) -> torch.Tensor:
     """Plain version of K2: materialises the (BH, N, N) scores and bias."""
-    BH, N, _ = q.shape
-    Hk, Wk = grid_hw
     with torch.autocast(q.device.type, enabled=False):
-        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-        s = s.reshape(BH, N, Hk, Wk) + rel_h[..., :, None] + rel_w[..., None, :]
-        p = torch.softmax(s.reshape(BH, N, N), dim=-1)
+        p = _flash_probs(q, k, rel_h, rel_w, grid_hw, scale)
         return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         rel_h: torch.Tensor, rel_w: torch.Tensor,
-                         grid_hw: tuple, scale: float) -> torch.Tensor:
-    """Full attention with the decomposed rel-pos bias
-    bias[q, k] = rel_h[q, k // Wk] + rel_w[q, k % Wk], never forming the
-    (N, N) scores on the card.
+def flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, dout, grid_hw,
+                                 scale: float):
+    """Plain version of K5, the explicit VJP of K2 (mtp_tpu
+    `_flash_bwd_kernel`): dq, dk, dv as for window attention, and since
+    bias[q, ky·Wk + kx] = rel_h[q, ky] + rel_w[q, kx], d(rel_h) is dS summed
+    over each key row and d(rel_w) over each key column.  Returns (dq, dk,
+    dv) in q's dtype and (drel_h, drel_w) fp32."""
+    BH, N, _ = q.shape
+    Hk, Wk = grid_hw
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+        p = _flash_probs(q, k, rel_h, rel_w, grid_hw, scale)
+        dv = torch.einsum("bqk,bqd->bkd", p, do)
+        dp = torch.einsum("bqd,bkd->bqk", do, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+        dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+        ds = ds.reshape(BH, N, Hk, Wk)
+        return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype),
+                ds.sum(-1), ds.sum(-2))
 
-    q/k/v (BH, N, D) fp32 or bf16; rel_h (BH, N, Hk), rel_w (BH, N, Wk) fp32;
-    N = Hk·Wk → (BH, N, D) in q's dtype."""
+
+def _check_flash(q, k, v, rel_h, rel_w, grid_hw):
     _check_qkv(q, k, v, 3)
-    BH, N, D = q.shape
+    BH, N, _ = q.shape
     Hk, Wk = grid_hw
     if Hk * Wk != N:
         raise ValueError(f"grid {grid_hw} does not hold N={N} keys")
@@ -117,12 +237,16 @@ def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"rel_h/rel_w must be {(BH, N, Hk)}/{(BH, N, Wk)}, "
                          f"got {tuple(rel_h.shape)}/{tuple(rel_w.shape)}")
     _check_f32(rel_h=rel_h, rel_w=rel_w)
+
+
+def _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
+    _check_flash(q, k, v, rel_h, rel_w, grid_hw)
     if not _build.use_kernel(q, k, v, rel_h, rel_w):
         return flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale)
-    if flash_smem_bytes(D, Hk, Wk) > SMEM_LIMIT:
-        raise ValueError(f"flash attention with D={D}, grid {grid_hw} needs "
-                         f"{flash_smem_bytes(D, Hk, Wk)} B of shared memory, "
-                         f"over the {SMEM_LIMIT} B of one block")
+    BH, N, D = q.shape
+    Hk, Wk = grid_hw
+    _smem_guard(f"flash attention with D={D}, grid {grid_hw}",
+                flash_smem_bytes(D, Hk, Wk))
     _build.check_launchable(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w)
     out = torch.empty_like(q)
     _build.launch("mtp_flash_attn_fwd", q.data_ptr(), k.data_ptr(),
@@ -131,3 +255,64 @@ def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   _build.dtype_code(q))
     LAUNCHES["flash"] += 1
     return out
+
+
+def flash_full_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, rel_h: torch.Tensor,
+                             rel_w: torch.Tensor, dout: torch.Tensor,
+                             grid_hw: tuple, scale: float):
+    """Gradients of `flash_full_attention` for the output cotangent dout →
+    (dq, dk, dv) in q's dtype and (drel_h, drel_w) fp32.
+
+    CPU tensors run `flash_full_attention_bwd_ref`; CUDA tensors launch the
+    K5 kernels."""
+    _check_flash(q, k, v, rel_h, rel_w, grid_hw)
+    _check_dout(q, dout)
+    if not _build.use_kernel(q, k, v, rel_h, rel_w, dout):
+        return flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, dout,
+                                            grid_hw, scale)
+    BH, N, D = q.shape
+    Hk, Wk = grid_hw
+    _smem_guard(f"the flash attention backward with D={D}, grid {grid_hw}",
+                flash_bwd_smem_bytes(D, Hk, Wk))
+    _build.check_launchable(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w, dout=dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # d(rel_h)/d(rel_w) are accumulated in place over the key tiles
+    drel_h, drel_w = torch.zeros_like(rel_h), torch.zeros_like(rel_w)
+    # per query row: log-sum-exp of the scores and rowsum(P ∘ dP)
+    stats = torch.empty((2, BH, N), dtype=torch.float32, device=q.device)
+    _build.launch("mtp_flash_attn_bwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
+                  BH, N, D, Hk, Wk, float(scale), _build.dtype_code(q))
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv, drel_h, drel_w
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, grid_hw, scale):
+        ctx.grid_hw, ctx.scale = grid_hw, scale
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        return _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        grads = flash_full_attention_bwd(
+            q, k, v, rel_h, rel_w, dout.to(q.dtype).contiguous(),
+            ctx.grid_hw, ctx.scale)
+        return (*grads, None, None)
+
+
+def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_h: torch.Tensor, rel_w: torch.Tensor,
+                         grid_hw: tuple, scale: float) -> torch.Tensor:
+    """Full attention with the decomposed rel-pos bias
+    bias[q, k] = rel_h[q, k // Wk] + rel_w[q, k % Wk], never forming the
+    (N, N) scores on the card; differentiable in q, k, v, rel_h and rel_w.
+
+    q/k/v (BH, N, D) fp32 or bf16; rel_h (BH, N, Hk), rel_w (BH, N, Wk) fp32;
+    N = Hk·Wk → (BH, N, D) in q's dtype."""
+    return _FlashAttention.apply(q, k, v, rel_h, rel_w, tuple(grid_hw), scale)

@@ -27,15 +27,25 @@ SLICE_MODULES = [
     "mtp_tpu_torch.ops.dcnv3_sample",
     "mtp_tpu_torch.ops.grid_sample",
     "mtp_tpu_torch.ops.fused_attn",
+    "mtp_tpu_torch.ops.dropout",
     "mtp_tpu_torch.models.vit_rvsa",
     "mtp_tpu_torch.models.backbones",
     "mtp_tpu_torch.models.segmentor",
     "mtp_tpu_torch.heads.upernet",
     "mtp_tpu_torch.eval.slide",
+    "mtp_tpu_torch.eval.metrics",
+    "mtp_tpu_torch.core.optim",
+    "mtp_tpu_torch.core.train",
+    "mtp_tpu_torch.tasks._fit",
     "mtp_tpu_torch.tasks.segmentation",
     "mtp_tpu_torch.ckpt.from_jax",
     "chip_smoke",
 ]
+
+# the six kernel sources of the serving and training paths
+KERNEL_SOURCES = {
+    "window_attn_fwd.cu", "flash_attn_fwd.cu", "bilinear_sample_fwd.cu",
+    "window_attn_bwd.cu", "flash_attn_bwd.cu", "bilinear_sample_bwd.cu"}
 
 
 def test_imports_without_jax_flax_or_the_jax_package():
@@ -66,14 +76,28 @@ def test_config_copies_match_the_jax_package():
     from mtp_tpu.utils import config as jc
     from mtp_tpu_torch import config as pc
 
-    for name in ("BackboneConfig", "SlideConfig"):
+    from mtp_tpu import configs as jrecipes
+
+    for name in ("BackboneConfig", "SlideConfig", "OptimizerConfig",
+                 "ScheduleConfig", "MeshConfig", "TrainConfig", "TaskConfig"):
         want = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(jc, name))]
         got = [(f.name, f.type, f.default) for f in dataclasses.fields(getattr(pc, name))]
         assert got == want, name
+        # default_factory fields: the built defaults agree too
+        assert dataclasses.asdict(getattr(pc, name)()) == \
+            dataclasses.asdict(getattr(jc, name)()), name
     for factory in ("vit_b_rvsa", "vit_l_rvsa"):
         for kw in ({}, {"out_indices": (1, 2, 3, 4), "drop_path_rate": 0.3}):
             assert dataclasses.asdict(getattr(pc, factory)(384, **kw)) == \
                 dataclasses.asdict(getattr(jc, factory)(384, **kw))
+    recipe = pc.rvsa_l_upernet_384_spacenetv1()
+    for name in ("rvsa-l-upernet-384-mae-mtp-spacenetv1",
+                 "rvsa-l-upernet-384-mae-spacenetv1"):
+        assert dataclasses.asdict(recipe) == \
+            dataclasses.asdict(jrecipes.get(name).task), name
+    with pytest.raises(NotImplementedError, match="one device"):
+        pc.check_single_device(pc.MeshConfig(data=4))
+    pc.check_single_device(pc.MeshConfig(data=1, model=-1))
 
 
 def test_build_without_nvcc_raises_naming_it(monkeypatch, tmp_path):
@@ -83,6 +107,38 @@ def test_build_without_nvcc_raises_naming_it(monkeypatch, tmp_path):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(force=True)
+
+
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    """With a stand-in nvcc that logs its arguments and writes its -o file:
+    one `-c` compile per source, then one `-shared` link of all the objects
+    into the library; no object file is left behind."""
+    calls = tmp_path / "calls"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        args = sys.argv[1:]
+        with open({str(calls)!r}, "a") as f:
+            f.write(" ".join(args) + "\\n")
+        open(args[args.index("-o") + 1], "w").close()
+    """))
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    build_dir = tmp_path / "_build"
+    monkeypatch.setattr(_build, "BUILD", build_dir)
+    monkeypatch.setattr(_build, "LIB", build_dir / "libmtp_kernels.so")
+    assert _build.build(force=True) == build_dir / "libmtp_kernels.so"
+    lines = [line.split() for line in calls.read_text().splitlines()]
+    compiles, links = lines[:-1], lines[-1:]
+    srcs = [str(p) for p in _build.sources()]
+    assert len(srcs) == 6
+    assert sorted(a[-1] for a in compiles) == srcs
+    assert all("-c" in a and "arch=compute_90a,code=sm_90a" in a for a in compiles)
+    assert "-shared" in links[0] and sorted(a[a.index("-o") + 1] for a in compiles) \
+        == sorted(links[0][links[0].index("-o") + 2:])
+    assert [p.name for p in build_dir.iterdir()] == ["libmtp_kernels.so"]
 
 
 def test_library_is_stale_when_a_source_is_newer(tmp_path):
@@ -99,6 +155,7 @@ def test_library_is_stale_when_a_source_is_newer(tmp_path):
 def test_every_kernel_source_has_a_launcher_and_note():
     """Each .cu defines one extern "C" launcher declared in SIGNATURES and
     says which TPU kernel it replaces."""
+    assert {p.name for p in _build.sources()} == KERNEL_SOURCES
     launchers = {}
     for src in _build.sources():
         text = src.read_text()

@@ -2,6 +2,8 @@
 segmentation predict path against the JAX package's, same weights (converted
 with `upernet_from_jax` / `segmentor_from_jax`), fp32 on both sides."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,8 @@ from mtp_tpu.heads.upernet import UperNetHead as JaxUperNetHead
 from mtp_tpu.heads.upernet import resize_bilinear as jax_resize
 from mtp_tpu.models.segmentor import Segmentor as JaxSegmentor
 from mtp_tpu.models.vit_rvsa import rescale_block_init
-from mtp_tpu.utils.config import BackboneConfig, SlideConfig
+from mtp_tpu.utils.config import (BackboneConfig, SlideConfig, TaskConfig,
+                                  TrainConfig)
 from mtp_tpu_torch.ckpt.from_jax import segmentor_from_jax, upernet_from_jax
 from mtp_tpu_torch.eval.slide import slide_inference
 from mtp_tpu_torch.heads.upernet import UperNetHead
@@ -108,7 +111,8 @@ def test_segmentor_slide_inference_and_predict():
 
     ref = jax.jit(lambda im: jax_slide_inference(jax_crop, im, K, slide))(
         jnp.asarray(images))
-    task = SegmentationTask(port, K, slide)
+    task = SegmentationTask(TaskConfig(task="segmentation", num_classes=K,
+                                       backbone=CFG, slide=slide), model=port)
     got = task.slide_logits(torch.from_numpy(images))
     assert got.shape == (2, 176, 192, K) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
@@ -167,3 +171,52 @@ def test_kernel_launches_per_forward(monkeypatch, batch):
     assert requested.count("mtp_flash_attn_fwd") == n_full
     assert requested.count("mtp_bilinear_sample_fwd") == 2 * n_rvsa
     assert len(checked) == len(requested)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_kernel_launches_per_train_step(monkeypatch, batch):
+    """One `train_step_fn` step (train-mode BatchNorm, dropout and drop-path
+    on) with the kernel route forced and each launch stubbed out: per RVSA
+    block K1 and K4 once and K3 and K6 twice, per full block K2 and K5 once,
+    and every forward and backward launch given contiguous inputs (batch 1
+    included, where a permuted reshape can stay a strided view)."""
+    from mtp_tpu_torch.kernels import _build
+    from mtp_tpu_torch.ops import dcnv3_sample as dcn
+    from mtp_tpu_torch.ops import fused_attn
+
+    requested = []
+    checked = []
+    real_check = _build.check_launchable
+
+    def check(**tensors):
+        checked.append(sorted(tensors))
+        real_check(**tensors)
+
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(_build, "check_launchable", check)
+    monkeypatch.setattr(_build, "launch", lambda name, *a: requested.append(name))
+    monkeypatch.setattr(fused_attn, "LAUNCHES", dict.fromkeys(fused_attn.LAUNCHES, 0))
+    monkeypatch.setattr(dcn, "LAUNCHES", dict.fromkeys(dcn.LAUNCHES, 0))
+    cfg = TaskConfig(task="segmentation", num_classes=3,
+                     backbone=dataclasses.replace(CFG, drop_path_rate=0.3),
+                     train=TrainConfig(batch_size=batch))
+    task = SegmentationTask(cfg, model=Segmentor(cfg.backbone, 3, channels=16,
+                                                 input_hw=(128, 128)))
+    state = task.init_state(torch.Generator().manual_seed(0))
+    batch_ = {"image": torch.zeros(batch, 128, 128, 3),
+              "label": torch.zeros(batch, 128, 128, dtype=torch.long)}
+    state, _ = task.train_step_fn()(state, batch_)
+    n_full = CFG.depth // CFG.interval
+    n_rvsa = CFG.depth - n_full
+    want = {"window": n_rvsa, "flash": n_full, "window_bwd": n_rvsa,
+            "flash_bwd": n_full, "bilinear_sample": 2 * n_rvsa,
+            "bilinear_sample_bwd": 2 * n_rvsa}
+    assert {**fused_attn.LAUNCHES, **dcn.LAUNCHES} == want
+    for name, n in (("mtp_window_attn_fwd", n_rvsa), ("mtp_flash_attn_fwd", n_full),
+                    ("mtp_bilinear_sample_fwd", 2 * n_rvsa),
+                    ("mtp_window_attn_bwd", n_rvsa), ("mtp_flash_attn_bwd", n_full),
+                    ("mtp_bilinear_sample_bwd", 2 * n_rvsa)):
+        assert requested.count(name) == n, name
+    assert len(checked) == len(requested) == sum(want.values())
+    assert checked.count(["bias", "dout", "k", "q", "v"]) == n_rvsa
+    assert checked.count(["g", "img", "m", "px", "py"]) == 2 * n_rvsa
