@@ -5,26 +5,42 @@
                                  # card, nvcc, and writes nothing but
                                  # mtp_tpu_torch/_build/
 
+Two paths, each through the entry points a user calls, at full width and
+depth with seeded random weights: the recipe rvsa-l-upernet-384-mae-mtp-
+spacenetv1 (ViT-L+RVSA → UperNet; kernels K1-K6) and the recipe
+intern-xl-upernet-512-imp-mtp-loveda (InternImage-XL → UperNet; kernel K8,
+which is the K3/K6 sampling at P = 9 taps).
+
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
 2. build: compile the kernels from mtp_tpu_torch/csrc/ (nvcc, sm_90a).
 3. kernels: K1 window attention, K2 flash full attention and K3 bilinear
    sampling against their plain PyTorch versions on the card, in fp32 and
-   bf16, at the slice's shapes and at edge shapes; median times of both.
+   bf16, at the ViT slice's shapes and at edge shapes; median times of the
+   kernel, its plain version and one PyTorch library call computing the
+   same function where there is one; the bound of each (section BOUNDS).
 3b. backward kernels: K4, K5 and K6 likewise, at the train step's shapes.
-4. whole slice: full-width ViT-L+RVSA UperNet logits of one 384² crop on
-   the card (kernels) against the same model on the CPU (plain versions).
-5. serving path, bench geometry: 4 tiles of 512², 384² crops at stride
-   256, batch 4, bf16 autocast, through `SegmentationTask.predict_fn`;
-   launch counts, tiles/s and peak memory.
-6. full-width gradients: one fp32 loss.backward() of the recipe's model
-   (train-mode BatchNorm, no dropout or drop-path) at batch 2 of 384² on
-   the card (kernels) against the CPU (plain versions).
-7. training path, the recipe's train step (rvsa-l-upernet-384-mae-mtp-
-   spacenetv1: batch 8 of 384², bf16 autocast, dropout and drop-path on)
-   through `SegmentationTask.init_state` → `fit` → `evaluate`: launch counts
-   per step, finite loss and grad norm, ms/step, images/s, data_time and
-   peak memory, and a fixed-batch sanity run whose loss must fall.
+3c. K8: K3 and K6 at P = 9, gc = 16, at InternImage-XL's stage 0 and stage
+   3 shapes at batch 8, with init-like integer coordinates and with random
+   offsets.
+4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
+   card (kernels) against the same model on the CPU (plain versions).
+5. ViT serving, bench geometry: 4 tiles of 512², 384² crops at stride 256,
+   bf16 autocast, through `SegmentationTask.predict_fn`; launch counts,
+   tiles/s and peak memory.
+6. ViT gradients: one fp32 loss.backward() of the recipe's model (train-mode
+   BatchNorm, no dropout or drop-path) at batch 2 of 384² on the card
+   (kernels) against the CPU (plain versions).
+7. ViT training: the recipe's train step (batch 8 of 384², bf16 autocast,
+   dropout and drop-path on) through `SegmentationTask.init_state` → `fit` →
+   `evaluate`: launch counts per step, finite loss and grad norm, ms/step,
+   images/s, data_time and peak memory, and a fixed-batch sanity run whose
+   loss must fall.
+8-11. The same four for InternImage-XL → UperNet: logits of one 256² crop
+   card vs CPU; serving at LoveDA's geometry (2 tiles of 1024², 512² crops
+   at stride 256, 9 crops a tile); fp32 gradients at batch 2 of 256² with
+   remat; the recipe's train step (batch 8 of 512², remat, drop-path 0.1,
+   bf16) and `evaluate` on one 1024² tile.
 The last lines are the kernels' JSON record, the card, and the result line.
 """
 
@@ -32,35 +48,35 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mtp_tpu_torch.ckpt.from_jax import init_weights
-from mtp_tpu_torch.config import ScheduleConfig, rvsa_l_upernet_384_spacenetv1
+from mtp_tpu_torch.config import (ScheduleConfig, TaskConfig,
+                                  intern_xl_upernet_512_loveda,
+                                  internimage_config,
+                                  rvsa_l_upernet_384_spacenetv1)
+from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.kernels import _build
+from mtp_tpu_torch.models.internimage import internimage_flops
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.models.vit_rvsa import backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
+from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 SEED = 0
-# the recipe: ViT-L+RVSA → UperNet (512 channels), 2 classes (SpaceNet v1),
-# 384² crops, slide eval at stride 256, batch 8, AdamW 6e-5
-RECIPE = rvsa_l_upernet_384_spacenetv1()
-NUM_CLASSES = RECIPE.num_classes
-CROP = RECIPE.backbone.img_size
-TILE, BATCH = 512, 4            # serving path: 4 tiles of 512², 4 crops each
-TRAIN_BATCH = RECIPE.train.batch_size
-GRAD_BATCH = 2                  # phase 6
-TRAIN_STEPS, WARMUP_STEPS, SANITY_STEPS = 12, 2, 10
 
 # tolerances of kernel against plain version on the same inputs:
 # fp32 — only the order of the fp32 sums (and expf) differs, and for K6's
@@ -68,30 +84,90 @@ TRAIN_STEPS, WARMUP_STEPS, SANITY_STEPS = 12, 2, 10
 # bf16 — both compute in fp32 from the same bf16 inputs, the bf16 outputs
 #        may differ by one bf16 rounding (relative 2^-8..2^-7)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
-# whole slice, card vs CPU, fp32: max |diff| relative to max |logit|
-# (24 blocks and the head of reordered fp32 sums)
+# logits, card vs CPU, fp32: max |diff| relative to max |logit| (the
+# backbone's layers and the head of reordered fp32 sums)
 SLICE_TOL = 2e-3
-# full-width gradients, card vs CPU, fp32: the loss to 1e-5 relative; each
-# parameter's gradient g to ‖Δg‖ <= rtol·‖g‖ + GRAD_ATOL·‖g_all‖, with
-# rtol GRAD_RTOL["blocks"] for the transformer (patch embed and the 24
-# blocks, where the kernels' gradients flow) and GRAD_RTOL["convs"] for the
-# simple-FPN deconvolutions and the UperNet head.  Those are convolutions,
-# cuDNN on the card and oneDNN on the CPU, and their weight gradients sit
-# behind train-mode BatchNorm, whose backward removes each channel's mean:
-# a weight gradient is then a sum over 18432 positions in which the
-# features' mean cancels, and the two libraries' orders of summation differ
-# by ~1e-3 of the result.  The absolute floor, against the norm of all
-# gradients, is for gradients that are zero or near zero in exact
+# gradients, card vs CPU, fp32: the loss to 1e-5 relative; each parameter's
+# gradient g to ‖Δg‖ <= rtol·‖g‖ + GRAD_ATOL·‖g_all‖.  rtol 1e-3 where the
+# kernels' gradients flow (the ViT's patch embed and 24 blocks; InternImage's
+# stem, 39 DCNv3 layers and downsamples) and 1e-2 for the convolutions
+# behind train-mode BatchNorm (the ViT's simple-FPN deconvolutions and the
+# UperNet head): cuDNN on the card and oneDNN on the CPU sum their weight
+# gradients, ~18k positions in which the features' mean cancels (the
+# BatchNorm backward removes each channel's mean), in other orders, which
+# differ by ~1e-3 of the result.  The absolute floor, against the norm of
+# all gradients, is for gradients that are zero or near zero in exact
 # arithmetic and whose computed values are rounding residue: conv biases
 # right before train-mode BatchNorm, and the PSP pool-1 branch, whose
 # BatchNorm at batch 2 sees 2 values per channel.
 LOSS_RTOL, GRAD_ATOL = 1e-5, 1e-5
-GRAD_RTOL = {"blocks": 1e-3, "convs": 1e-2}
+
+# BOUNDS: the least time the card could take for a kernel's work, the
+# larger of its bytes over the memory rate (each input read once, each
+# output written once) and its operations over the peak rate of its input
+# type.  NVIDIA H100 SXM data sheet, dense, at 700 W.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+COUNTERS = ("window", "flash", "bilinear_sample", "window_bwd", "flash_bwd",
+            "bilinear_sample_bwd")
 
 
-def grad_group(name: str) -> str:
-    return "convs" if name.startswith(("backbone.fpn", "decode_head.")) else "blocks"
+def launches(**nonzero) -> Dict[str, int]:
+    """Every launch counter, 0 unless named."""
+    return {**dict.fromkeys(COUNTERS, 0), **nonzero}
 
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """One recipe's model at full width and depth, and the geometry each
+    phase drives it at."""
+
+    name: str
+    recipe: TaskConfig
+    flops: Callable[[int], float]        # backbone forward FLOPs of one crop
+    per_forward: Dict[str, int]          # launches per crop forward
+    per_step: Dict[str, int]             # launches per train step
+    logits_crop: int                     # phases 4 / 8
+    tile: int                            # phases 5 / 9: `tiles` tiles of tile²
+    tiles: int
+    grad_batch: int                      # phases 6 / 10
+    grad_crop: int
+    head_prefixes: Tuple[str, ...]       # parameters of rtol 1e-2 (above)
+    train_steps: int                     # phases 7 / 11, timed steps
+    eval_tiles: Tuple[int, int]          # (count, size) for `evaluate`
+
+
+RVSA = rvsa_l_upernet_384_spacenetv1()
+XL = intern_xl_upernet_512_loveda()
+PATHS = {
+    # ViT-L+RVSA → UperNet (512 channels), 2 classes (SpaceNet v1), 384²
+    # crops, slide eval at stride 256, batch 8, AdamW 6e-5; serving at
+    # bench.py's default TPU workload (4 tiles of 512², 4 crops each)
+    "rvsa": Path(
+        name="rvsa", recipe=RVSA,
+        flops=lambda crop: backbone_flops(RVSA.backbone, (crop, crop)),
+        per_forward=launches(window=20, flash=4, bilinear_sample=40),
+        per_step=launches(window=20, flash=4, bilinear_sample=40, window_bwd=20,
+                          flash_bwd=4, bilinear_sample_bwd=40),
+        logits_crop=384, tile=512, tiles=4, grad_batch=2, grad_crop=384,
+        head_prefixes=("backbone.fpn", "decode_head."), train_steps=12,
+        eval_tiles=(2, 512)),
+    # InternImage-XL (channels 192, depths 5/5/24/5, groups 12/24/48/96,
+    # post-norm, layer scale 1e-5, offset_scale 2, remat, drop-path 0.1) →
+    # UperNet, 7 classes (LoveDA), 512² crops, slide eval at stride 256,
+    # batch 8, AdamW 2e-5 with layer decay 0.94; serving at LoveDA's tile
+    # size (1024²: 9 crops a tile).  Logits and gradients card vs CPU at
+    # 256², which keeps the CPU's full-depth fp32 forward and backward to
+    # about a minute on the machine with the card.
+    "xl": Path(
+        name="xl", recipe=XL,
+        flops=lambda crop: internimage_flops(internimage_config(XL.backbone), crop),
+        per_forward=launches(bilinear_sample=39),
+        per_step=launches(bilinear_sample=78, bilinear_sample_bwd=39),
+        logits_crop=256, tile=1024, tiles=2, grad_batch=2, grad_crop=256,
+        head_prefixes=("decode_head.",), train_steps=8, eval_tiles=(1, 1024)),
+}
 
 KERNELS = {
     "window": dict(name="window_attn_fwd", route="cuda",
@@ -112,10 +188,25 @@ KERNELS = {
     "bilinear_sample_bwd": dict(name="bilinear_sample_bwd", route="cuda",
                                 source="mtp_tpu_torch/csrc/bilinear_sample_bwd.cu",
                                 replaces="mtp_tpu/ops/dcnv3_pallas.py:678"),
+    # K8: the same two kernels at P = 9, on the InternImage path
+    "dcnv3_fwd": dict(name="dcnv3_sample_fwd", route="cuda",
+                      source="mtp_tpu_torch/csrc/bilinear_sample_fwd.cu",
+                      replaces="mtp_tpu/ops/dcnv3_pallas.py:635"),
+    "dcnv3_bwd": dict(name="dcnv3_sample_bwd", route="cuda",
+                      source="mtp_tpu_torch/csrc/bilinear_sample_bwd.cu",
+                      replaces="mtp_tpu/ops/dcnv3_pallas.py:678"),
 }
-# launches per forward of one crop batch (serving) and per train step
-PER_FORWARD = {"window": 20, "flash": 4, "bilinear_sample": 40}
-PER_STEP = dict(PER_FORWARD, window_bwd=20, flash_bwd=4, bilinear_sample_bwd=40)
+# where each kernel's `launches` is read: (path, phase kind, counter)
+LAUNCHED_IN = {
+    "window": ("rvsa", "serve", "window"),
+    "flash": ("rvsa", "serve", "flash"),
+    "bilinear_sample": ("rvsa", "serve", "bilinear_sample"),
+    "window_bwd": ("rvsa", "train", "window_bwd"),
+    "flash_bwd": ("rvsa", "train", "flash_bwd"),
+    "bilinear_sample_bwd": ("rvsa", "train", "bilinear_sample_bwd"),
+    "dcnv3_fwd": ("xl", "serve", "bilinear_sample"),
+    "dcnv3_bwd": ("xl", "train", "bilinear_sample_bwd"),
+}
 
 
 def log(msg: str) -> None:
@@ -127,11 +218,11 @@ def counters() -> dict:
 
 
 def reset_counters() -> None:
-    for launches in (fused_attn.LAUNCHES, dcn.LAUNCHES):
-        launches.update(dict.fromkeys(launches, 0))
+    for launched in (fused_attn.LAUNCHES, dcn.LAUNCHES):
+        launched.update(dict.fromkeys(launched, 0))
 
 
-def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     times = []
@@ -176,7 +267,21 @@ def phase_build() -> None:
         log(f"[build] {line}")
 
 
-# ---------------------------------------------------------------- phase 3 --
+# -------------------------------------------------------- phase 3, 3b, 3c --
+
+@dataclasses.dataclass
+class Case:
+    """A kernel, its plain version, their inputs in a given dtype, the
+    operations the function does on those inputs, and optionally one
+    PyTorch library call computing the same function (built outside the
+    timed region; returns (call, description))."""
+
+    kernel: Callable
+    plain: Callable
+    args: Callable[[torch.dtype], tuple]
+    flops: Callable[[tuple], float]
+    library: Optional[Callable[[tuple], Tuple[Callable, str]]] = None
+
 
 def _gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
@@ -186,39 +291,144 @@ def _randn(shape, g, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).cuda()
 
 
-def window_case(W, nH, N, D, seed, bwd=False):
-    """K1 (or K4 with bwd) inputs; returns (kernel, plain, args(dtype))."""
+def _sdpa_library(q, k, v, bias, scale, dout=None):
+    """F.scaled_dot_product_attention on these inputs, the bias cast to q's
+    dtype (SDPA takes no other) outside the timed call; with dout the
+    autograd.grad of that call w.r.t. q, k, v and the bias, its forward run
+    once outside the timed call.  The backend is the first of flash,
+    efficient, cuDNN and math that takes the call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if q.dim() == 3:  # (BH, N, D): one batch of BH heads, as SDPA's kernels take
+        q, k, v, bias = (t[None] for t in (q, k, v, bias))
+        dout = None if dout is None else dout[None]
+    bias = bias.to(q.dtype)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                if dout is None:
+                    call = lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bias, scale=scale)
+                else:
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+                    out = F.scaled_dot_product_attention(
+                        *leaves[:3], attn_mask=leaves[3], scale=scale)
+                    call = lambda: torch.autograd.grad(out, leaves, dout,
+                                                       retain_graph=True)
+                call()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        what = "grad of " if dout is not None else ""
+        return (lambda: _under(sdpa_kernel, backend, call),
+                f"{what}SDPA[{backend.name}]")
+    raise RuntimeError("no SDPA backend takes the call")
+
+
+def _under(ctx, arg, call):
+    with ctx(arg):
+        return call()
+
+
+def _grid_sample_library(img, py, px, H, W, g=None):
+    """F.grid_sample (bilinear, zeros, align_corners=True) of the NCHW map
+    at the one-tap coordinates, converted to the normalised grid in img's
+    dtype outside the timed call; with g the autograd.grad w.r.t. the map
+    and the grid."""
+    BG, _, C = img.shape
+    nchw = img.reshape(BG, H, W, C).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([px[..., 0] / (W - 1) * 2 - 1, py[..., 0] / (H - 1) * 2 - 1],
+                       -1)[:, None].to(img.dtype).contiguous()
+    run = lambda a, b: F.grid_sample(a, b, mode="bilinear", padding_mode="zeros",
+                                     align_corners=True)
+    if g is None:
+        return (lambda: run(nchw, grid)), "grid_sample"
+    leaves = [nchw.requires_grad_(), grid.requires_grad_()]
+    out = run(*leaves)
+    cot = g.permute(0, 2, 1)[:, :, None].contiguous()
+    return (lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True),
+            "grad of grid_sample")
+
+
+def window_case(W, nH, N, D, seed, bwd=False) -> Case:
+    """K1 (or K4 with bwd): QKᵀ and PV, 4·N²·D FLOPs per (window, head);
+    the backward recomputes S and forms dV, dP, dQ, dK: 10·N²·D."""
     g = _gen(seed)
     q, k, v, dout = (_randn((W, nH, N, D), g) for _ in range(4))
     bias = _randn((W, nH, N, N), g, 0.5)
     scale = D ** -0.5
+    flops = lambda a: (10 if bwd else 4) * W * nH * N * N * D
     if bwd:
-        return (fused_attn.fused_window_attention_bwd,
-                fused_attn.fused_window_attention_bwd_ref,
-                lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, dout.to(dt), scale))
-    return (fused_attn.fused_window_attention, fused_attn.fused_window_attention_ref,
-            lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, scale))
+        return Case(fused_attn.fused_window_attention_bwd,
+                    fused_attn.fused_window_attention_bwd_ref,
+                    lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, dout.to(dt), scale),
+                    flops, lambda a: _sdpa_library(a[0], a[1], a[2], a[3], a[5], a[4]))
+    return Case(fused_attn.fused_window_attention, fused_attn.fused_window_attention_ref,
+                lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, scale), flops,
+                lambda a: _sdpa_library(*a))
 
 
-def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False):
-    """K2 (or K5 with bwd) inputs; returns (kernel, plain, args(dtype))."""
+def _expand_rel(rel_h, rel_w):
+    """The bias K2 rebuilds in-kernel: rel_h[q, k // Wk] + rel_w[q, k % Wk]."""
+    BH, N, _ = rel_h.shape
+    return (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BH, N, -1)
+
+
+def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False) -> Case:
+    """K2 (or K5 with bwd): 4·N²·D FLOPs per row of BH (10·N²·D backward)."""
     g = _gen(seed)
     N = grid_hw[0] * grid_hw[1]
     q, k, v, dout = (_randn((BH, N, D), g) for _ in range(4))
     q = q * D ** -0.5 if scale == 1.0 else q
     rel_h = _randn((BH, N, grid_hw[0]), g, 0.5)
     rel_w = _randn((BH, N, grid_hw[1]), g, 0.5)
+    flops = lambda a: (10 if bwd else 4) * BH * N * N * D
     if bwd:
-        return (fused_attn.flash_full_attention_bwd,
-                fused_attn.flash_full_attention_bwd_ref,
-                lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, dout.to(dt),
-                            grid_hw, scale))
-    return (fused_attn.flash_full_attention, fused_attn.flash_full_attention_ref,
-            lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, grid_hw, scale))
+        return Case(fused_attn.flash_full_attention_bwd,
+                    fused_attn.flash_full_attention_bwd_ref,
+                    lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, dout.to(dt),
+                                grid_hw, scale),
+                    flops, lambda a: _sdpa_library(a[0], a[1], a[2],
+                                                   _expand_rel(a[3], a[4]), a[7], a[5]))
+    return Case(fused_attn.flash_full_attention, fused_attn.flash_full_attention_ref,
+                lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, grid_hw, scale),
+                flops, lambda a: _sdpa_library(a[0], a[1], a[2],
+                                               _expand_rel(a[3], a[4]), a[6]))
 
 
-def sample_case(BG, H, W, C, HWo, P, seed, edge, bwd=False):
-    """K3 (or K6 with bwd) inputs; returns (kernel, plain, args(dtype))."""
+def in_map_corners(py, px, H, W) -> int:
+    """Bilinear corners of all taps that lie on the map: the data-dependent
+    work of K3 and K6."""
+    y0, x0 = torch.floor(py), torch.floor(px)
+    n = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = y0 + dy, x0 + dx
+            n += int(((y >= 0) & (y <= H - 1) & (x >= 0) & (x <= W - 1)).sum())
+    return n
+
+
+def _sample(img, py, px, m, cot, H, W, bwd, library) -> Case:
+    """K3 (or K6 with bwd): a multiply-add per channel for each in-map
+    corner (2·C FLOPs; the backward's dot product and scatter, 4·C)."""
+    C = img.shape[-1]
+    flops = lambda a: (4 if bwd else 2) * C * in_map_corners(a[1], a[2], H, W)
+    if bwd:
+        lib = lambda a: _grid_sample_library(*a[:3], H, W, a[4])
+        return Case(dcn.dcnv3_sample_bwd, dcn.dcnv3_sample_bwd_ref,
+                    lambda dt: (img.to(dt), py, px, m, cot.to(dt), H, W), flops,
+                    lib if library else None)
+    lib = lambda a: _grid_sample_library(*a[:3], H, W)
+    return Case(dcn.dcnv3_sample, dcn.dcnv3_sample_ref,
+                lambda dt: (img.to(dt), py, px, m, H, W), flops,
+                lib if library else None)
+
+
+def sample_case(BG, H, W, C, HWo, P, seed, edge, bwd=False) -> Case:
+    """K3 / K6 as RVSA samples K and V (P = 1, a unit mask: one grid_sample
+    call computes it), or an edge case (P = 9, a signed mask, coordinates
+    off every side, a quarter of them exact integers)."""
     g = _gen(seed)
     img = _randn((BG, H * W, C), g)
     cot = _randn((BG, HWo, C), g)
@@ -231,24 +441,45 @@ def sample_case(BG, H, W, C, HWo, P, seed, edge, bwd=False):
         m = (torch.rand((BG, HWo, P), generator=g) * 2 - 1).cuda()
     else:
         m = torch.ones((BG, HWo, P)).cuda()
-    if bwd:
-        return (dcn.dcnv3_sample_bwd, dcn.dcnv3_sample_bwd_ref,
-                lambda dt: (img.to(dt), py, px, m, cot.to(dt), H, W))
-    return (dcn.dcnv3_sample, dcn.dcnv3_sample_ref,
-            lambda dt: (img.to(dt), py, px, m, H, W))
+    return _sample(img, py, px, m, cot, H, W, bwd, library=not edge and P == 1)
 
 
-def check_kernels(cases: dict) -> dict:
+def dcnv3_case(batch, hw, groups, gc, seed, zero_offsets, bwd=False) -> Case:
+    """K8: the sampling of one XL DCNv3 layer at batch `batch` on an hw²
+    map, its inputs made as the layer makes them (`sampling_points`,
+    kernel 3, offset_scale 2): zero offsets put every tap on an integer,
+    the border taps partly or wholly off the map (−1, −2), as at init;
+    random offsets are N(0, 1) pixels before the scale.  A softmaxed mask.
+    No single PyTorch call computes a 9-tap masked bilinear sum."""
+    g = _gen(seed)
+    G, P = groups, 9
+    offset = torch.zeros(batch, hw, hw, G * P * 2) if zero_offsets else \
+        torch.randn((batch, hw, hw, G * P * 2), generator=g)
+    mask = torch.softmax(torch.randn((batch, hw, hw, G, P), generator=g), -1)
+    py, px, m = sampling_points(offset.cuda(), mask.reshape(batch, hw, hw, G * P).cuda(),
+                                group=G, offset_scale=2.0)
+    img = _randn((batch * G, hw * hw, gc), g)
+    cot = _randn((batch * G, hw * hw, gc), g)
+    return _sample(img, py, px, m, cot, hw, hw, bwd, library=False)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def check_kernels(cases: dict, record_label: str = "slice") -> dict:
     """Each case's kernel against its plain version on the same inputs, in
     fp32 and bf16, output by output; returns {kernel: {max_abs_err, ms,
-    plain_ms}} at the slice shape in bf16, the main path's working type."""
+    plain_ms, library_ms, bound_ms, bound_by}} of the `record_label` case in
+    bf16, the main path's working type."""
     record = {}
     for kname, kcases in cases.items():
-        for label, (kernel, plain, make_args) in kcases:
+        for label, case in kcases:
             for dtype in (torch.float32, torch.bfloat16):
-                args = make_args(dtype)
+                args = case.args(dtype)
                 with torch.no_grad():
-                    got, ref = kernel(*args), plain(*args)
+                    got, ref = case.kernel(*args), case.plain(*args)
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
@@ -266,15 +497,28 @@ def check_kernels(cases: dict) -> dict:
                                                rtol=rtol, msg=lambda m: f"{kname} "
                                                f"{label} {dtype} output {i}: {m}")
                 with torch.no_grad():
-                    ms = median_ms(lambda: kernel(*args))
-                    plain_ms = median_ms(lambda: plain(*args))
-                log(f"[kernel] {kname:19s} {label:14s} {str(dtype)[6:]:8s} "
+                    ms = median_ms(lambda: case.kernel(*args))
+                    plain_ms = median_ms(lambda: case.plain(*args))
+                library_ms, what = None, "none"
+                if case.library is not None:
+                    call, what = case.library(args)
+                    library_ms = median_ms(call)
+                flops = case.flops(args)
+                nbytes = _nbytes(args) + _nbytes(got)
+                t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+                bound_ms = max(t_ops, t_bytes) * 1e3
+                bound_by = "operations" if t_ops > t_bytes else "bytes"
+                lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
+                log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                     f"shape {tuple(args[0].shape)} max_abs_err "
                     f"{' '.join(f'{e:.3e}' for e in errs)} (atol {atol} rtol "
-                    f"{rtol}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-                if label == "slice" and dtype == torch.bfloat16:
+                    f"{rtol}) kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"library {lib} ({what})  bound {bound_ms:.4f} ms by "
+                    f"{bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+                if label == record_label and dtype == torch.bfloat16:
                     record[kname] = dict(max_abs_err=max(errs), ms=ms,
-                                         plain_ms=plain_ms)
+                                         plain_ms=plain_ms, library_ms=library_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
     return record
 
 
@@ -310,18 +554,35 @@ def phase_backward_kernels() -> dict:
     })
 
 
-# ---------------------------------------------------------------- phase 4 --
+def phase_dcnv3_kernels() -> dict:
+    """Phase 3c: K8, K3 and K6 at P = 9 and gc = 16 as InternImage-XL's
+    train step at batch 8 of 512² runs them: stage 0 (12 groups → BG 96,
+    128² maps) and stage 3 (96 groups → BG 768, 16² maps), each at
+    init-like integer coordinates and at random offsets; the record is
+    stage 0 at random offsets, where a trained model samples."""
+    cases = {}
+    for key, bwd in (("dcnv3_fwd", False), ("dcnv3_bwd", True)):
+        cases[key] = [
+            (f"stage{s} {kind}", dcnv3_case(8, hw, G, 16, 30 + s + zero, zero, bwd))
+            for s, hw, G in ((0, 128, 12), (3, 16, 96))
+            for kind, zero in (("init", True), ("random", False))]
+    return check_kernels(cases, record_label="stage0 random")
 
-def build_model() -> Segmentor:
-    """The recipe's full-width ViT-L+RVSA UperNet at 384², seeded random
-    weights, on the CPU."""
-    model = Segmentor(RECIPE.backbone, NUM_CLASSES, input_hw=(CROP, CROP))
+
+# ----------------------------------------------------------- phase 4 / 8 --
+
+def build_model(path: Path) -> Segmentor:
+    """The recipe's full-width model, seeded random weights, on the CPU."""
+    crop = path.recipe.backbone.img_size
+    model = Segmentor(path.recipe.backbone, path.recipe.num_classes,
+                      input_hw=(crop, crop))
     return init_weights(model, _gen(SEED)).eval()
 
 
 @torch.no_grad()
-def phase_slice_numerics(model_cpu: Segmentor) -> None:
-    x = torch.randn((1, CROP, CROP, 3), generator=_gen(SEED + 1))
+def phase_logits(path: Path, model_cpu: Segmentor) -> None:
+    crop = path.logits_crop
+    x = torch.randn((1, crop, crop, 3), generator=_gen(SEED + 1))
     t0 = time.perf_counter()
     ref = model_cpu.predict(x)
     t_cpu = time.perf_counter() - t0
@@ -329,30 +590,35 @@ def phase_slice_numerics(model_cpu: Segmentor) -> None:
     reset_counters()
     got = model_gpu.predict(x.cuda()).cpu()
     launched = counters()
-    if not all(launched[k] for k in PER_FORWARD):
-        raise AssertionError(f"a kernel did not run in the fp32 slice: {launched}")
+    if launched != path.per_forward:
+        raise AssertionError(f"launch counts {launched} != {path.per_forward}")
     if not torch.isfinite(got).all():
         raise AssertionError("non-finite logits on the card")
     abs_err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel = abs_err / scale
-    log(f"[slice] fp32 logits {tuple(got.shape)} card vs CPU: max_abs_err "
-        f"{abs_err:.3e}, max |logit| {scale:.3e}, normalised {rel:.3e} "
-        f"(tol {SLICE_TOL}); CPU forward {t_cpu:.1f} s; launches {launched}")
+    log(f"[logits {path.name}] fp32 logits {tuple(got.shape)} of one {crop}² crop, "
+        f"card vs CPU: max_abs_err {abs_err:.3e}, max |logit| {scale:.3e}, "
+        f"normalised {rel:.3e} (tol {SLICE_TOL}); CPU forward {t_cpu:.1f} s; "
+        f"launches {launched}")
     if not rel <= SLICE_TOL:
         raise AssertionError(f"card logits disagree with the CPU: {rel:.3e}")
 
 
-# ---------------------------------------------------------------- phase 5 --
+# ----------------------------------------------------------- phase 5 / 9 --
 
 @torch.no_grad()
-def phase_bench(model_cpu: Segmentor, card: str) -> dict:
+def phase_serving(path: Path, model_cpu: Segmentor, card: str) -> dict:
+    recipe = path.recipe
     model = copy.deepcopy(model_cpu).cuda()
-    task = SegmentationTask(RECIPE, model=model, device="cuda")
-    images = torch.randn((BATCH, TILE, TILE, 3), generator=_gen(SEED + 2)).cuda()
+    task = SegmentationTask(recipe, model=model)
+    images = torch.randn((path.tiles, path.tile, path.tile, 3),
+                         generator=_gen(SEED + 2)).cuda()
     predict = task.predict_fn()
-    n_crops = 4  # 512² tile, 384² crop, stride 256
+    n_crops = len(slide_origins(path.tile, path.tile, recipe.slide.crop,
+                                recipe.slide.stride))
     autocast = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+    tag = f"[serve {path.name}]"
 
     torch.cuda.synchronize()
     reset_counters()
@@ -360,36 +626,36 @@ def phase_bench(model_cpu: Segmentor, card: str) -> dict:
         pred = predict(images)
     torch.cuda.synchronize()
     launched = counters()
-    want = {k: n * n_crops for k, n in PER_FORWARD.items()}
-    want.update(window_bwd=0, flash_bwd=0, bilinear_sample_bwd=0)
-    log(f"[bench] launches in one predict ({n_crops} crops): {launched}, "
-        f"expected {want} (per crop forward K1=20, K2=4, K3=40)")
+    want = {k: n * n_crops for k, n in path.per_forward.items()}
+    log(f"{tag} launches in one predict ({n_crops} crops): {launched}, expected "
+        f"{want} (per crop forward {path.per_forward})")
     if launched != want:
         raise AssertionError(f"launch counts {launched} != {want}")
-    if pred.shape != (BATCH, TILE, TILE) or not (
-            (pred >= 0) & (pred < NUM_CLASSES)).all():
+    if pred.shape != (path.tiles, path.tile, path.tile) or not (
+            (pred >= 0) & (pred < recipe.num_classes)).all():
         raise AssertionError(f"bad predictions {tuple(pred.shape)}")
 
     with autocast():
         logits = task.slide_logits(images)
-    if logits.shape != (BATCH, TILE, TILE, NUM_CLASSES) or \
+    if logits.shape != (path.tiles, path.tile, path.tile, recipe.num_classes) or \
             not torch.isfinite(logits).all():
         raise AssertionError(f"bad slide logits {tuple(logits.shape)}")
     agree = (logits.argmax(-1) == pred).float().mean().item()
     logits32 = task.slide_logits(images)
     drift = ((logits - logits32).abs().max() / logits32.abs().max()).item()
-    log(f"[bench] bf16 slide logits {tuple(logits.shape)} finite; argmax "
+    log(f"{tag} bf16 slide logits {tuple(logits.shape)} finite; argmax "
         f"agreement with predict {agree:.6f}; bf16 vs fp32 normalised max "
         f"diff {drift:.3e}")
     if agree < 0.999 or drift > 0.1:
         raise AssertionError(f"bf16 slide path off: agree {agree}, drift {drift}")
+    del logits, logits32
 
     for _ in range(2):
         with autocast():
             predict(images)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters, times = 10, []
+    iters, times = 8, []
     for _ in range(iters):
         t0 = time.perf_counter()
         with autocast():
@@ -398,39 +664,47 @@ def phase_bench(model_cpu: Segmentor, card: str) -> dict:
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     per = statistics.median(times)
-    tiles_s = BATCH / per
-    flops = backbone_flops(model.backbone.cfg, (CROP, CROP)) * BATCH * n_crops
-    log(f"[bench] ViT-L+RVSA UperNet slide {TILE}² tiles, crop {CROP} stride "
-        f"{RECIPE.slide.stride}, batch {BATCH}, bf16 autocast: median "
-        f"{per * 1e3:.2f} ms per predict over {iters} (min {min(times) * 1e3:.2f}, "
-        f"max {max(times) * 1e3:.2f}), {tiles_s:.3f} tiles/s, backbone "
-        f"{flops / per / 1e12:.2f} TFLOP/s, peak memory "
-        f"{peak / 2 ** 30:.3f} GiB | card {card}")
+    flops = path.flops(recipe.slide.crop) * path.tiles * n_crops
+    log(f"{tag} {recipe.backbone.name} UperNet slide: {path.tiles} tiles of "
+        f"{path.tile}², crop {recipe.slide.crop} stride {recipe.slide.stride} "
+        f"({n_crops} crops a tile, each crop forward at batch {path.tiles}), bf16 "
+        f"autocast: median {per * 1e3:.2f} ms per predict over {iters} (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+        f"{path.tiles / per:.3f} tiles/s, backbone {flops / per / 1e12:.2f} "
+        f"TFLOP/s, peak memory {peak / 2 ** 30:.3f} GiB | card {card}")
     return launched
 
 
-# ---------------------------------------------------------------- phase 6 --
+# ---------------------------------------------------------- phase 6 / 10 --
 
-def synthetic_batch(n: int, seed: int) -> dict:
-    """n seeded 384² images and labels {0, 1} that depend on the image (a
-    smoothed channel's sign, so the sanity run has something to learn), with
-    a band of ignored pixels (255)."""
+def synthetic_batch(n: int, crop: int, num_classes: int, seed: int) -> dict:
+    """n seeded crop² images and labels that depend on the image (a channel
+    averaged over 32×32 blocks, cut into `num_classes` equally likely bins,
+    so the sanity run has something to learn), with a band of ignored
+    pixels (255)."""
     rng = np.random.default_rng(seed)
-    image = rng.standard_normal((n, CROP, CROP, 3)).astype(np.float32)
-    coarse = image[..., 0].reshape(n, CROP // 32, 32, CROP // 32, 32).mean((2, 4))
-    label = np.repeat(np.repeat(coarse > 0, 32, 1), 32, 2).astype(np.int64)
+    image = rng.standard_normal((n, crop, crop, 3)).astype(np.float32)
+    coarse = image[..., 0].reshape(n, crop // 32, 32, crop // 32, 32).mean((2, 4))
+    bins = [statistics.NormalDist(0.0, 1 / 32).inv_cdf(i / num_classes)
+            for i in range(1, num_classes)]
+    label = np.repeat(np.repeat(np.digitize(coarse, bins), 32, 1), 32, 2)
+    label = label.astype(np.int64)
     label[:, :, :16] = 255
     return {"image": image, "label": label}
 
 
-def phase_gradients(model_cpu: Segmentor) -> None:
+def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
     """One fp32 loss.backward() of the recipe's model on the card and on the
-    CPU, same weights and batch: train-mode BatchNorm, deterministic."""
-    cfg = dataclasses.replace(RECIPE, backbone=dataclasses.replace(
-        RECIPE.backbone, dtype="float32"))
-    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(GRAD_BATCH, SEED + 3).items()}
+    CPU, same weights and batch: train-mode BatchNorm, deterministic (and
+    with the recipe's remat, if any)."""
+    recipe = path.recipe
+    cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(
+        recipe.backbone, dtype="float32"))
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        path.grad_batch, path.grad_crop, recipe.num_classes, SEED + 3).items()}
     model_gpu = copy.deepcopy(model_cpu).cuda()
     losses, grads = {}, {}
+    tag = f"[grads {path.name}]"
     for device, model in (("cpu", model_cpu), ("cuda", model_gpu)):
         task = SegmentationTask(cfg, model=model, device=device)
         reset_counters()
@@ -444,51 +718,59 @@ def phase_gradients(model_cpu: Segmentor) -> None:
         losses[device] = loss.item()
         grads[device] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
-        log(f"[grads] {device}: loss {losses[device]:.6f} forward+backward "
+        log(f"{tag} {device}: loss {losses[device]:.6f} forward+backward "
             f"{time.perf_counter() - t0:.1f} s")
-    if launched != PER_STEP:
-        raise AssertionError(f"launch counts {launched} != {PER_STEP}")
+    if launched != path.per_step:
+        raise AssertionError(f"launch counts {launched} != {path.per_step}")
+    rtol = {"backbone": 1e-3, "convs": 1e-2}
+    group = lambda n: "convs" if n.startswith(path.head_prefixes) else "backbone"
     g_all = math.sqrt(sum(float(g.square().sum()) for g in grads["cpu"].values()))
-    worst = {group: (0.0, "") for group in GRAD_RTOL}
+    worst = {k: (0.0, "") for k in rtol}
     bad = []
     for name, ref in grads["cpu"].items():
-        group = grad_group(name)
+        grp = group(name)
         diff, norm = float((grads["cuda"][name] - ref).norm()), float(ref.norm())
-        worst[group] = max(worst[group], (diff / max(norm, 1e-30), name))
-        if not diff <= GRAD_RTOL[group] * norm + GRAD_ATOL * g_all:
+        worst[grp] = max(worst[grp], (diff / max(norm, 1e-30), name))
+        if not diff <= rtol[grp] * norm + GRAD_ATOL * g_all:
             bad.append((name, diff, norm))
     loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     global_rel = math.sqrt(sum(float((grads["cuda"][n] - g).square().sum())
                                for n, g in grads["cpu"].items())) / g_all
-    log(f"[grads] fp32 batch {GRAD_BATCH} of {CROP}², card vs CPU: loss rel "
-        f"{loss_rel:.3e} (tol {LOSS_RTOL}); all {len(grads['cpu'])} gradients "
-        f"‖Δ‖/‖g‖ {global_rel:.3e} (‖g_all‖ {g_all:.3e}); max over parameters "
-        f"of ‖Δg‖/‖g‖: " + ", ".join(
-            f"{group} {r:.3e} at {n}" for group, (r, n) in worst.items())
+    log(f"{tag} fp32 batch {path.grad_batch} of {path.grad_crop}², card vs CPU: "
+        f"loss rel {loss_rel:.3e} (tol {LOSS_RTOL}); all {len(grads['cpu'])} "
+        f"gradients ‖Δ‖/‖g‖ {global_rel:.3e} (‖g_all‖ {g_all:.3e}); max over "
+        f"parameters of ‖Δg‖/‖g‖: " + ", ".join(
+            f"{grp} {r:.3e} at {n}" for grp, (r, n) in worst.items())
         + f"; tolerance per parameter rtol·‖g‖ + {GRAD_ATOL}·‖g_all‖, rtol "
-        f"{GRAD_RTOL}; launches {launched}")
+        f"{rtol} (convs: {path.head_prefixes}); launches {launched}")
     if not loss_rel <= LOSS_RTOL or bad:
         raise AssertionError(f"card gradients disagree with the CPU: loss rel "
                              f"{loss_rel:.3e}, outside tolerance: {bad[:8]}")
 
 
-# ---------------------------------------------------------------- phase 7 --
+# ---------------------------------------------------------- phase 7 / 11 --
 
 def cycle(batches):
     while True:
         yield from batches
 
 
-def phase_train(card: str) -> dict:
+def phase_train(path: Path, card: str) -> dict:
     """The recipe's train step through the task's entry points."""
-    task = SegmentationTask(RECIPE, device="cuda")
+    recipe = path.recipe
+    crop, K = recipe.backbone.img_size, recipe.num_classes
+    batch_size = recipe.train.batch_size
+    tag = f"[train {path.name}]"
+    task = SegmentationTask(recipe)
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
-    log(f"[train] init_state (CPU init, copy to the card, optimizer) "
-        f"{time.perf_counter() - t0:.1f} s; recipe lr {RECIPE.train.optimizer.lr} wd {RECIPE.train.optimizer.weight_decay} "
-        f"layer decay {RECIPE.train.optimizer.layer_decay} clip "
-        f"{RECIPE.train.optimizer.clip_norm}, schedule {RECIPE.train.schedule}")
-    batches = [synthetic_batch(TRAIN_BATCH, SEED + 10 + i) for i in range(4)]
+    opt = recipe.train.optimizer
+    log(f"{tag} init_state (CPU init, copy to the card, optimizer) "
+        f"{time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} wd "
+        f"{opt.weight_decay} layer decay {opt.layer_decay} clip {opt.clip_norm}, "
+        f"schedule {recipe.train.schedule}, remat {recipe.backbone.remat}, "
+        f"drop-path {recipe.backbone.drop_path_rate}")
+    batches = [synthetic_batch(batch_size, crop, K, SEED + 10 + i) for i in range(4)]
     logs = []
     log_fn = lambda i, m: logs.append(m)
 
@@ -497,17 +779,16 @@ def phase_train(card: str) -> dict:
     state, m = task.fit(state, cycle(batches), 1, log_every=1, log_fn=log_fn)
     torch.cuda.synchronize()
     launched = counters()
-    log(f"[train] launches in one train step: {launched}, expected {PER_STEP}; "
-        f"metrics {m}")
-    if launched != PER_STEP:
-        raise AssertionError(f"launch counts {launched} != {PER_STEP}")
+    log(f"{tag} launches in one train step: {launched}, expected "
+        f"{path.per_step}; metrics {m}")
+    if launched != path.per_step:
+        raise AssertionError(f"launch counts {launched} != {path.per_step}")
 
-    state, _ = task.fit(state, cycle(batches), WARMUP_STEPS, log_every=1,
-                        log_fn=log_fn)
+    state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=log_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs.clear()
-    state, _ = task.fit(state, cycle(batches), TRAIN_STEPS, log_every=1,
+    state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1,
                         log_fn=log_fn)
     peak = torch.cuda.max_memory_allocated()
     for m in logs:
@@ -516,42 +797,65 @@ def phase_train(card: str) -> dict:
     step_ms = [m["step_time"] * 1e3 for m in logs]
     per = statistics.median(step_ms)
     data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
-    flops = 3 * backbone_flops(RECIPE.backbone, (CROP, CROP)) * TRAIN_BATCH
-    log(f"[train] recipe train step, batch {TRAIN_BATCH} of {CROP}², bf16 "
+    flops = 3 * path.flops(crop) * batch_size
+    log(f"{tag} recipe train step, batch {batch_size} of {crop}², bf16 "
         f"autocast, dropout + drop-path on: median {per:.2f} ms/step over "
         f"{len(step_ms)} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
-        f"{TRAIN_BATCH / per * 1e3:.3f} images/s, data_time median {data_ms:.3f} "
+        f"{batch_size / per * 1e3:.3f} images/s, data_time median {data_ms:.3f} "
         f"ms, backbone ~{flops / per / 1e9:.2f} TFLOP/s (3× forward), peak "
         f"memory {peak / 2 ** 30:.3f} GiB; loss {logs[0]['loss']:.4f} → "
         f"{logs[-1]['loss']:.4f}, grad_norm {logs[-1]['grad_norm']:.4f}, "
         f"step {state.step}, lr {state.optimizer.schedule(state.optimizer.count - 1):.3e} "
         f"| card {card}")
 
+    n, size = path.eval_tiles
     tiles = {"image": np.random.default_rng(SEED + 20).standard_normal(
-        (2, TILE, TILE, 3)).astype(np.float32),
-        "label": np.random.default_rng(SEED + 21).integers(0, 2, (2, TILE, TILE))}
+        (n, size, size, 3)).astype(np.float32),
+        "label": np.random.default_rng(SEED + 21).integers(0, K, (n, size, size))}
     metrics = task.evaluate(state, iter([tiles]))
-    log(f"[train] evaluate (slide {RECIPE.slide}, 2 tiles of {TILE}²): "
+    log(f"{tag} evaluate (slide {recipe.slide}, {n} tile(s) of {size}²): "
         f"mIoU {metrics['mIoU']:.3f} mAcc {metrics['mAcc']:.3f} aAcc "
         f"{metrics['aAcc']:.3f}")
     if not all(0.0 <= metrics[k] <= 100.0 for k in ("mIoU", "mAcc", "aAcc")):
         raise AssertionError(f"bad evaluate metrics {metrics}")
 
-    # sanity check, not the recipe: the recipe's warmup starts at 6e-11, so
+    # sanity check, not the recipe: the recipe's warmup starts at ~1e-11, so
     # a fixed batch at a constant 1e-4 shows that the step learns
-    sanity = dataclasses.replace(RECIPE, train=dataclasses.replace(
-        RECIPE.train, optimizer=dataclasses.replace(RECIPE.train.optimizer, lr=1e-4),
+    sanity_steps = 10
+    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
         schedule=ScheduleConfig(kind="constant")))
-    task = SegmentationTask(sanity, model=task.model, device="cuda")
+    task = SegmentationTask(sanity, model=task.model)
     state = task.init_state(_gen(SEED))
     logs.clear()
-    task.fit(state, cycle(batches[:1]), SANITY_STEPS, log_every=1, log_fn=log_fn)
+    task.fit(state, cycle(batches[:1]), sanity_steps, log_every=1, log_fn=log_fn)
     losses = [m["loss"] for m in logs]
-    log(f"[train] sanity (not the recipe): fixed batch, constant lr 1e-4, "
-        f"{SANITY_STEPS} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, "
+        f"{sanity_steps} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
     if not min(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
     return launched
+
+
+def free() -> None:
+    """Release what earlier phases left, so that each phase's peak memory
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_path(path: Path, card: str) -> dict:
+    """Phases 4-7 (ViT) or 8-11 (InternImage): {"serve": launches of one
+    predict, "train": launches of one train step}."""
+    free()
+    model_cpu = build_model(path)
+    phase_logits(path, model_cpu)
+    served = phase_serving(path, model_cpu, card)
+    phase_gradients(path, model_cpu)
+    del model_cpu
+    free()
+    trained = phase_train(path, card)
+    return {"serve": served, "train": trained}
 
 
 def main() -> None:
@@ -559,14 +863,12 @@ def main() -> None:
     phase_build()
     record = phase_kernels()
     record.update(phase_backward_kernels())
-    model_cpu = build_model()
-    phase_slice_numerics(model_cpu)
-    served = phase_bench(model_cpu, card)
-    phase_gradients(model_cpu)
-    del model_cpu
-    trained = phase_train(card)
-    launches = {k: (served if k in PER_FORWARD else trained)[k] for k in KERNELS}
-    kernels = [dict(KERNELS[k], launches=launches[k], **record[k]) for k in KERNELS]
+    record.update(phase_dcnv3_kernels())
+    runs = {name: run_path(path, card) for name, path in PATHS.items()}
+    kernels = []
+    for key, meta in KERNELS.items():
+        path, kind, counter = LAUNCHED_IN[key]
+        kernels.append(dict(meta, launches=runs[path][kind][counter], **record[key]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ features, `(W, nH, N, D)` / `(BH, N, D)` attention tensors) and the modules
 use the reference torch parameter names, so `mtp_tpu.ckpt` converters read a
 port `state_dict()` unchanged.
 
-Ported so far (slice 1, inference): ViT-B/L+RVSA → UperNet sliding-window
-semantic segmentation.  Nothing here imports jax or flax.
+Ported so far: semantic segmentation with UperNet on ViT-B/L+RVSA or
+InternImage (DCNv3), sliding-window inference and the finetune step.
+Nothing here imports jax or flax.
 """
 
 __version__ = "0.1.0"

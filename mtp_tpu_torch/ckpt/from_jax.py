@@ -1,10 +1,13 @@
 """JAX parameters → the port's state_dict, and the port's random init.
 
 Pure numpy: the inverse of `mtp_tpu/ckpt/torch_convert.py` `convert_backbone`
-and `mtp_tpu/ckpt/full_convert.py` `convert_upernet_head` (which import jax,
-so they cannot run where the port does).  Layout maps (flax → torch):
+and `convert_internimage` and of `mtp_tpu/ckpt/full_convert.py`
+`convert_upernet_head` (which import jax, so they cannot run where the port
+does).  The backbone family follows the config (`backbone_from_jax`: a
+BackboneConfig by its name, or an InternImageConfig).  Layout maps (flax →
+torch):
 - Dense kernel (in, out)            → Linear weight (out, in)
-- Conv kernel (kh, kw, in, out)     → Conv2d weight (out, in, kh, kw)
+- Conv kernel (kh, kw, in/groups, out) → Conv2d weight (out, in/groups, kh, kw)
 - ConvTranspose kernel (kh, kw, in, out) → ConvTranspose2d weight
   (in, out, kh, kw) with the spatial dims flipped back
 - LayerNorm / BatchNorm scale       → weight; batch_stats mean/var →
@@ -26,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from mtp_tpu_torch.config import BackboneConfig
+from mtp_tpu_torch.config import (BackboneConfig, InternImageConfig,
+                                  internimage_config, is_internimage)
+from mtp_tpu_torch.models.internimage import InternImage, InternImageLayer
 from mtp_tpu_torch.models.vit_rvsa import ViTRVSA
 
 StateDict = Dict[str, torch.Tensor]
@@ -116,9 +121,72 @@ def block_from_jax(blk: dict, full: bool) -> StateDict:
     return sd
 
 
+def unscan_stages(params: dict, depths) -> dict:
+    """Inverse of `to_stage_scan_layout`: stage{s}_layers/l/... with a
+    leading layer axis → stage{s}_layer{i}."""
+    out = {k: v for k, v in params.items() if not k.endswith("_layers")}
+    for s, depth in enumerate(depths):
+        stacked = params[f"stage{s}_layers"]["l"]
+        for i in range(depth):
+            out[f"stage{s}_layer{i}"] = _map_tree(stacked,
+                                                  lambda leaf, i=i: _np(leaf)[i])
+    return out
+
+
+def dcnv3_from_jax(dcn: dict) -> StateDict:
+    """`DCNv3` params → the port `DCNv3`'s state_dict."""
+    sd: StateDict = {}
+    _conv(sd, "dw_conv.0", dcn["dw_conv"])
+    _norm(sd, "dw_conv.1.1", dcn["dw_norm"])
+    for lin in ("offset", "mask", "input_proj", "output_proj"):
+        _dense(sd, lin, dcn[lin])
+    return sd
+
+
+def internimage_layer_from_jax(layer: dict) -> StateDict:
+    """`InternImageLayer` params → the port layer's state_dict."""
+    sd: StateDict = {}
+    for g in ("gamma1", "gamma2"):
+        if g in layer:
+            sd[g] = _tensor(layer[g])
+    _norm(sd, "norm1.0", layer["norm1"])
+    _norm(sd, "norm2.0", layer["norm2"])
+    _dense(sd, "mlp.fc1", layer["mlp"]["fc1"])
+    _dense(sd, "mlp.fc2", layer["mlp"]["fc2"])
+    sd.update({"dcn." + k: v for k, v in dcnv3_from_jax(layer["dcn"]).items()})
+    return sd
+
+
+def internimage_from_jax(params: dict, cfg: InternImageConfig) -> StateDict:
+    """`InternImage` params (unrolled `stage{s}_layer{i}` or scanned
+    `stage{s}_layers/l`) → the port's `InternImage` state_dict, the inverse
+    of `mtp_tpu/ckpt/torch_convert.py` `convert_internimage`."""
+    p = params.get("params", params)
+    if "stage0_layers" in p:
+        p = unscan_stages(p, cfg.depths)
+    sd: StateDict = {}
+    _conv(sd, "patch_embed.conv1", p["stem_conv1"])
+    _norm(sd, "patch_embed.norm1.1", p["stem_norm1"])
+    _conv(sd, "patch_embed.conv2", p["stem_conv2"])
+    _norm(sd, "patch_embed.norm2.1", p["stem_norm2"])
+    for s, depth in enumerate(cfg.depths):
+        for i in range(depth):
+            layer = internimage_layer_from_jax(p[f"stage{s}_layer{i}"])
+            sd.update({f"levels.{s}.blocks.{i}.{k}": v for k, v in layer.items()})
+        if f"stage{s}_norm" in p:
+            _norm(sd, f"levels.{s}.norm.0", p[f"stage{s}_norm"])
+        if f"down{s}_conv" in p:
+            _conv(sd, f"levels.{s}.downsample.conv", p[f"down{s}_conv"])
+            _norm(sd, f"levels.{s}.downsample.norm.1", p[f"down{s}_norm"])
+    return sd
+
+
 def backbone_from_jax(params: dict, cfg: BackboneConfig) -> StateDict:
     """`ViTRVSA` params (unrolled `blocks_i` or scanned `block_groups`)
-    → the port's `ViTRVSA` state_dict."""
+    → the port's `ViTRVSA` state_dict; InternImage configs go to
+    `internimage_from_jax`."""
+    if is_internimage(cfg):
+        return internimage_from_jax(params, internimage_config(cfg))
     p = params.get("params", params)
     if "block_groups" in p:
         p = unscan_blocks(p, cfg.depth, cfg.interval)
@@ -218,15 +286,49 @@ def _lecun(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     _trunc_normal(t, math.sqrt(1.0 / fan_in) / _LECUN_STD, gen)
 
 
+def _init_internimage(model: InternImage, generator: torch.Generator) -> None:
+    """InternImage's initialisers (`mtp_tpu/ops/dcnv3.py` DCNv3 and the flax
+    defaults): xavier-uniform on the DCNv3 projections, zeros on the offset
+    and mask regressors, lecun-normal on the MLP Dense layers and on every
+    conv, zero biases, unit LayerNorms; the layer-scale gammas keep the
+    config's value."""
+    for name, mod in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(mod, nn.Linear):
+            if leaf in ("input_proj", "output_proj"):
+                nn.init.xavier_uniform_(mod.weight, generator=generator)
+            elif leaf in ("offset", "mask"):
+                mod.weight.zero_()
+            else:
+                _lecun(mod.weight, mod.in_features, generator)
+        elif isinstance(mod, nn.Conv2d):  # fan_in kh·kw·in/groups: 9 depthwise
+            _lecun(mod.weight, mod.weight[0].numel(), generator)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+        if isinstance(getattr(mod, "bias", None), torch.Tensor):
+            mod.bias.zero_()
+    for layer in (m for m in model.modules() if isinstance(m, InternImageLayer)):
+        if layer.gamma1 is not None:
+            layer.gamma1.fill_(model.cfg.layer_scale)
+            layer.gamma2.fill_(model.cfg.layer_scale)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the JAX modules draw them (not the same
-    numbers): trunc-normal(0.02) on every Dense-like weight, the regressors,
-    `pos_embed` and the Swin bias table (vit_rvsa.py:47-48); zeros on the
-    decomposed rel-pos tables; flax's lecun-normal on convolutions; zero
-    biases; unit norms; then `rescale_block_init` (vit_rvsa.py:490-518).
-    BatchNorm keeps running mean 0 and variance 1."""
+    numbers).  ViT+RVSA and the head: trunc-normal(0.02) on every Dense-like
+    weight, the regressors, `pos_embed` and the Swin bias table
+    (vit_rvsa.py:47-48); zeros on the decomposed rel-pos tables; flax's
+    lecun-normal on convolutions; zero biases; unit norms; then
+    `rescale_block_init` (vit_rvsa.py:490-518).  BatchNorm keeps running
+    mean 0 and variance 1.  InternImage: `_init_internimage`."""
+    internimages = [m for m in model.modules() if isinstance(m, InternImage)]
+    for ii in internimages:
+        _init_internimage(ii, generator)
+    inner = {id(m) for ii in internimages for m in ii.modules()}
     for name, mod in model.named_modules():
+        if id(mod) in inner:
+            continue
         if isinstance(mod, nn.Linear):
             _trunc_normal(mod.weight, 0.02, generator)
         elif isinstance(mod, nn.Conv2d) and ".sampling_" in name:

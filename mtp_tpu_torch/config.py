@@ -9,14 +9,15 @@ only attributes, so they accept either.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class BackboneConfig:
     """ViT+RVSA backbone hyper-parameters (reference `vit_b_rvsa` /
-    `vit_l_rvsa` factories)."""
+    `vit_l_rvsa` factories); names starting `internimage` select InternImage
+    (`internimage_config`)."""
 
     name: str = "vit_b_rvsa"
     img_size: int = 224
@@ -35,8 +36,8 @@ class BackboneConfig:
     drop_rate: float = 0.0
     use_abs_pos_emb: bool = True
     init_values: Optional[float] = None
-    # the JAX package's layout switches: the port has one (unrolled) layout
-    # and no remat (it raises when a backward could follow)
+    # the JAX package's layout switches: the port has one (unrolled) layout;
+    # InternImage honours remat, ViT+RVSA raises when a backward could follow
     remat: bool = False
     scan: bool = False
     pallas_attn: bool = False
@@ -55,6 +56,68 @@ def vit_l_rvsa(img_size: int = 224, **kw) -> BackboneConfig:
     return BackboneConfig(
         name="vit_l_rvsa", img_size=img_size, embed_dim=1024, depth=24,
         num_heads=16, interval=6, **kw)
+
+
+@dataclass(frozen=True)
+class InternImageConfig:
+    """InternImage hyper-parameters (`mtp_tpu/models/internimage.py`; XL is
+    the default: reference models.py:92-104)."""
+
+    channels: int = 192
+    depths: Tuple[int, ...] = (5, 5, 24, 5)
+    groups: Tuple[int, ...] = (12, 24, 48, 96)
+    mlp_ratio: float = 4.0
+    drop_path_rate: float = 0.2
+    layer_scale: Optional[float] = 1e-5
+    offset_scale: float = 2.0
+    post_norm: bool = True
+    out_indices: Tuple[int, ...] = (0, 1, 2, 3)
+    dtype: str = "bfloat16"
+    # `remat` checkpoints every layer (torch.utils.checkpoint); `scan` and
+    # `pallas_dcn` are the JAX package's layout and kernel switches, carried
+    # so the copies stay equal: the port has one layout and its kernels
+    remat: bool = False
+    scan: bool = False
+    pallas_dcn: bool = False
+
+
+def internimage_xl() -> InternImageConfig:
+    return InternImageConfig()
+
+
+def internimage_t() -> InternImageConfig:
+    return InternImageConfig(channels=64, depths=(4, 4, 18, 4),
+                             groups=(4, 8, 16, 32), layer_scale=None,
+                             offset_scale=1.0, post_norm=False,
+                             drop_path_rate=0.1)
+
+
+def internimage_backbone_config(variant: str = "internimage_xl",
+                                img_size: int = 224, **kw) -> BackboneConfig:
+    """A BackboneConfig shell for InternImage (`mtp_tpu/models/backbones.py`:
+    the ViT fields are unused; depth is the total layer count, for layer
+    decay)."""
+    depths = (5, 5, 24, 5) if variant.endswith("xl") else (4, 4, 18, 4)
+    return BackboneConfig(name=variant, img_size=img_size,
+                          embed_dim=192 if variant.endswith("xl") else 64,
+                          depth=sum(depths), num_heads=1, interval=10 ** 9,
+                          out_indices=(0, 1, 2, 3), **kw)
+
+
+def is_internimage(cfg) -> bool:
+    return isinstance(cfg, InternImageConfig) or cfg.name.startswith("internimage")
+
+
+def internimage_config(cfg) -> InternImageConfig:
+    """The InternImage config a backbone config selects, as the JAX
+    `build_backbone` maps it: XL or T by name, with the shell's dtype,
+    drop-path rate and switches.  An InternImageConfig is returned as it is
+    (the port's modules also take one directly, at any size)."""
+    if isinstance(cfg, InternImageConfig):
+        return cfg
+    base = internimage_xl() if cfg.name.endswith("xl") else internimage_t()
+    return replace(base, dtype=cfg.dtype, drop_path_rate=cfg.drop_path_rate,
+                   remat=cfg.remat, scan=cfg.scan, pallas_dcn=cfg.pallas_attn)
 
 
 @dataclass(frozen=True)
@@ -158,3 +221,23 @@ def rvsa_l_upernet_384_spacenetv1() -> TaskConfig:
             schedule=ScheduleConfig(kind="cosine", total_steps=80000,
                                     warmup_steps=1500)),
         slide=SlideConfig(crop=384, stride=256))
+
+
+def intern_xl_upernet_512_loveda() -> TaskConfig:
+    """The recipe `intern-xl-upernet-512-imp-mtp-loveda` (and its `-imp-`
+    twin): InternImage-XL at 512² (`mtp_tpu.configs._internimage_xl`: remat
+    and scan on, drop-path 0.1, the BackboneConfig default) → UperNet, 7
+    classes (LoveDA), with the segmentation recipe shape (`_seg`) and the
+    InternImage optimizer point (`_ii_opt`: AdamW 2e-5, layer decay 0.94);
+    batch 8, slide eval with 512² crops at stride 256."""
+    return TaskConfig(
+        task="segmentation", num_classes=7,
+        backbone=internimage_backbone_config("internimage_xl", 512, remat=True,
+                                             scan=True),
+        train=TrainConfig(
+            batch_size=8,
+            optimizer=OptimizerConfig(lr=2e-5, weight_decay=0.05,
+                                      layer_decay=0.94, clip_norm=0.0),
+            schedule=ScheduleConfig(kind="cosine", total_steps=80000,
+                                    warmup_steps=1500)),
+        slide=SlideConfig(crop=512, stride=256))

@@ -2,8 +2,9 @@
 schedules (port of `mtp_tpu/core/optim.py`).
 
 - layer decay: pos_embed/patch_embed → layer 0, blocks.i → i+1, everything
-  else → depth+1 (reference `get_num_layer_for_vit`), LR scale
-  `rate^(num_layers - layer_id - 1)` with num_layers = depth + 2;
+  else → depth+1 (reference `get_num_layer_for_vit`; InternImage:
+  `internimage_layer_id`), LR scale `rate^(num_layers - layer_id - 1)` with
+  num_layers = depth + 2;
 - no weight decay for 1-dim parameters, biases, pos_embed or layer-scale
   gammas; the 2-D rel-pos and Swin tables are decayed;
 - the update is the JAX package's optax chain
@@ -23,7 +24,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from mtp_tpu_torch.config import OptimizerConfig, ScheduleConfig
+from mtp_tpu_torch.config import (OptimizerConfig, ScheduleConfig,
+                                  internimage_config, is_internimage)
 
 Schedule = Callable[[int], float]
 
@@ -99,17 +101,44 @@ def vit_layer_id(name: str, num_layers: int) -> int:
     return num_layers - 1
 
 
+_LEVEL_BLOCK_RX = re.compile(r"^levels\.(\d+)\.blocks\.(\d+)\.")
+_DOWNSAMPLE_RX = re.compile(r"^levels\.(\d+)\.downsample\.")
+
+
+def internimage_layer_id(name: str, num_layers: int,
+                         depths: Tuple[int, ...] = (5, 5, 24, 5)) -> int:
+    """Layer-decay id of an InternImage parameter (reference
+    mmcv_custom/custom_layer_decay_optimizer_constructor.py:63, as
+    `mtp_tpu/models/backbones.py` `internimage_layer_id` maps the flax
+    names): the stem → 0, `levels.s.blocks.i` → Σdepths[:s] + i + 1, a
+    downsample → the end of its stage Σdepths[:s+1], anything else (the
+    pre-norm stage norms) → num_layers − 1."""
+    if name.startswith("patch_embed."):
+        return 0
+    m = _LEVEL_BLOCK_RX.search(name)
+    if m:
+        return sum(depths[:int(m.group(1))]) + int(m.group(2)) + 1
+    m = _DOWNSAMPLE_RX.search(name)
+    if m:
+        return sum(depths[:int(m.group(1)) + 1])
+    return num_layers - 1
+
+
 def layer_id_fn_for(cfg, root: str = "backbone.") -> Callable[[str, int], int]:
     """Layer-decay id function for a model whose backbone parameters sit
-    under `root` (`mtp_tpu/models/backbones.py` `layer_id_fn_for`, ViT
-    branch): names outside the backbone go to the last layer."""
-    if cfg.name.startswith("internimage"):
-        raise NotImplementedError(
-            "InternImage is not ported yet (ROADMAP queue 1 item 11)")
+    under `root` (`mtp_tpu/models/backbones.py` `layer_id_fn_for`): the ViT
+    or the InternImage mapping by `cfg.name`, with InternImage's stage
+    depths those of the config it names (XL or T); names outside the
+    backbone go to the last layer."""
+    if is_internimage(cfg):
+        depths = internimage_config(cfg).depths
+        base = lambda name, n: internimage_layer_id(name, n, depths)
+    else:
+        base = vit_layer_id
 
     def fn(name: str, num_layers: int) -> int:
         if name.startswith(root):
-            return vit_layer_id(name[len(root):], num_layers)
+            return base(name[len(root):], num_layers)
         return num_layers - 1
 
     return fn

@@ -1,6 +1,6 @@
-"""Encoder-decoder semantic segmentor: ViT+RVSA → UperNet (port of
-`mtp_tpu/models/segmentor.py`).  Submodules `backbone` and `decode_head`
-carry the mmseg `EncoderDecoder` key prefixes."""
+"""Encoder-decoder semantic segmentor: backbone (ViT+RVSA or InternImage) →
+UperNet (port of `mtp_tpu/models/segmentor.py`).  Submodules `backbone` and
+`decode_head` carry the mmseg `EncoderDecoder` key prefixes."""
 
 from __future__ import annotations
 
@@ -9,18 +9,20 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from mtp_tpu_torch.config import BackboneConfig
 from mtp_tpu_torch.heads.upernet import UperNetHead, resize_bilinear
 from mtp_tpu_torch.models.backbones import build_backbone
 
 
 class Segmentor(nn.Module):
-    def __init__(self, cfg: BackboneConfig, num_classes: int,
-                 channels: int = 512,
+    """`cfg` is a BackboneConfig (or an InternImageConfig, see
+    `build_backbone`); the head takes the backbone's `out_channels`."""
+
+    def __init__(self, cfg, num_classes: int, channels: int = 512,
                  input_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.backbone = build_backbone(cfg, input_hw)
-        self.decode_head = UperNetHead([cfg.embed_dim] * 4, num_classes, channels)
+        self.decode_head = UperNetHead(list(self.backbone.out_channels),
+                                       num_classes, channels)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 deterministic: bool = True,

@@ -310,6 +310,10 @@ class ViTRVSA(nn.Module):
         self.fpn3 = nn.Identity()
         self.fpn4 = nn.MaxPool2d(2, stride=2)
 
+    @property
+    def out_channels(self) -> Tuple[int, ...]:
+        return (self.cfg.embed_dim,) * len(self.cfg.out_indices)
+
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         if self.cfg.remat and torch.is_grad_enabled():

@@ -1,6 +1,7 @@
 """Semantic-segmentation task driver (port of `mtp_tpu/tasks/segmentation.py`):
-Segmentor (ViT+RVSA → UperNet), pixel cross entropy with ignore_index,
-AdamW with layer decay, sliding-window evaluation with mIoU.
+Segmentor (ViT+RVSA or InternImage → UperNet), pixel cross entropy with
+ignore_index, AdamW with layer decay (the backbone's layer-id map and
+depth), sliding-window evaluation with mIoU.
 
 The task runs on one device (`device`).  Compute precision follows the
 backbone config's `dtype`, as the JAX package's does: "bfloat16" runs the
@@ -32,10 +33,11 @@ from mtp_tpu_torch.models.segmentor import Segmentor
 class SegmentationTask:
     """`model` defaults to the config's Segmentor (512 channels), sized for
     `cfg.backbone.img_size` crops and built on the CPU; `init_state` draws its
-    weights and moves it to `device`."""
+    weights and moves it to `device`, the card unless the caller asks for
+    another."""
 
     def __init__(self, cfg: TaskConfig, model: Optional[nn.Module] = None,
-                 device="cpu"):
+                 device="cuda"):
         check_single_device(cfg.train.mesh)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -43,7 +45,6 @@ class SegmentationTask:
         self.model = model if model is not None else Segmentor(
             cfg.backbone, cfg.num_classes, input_hw=(size, size))
         self.num_classes = cfg.num_classes
-        self._step_fn = None
 
     def autocast(self):
         """bf16 autocast when the backbone config computes in bfloat16."""
@@ -93,12 +94,8 @@ class SegmentationTask:
         {"image": (B, H, W, 3) float, "label": (B, H, W) int} on the task's
         device.  `deterministic=True` turns dropout and drop-path off (for
         comparisons with a deterministic reference)."""
-        if deterministic:
-            return make_train_step(
-                lambda m, b, g: self.loss_fn(m, b, g, deterministic=True))
-        if self._step_fn is None:
-            self._step_fn = make_train_step(self.loss_fn)
-        return self._step_fn
+        return make_train_step(
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
 
     def fit(self, state: TrainState, data: Iterator[Dict[str, np.ndarray]],
             steps: int, log_every: int = 50,

@@ -28,7 +28,9 @@ SLICE_MODULES = [
     "mtp_tpu_torch.ops.grid_sample",
     "mtp_tpu_torch.ops.fused_attn",
     "mtp_tpu_torch.ops.dropout",
+    "mtp_tpu_torch.ops.dcnv3",
     "mtp_tpu_torch.models.vit_rvsa",
+    "mtp_tpu_torch.models.internimage",
     "mtp_tpu_torch.models.backbones",
     "mtp_tpu_torch.models.segmentor",
     "mtp_tpu_torch.heads.upernet",

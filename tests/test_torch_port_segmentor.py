@@ -112,7 +112,8 @@ def test_segmentor_slide_inference_and_predict():
     ref = jax.jit(lambda im: jax_slide_inference(jax_crop, im, K, slide))(
         jnp.asarray(images))
     task = SegmentationTask(TaskConfig(task="segmentation", num_classes=K,
-                                       backbone=CFG, slide=slide), model=port)
+                                       backbone=CFG, slide=slide), model=port,
+                            device="cpu")
     got = task.slide_logits(torch.from_numpy(images))
     assert got.shape == (2, 176, 192, K) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
@@ -201,7 +202,8 @@ def test_kernel_launches_per_train_step(monkeypatch, batch):
                      backbone=dataclasses.replace(CFG, drop_path_rate=0.3),
                      train=TrainConfig(batch_size=batch))
     task = SegmentationTask(cfg, model=Segmentor(cfg.backbone, 3, channels=16,
-                                                 input_hw=(128, 128)))
+                                                 input_hw=(128, 128)),
+                            device="cpu")
     state = task.init_state(torch.Generator().manual_seed(0))
     batch_ = {"image": torch.zeros(batch, 128, 128, 3),
               "label": torch.zeros(batch, 128, 128, dtype=torch.long)}

@@ -316,7 +316,8 @@ def _task():
                      train=TrainConfig(batch_size=BATCH, optimizer=OPT,
                                        schedule=SCHED))
     return SegmentationTask(cfg, model=Segmentor(CFG, K, channels=CHANNELS,
-                                                 input_hw=(CROP, CROP)))
+                                                 input_hw=(CROP, CROP)),
+                            device="cpu")
 
 
 def test_train_step_matches_jax(jax_two_steps):
@@ -444,7 +445,7 @@ def test_fit_and_evaluate():
                      train=TrainConfig(optimizer=OPT, schedule=SCHED),
                      slide=SlideConfig(crop=CROP, stride=32))
     task = SegmentationTask(cfg, model=Segmentor(
-        cfg.backbone, K, channels=CHANNELS, input_hw=(CROP, CROP)))
+        cfg.backbone, K, channels=CHANNELS, input_hw=(CROP, CROP)), device="cpu")
     state = task.init_state(torch.Generator().manual_seed(0))
     logs = []
     data = iter([_batch(s) for s in range(3)])
@@ -471,4 +472,4 @@ def test_remat_and_meshes_are_refused():
         vit(x)
     with pytest.raises(NotImplementedError, match="one"):
         SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
-            mesh=MeshConfig(data=2))))
+            mesh=MeshConfig(data=2))), device="cpu")
