@@ -37,7 +37,7 @@ class BackboneConfig:
     use_abs_pos_emb: bool = True
     init_values: Optional[float] = None
     # the JAX package's layout switches: the port has one (unrolled) layout;
-    # InternImage honours remat, ViT+RVSA raises when a backward could follow
+    # remat: torch.utils.checkpoint around each ViT block / InternImage layer
     remat: bool = False
     scan: bool = False
     pallas_attn: bool = False

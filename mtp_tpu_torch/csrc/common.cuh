@@ -30,6 +30,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The same over each half-warp: the 16 threads of one row of a 16×16 block.
+__device__ __forceinline__ float half_warp_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows [row0, row0 + n) of the row-major (·, D) src, as `rows` fp32 rows of
+// stride D + 1 in dst (column walks hit distinct banks), zero past n; the
+// kThreads threads of the block share the copy.  The source offset is
+// 64-bit.
+template <int kThreads, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int n,
+                                           int rows, int D) {
+  const int Dp = D + 1;
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    dst[r * Dp + c] = r < n ? to_f32(src[(static_cast<long long>(row0) + r) * D + c]) : 0.f;
+  }
+}
+
 // Raise a kernel's dynamic shared-memory limit when it needs more than the
 // 48 KB default; returns the CUDA error of the attribute call.
 template <typename K>

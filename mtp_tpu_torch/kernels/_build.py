@@ -34,12 +34,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, bias, out, W·nH, N, D, scale
     "mtp_window_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
+    # the same, for windows too large for K1's one-block layout
+    "mtp_window_attn_fwd_large": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
     # q, k, v, rel_h, rel_w, out, BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F],
     # img, py, px, m, out, BG, H, W, C, HWo, P
     "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     # q, k, v, bias, dout, dq, dk, dv, dbias, W·nH, N, D, scale
     "mtp_window_attn_bwd": [_P] * 9 + [_I, _I, _I, _F],
+    # q, k, v, bias, dout, dq, dk, dv, dbias, stats, W·nH, N, D, scale
+    "mtp_window_attn_bwd_qblk": [_P] * 10 + [_I, _I, _I, _F],
     # q, k, v, rel_h, rel_w, dout, dq, dk, dv, drel_h, drel_w, stats,
     # BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F],

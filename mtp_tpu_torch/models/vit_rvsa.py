@@ -21,14 +21,21 @@ Numeric semantics kept from the reference, quirks included:
   and GELU is exact.
 
 Kernels: RVSA blocks run K1 (window attention) and K3 twice (K and V
-sampling); full blocks run K2 when max(H, W) <= 128, else K1 with a
-materialised bias, as the JAX package routes them.  Their backwards run K4,
-K6 (twice) and K5.
+sampling); full blocks run K2 when max(H, W) <= 128, else, as the JAX
+package routes them, the window-attention function over one window of all
+H·W tokens with a materialised fp32 bias (K1L forward, K7 backward at every
+grid over 128 per axis).  Their backwards run K4, K6 (twice) and K5.
 
 Train mode follows the JAX meaning of `deterministic`: when False, each
 block's residual branches go through per-sample drop-path at the rates
 linspace(0, drop_path_rate, depth), and the patch tokens through dropout at
-drop_rate, every mask drawn from the generator passed in.
+drop_rate, every mask drawn from the generator passed in.  With `remat`
+each block runs under `torch.utils.checkpoint` when a backward can follow,
+so only its input is kept and the block is recomputed in the backward (the
+JAX module's `nn.remat`); its two drop-path masks are drawn before the
+checkpointed call and passed in, so the recompute uses the forward's masks
+(checkpoint restores the global RNGs, not the explicit generator).  The
+full blocks' (B, nH, N, N) bias then lives one block at a time.
 """
 
 from __future__ import annotations
@@ -39,9 +46,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mtp_tpu_torch.config import BackboneConfig
-from mtp_tpu_torch.ops.dropout import drop_path, dropout
+from mtp_tpu_torch.ops.dropout import apply_drop_path, drop_path_mask, dropout
 from mtp_tpu_torch.ops.fused_attn import (flash_full_attention,
                                           fused_window_attention)
 from mtp_tpu_torch.ops.grid_sample import grid_sample
@@ -98,12 +106,14 @@ class FullAttention(nn.Module):
             out = flash_full_attention(f(q), f(k), f(v), f(rel_h), f(rel_w),
                                        (H, W), 1.0)
         else:
-            # >128-per-axis grids: the window kernel with a materialised bias
+            # >128-per-axis grids: one window of all H·W tokens with the
+            # materialised fp32 bias (contiguous as built: no copy of its
+            # B·nH·N² floats)
             bias = decomposed_rel_pos_bias(q, (H, W), (H, W),
                                            self.full_attn_rel_pos_h,
                                            self.full_attn_rel_pos_w)
             out = fused_window_attention(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), bias.contiguous(), 1.0)
+                                         v.contiguous(), bias, 1.0)
         out = out.reshape(B, nH, H * W, hd).transpose(1, 2).reshape(B, H, W, C)
         return self.proj(out)
 
@@ -242,15 +252,21 @@ class Block(nn.Module):
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def drop_path_masks(self, x: torch.Tensor, deterministic: bool,
+                        generator: Optional[torch.Generator]):
+        """The keep masks of the two residual branches (None when off)."""
+        return tuple(drop_path_mask(x, self.drop_path_rate, deterministic,
+                                    generator) for _ in range(2))
+
+    def forward(self, x: torch.Tensor, keep1: Optional[torch.Tensor] = None,
+                keep2: Optional[torch.Tensor] = None) -> torch.Tensor:
         rate = self.drop_path_rate
         a = self.attn(self.norm1(x))
         a = a if self.gamma_1 is None else a * self.gamma_1
-        x = x + drop_path(a, rate, deterministic, generator)
+        x = x + apply_drop_path(a, keep1, rate)
         m = self.mlp(self.norm2(x))
         m = m if self.gamma_2 is None else m * self.gamma_2
-        return x + drop_path(m, rate, deterministic, generator)
+        return x + apply_drop_path(m, keep2, rate)
 
 
 class Norm2d(nn.Module):
@@ -316,13 +332,7 @@ class ViTRVSA(nn.Module):
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        if self.cfg.remat and torch.is_grad_enabled():
-            # torch.utils.checkpoint restores the global RNGs, not an
-            # explicit generator: a recomputed block would draw other
-            # drop-path masks than its forward did
-            raise NotImplementedError(
-                "remat is not ported: the recipe does not use it, and the "
-                "drop-path masks must be drawn outside the recomputed blocks")
+        remat = self.cfg.remat and torch.is_grad_enabled()
         x = self.patch_embed(x)  # (B, Hp, Wp, D)
         B, Hp, Wp, D = x.shape
         if self.pos_embed is not None:
@@ -330,7 +340,14 @@ class ViTRVSA(nn.Module):
         x = dropout(x, self.cfg.drop_rate, deterministic, generator)
         taps = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x, deterministic, generator)
+            keep = blk.drop_path_masks(x, deterministic, generator)
+            if remat:
+                # nothing inside the block draws random numbers: its masks
+                # are passed in, so no RNG state is saved
+                x = checkpoint(blk, x, *keep, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk(x, *keep)
             if i in self.cfg.out_indices:
                 taps[i] = x
         ops = (self.fpn1, self.fpn2, self.fpn3, self.fpn4)

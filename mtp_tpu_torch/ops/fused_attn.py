@@ -1,13 +1,26 @@
-"""Fused attention: window attention (K1 forward, K4 backward) and flash full
-attention with the decomposed rel-pos bias (K2 forward, K5 backward).
+"""Fused attention: window attention (K1 forward, K4 backward; K1L and K7
+for windows too large for them) and flash full attention with the
+decomposed rel-pos bias (K2 forward, K5 backward).
 
 Port of `mtp_tpu/ops/pallas_attn.py`, with the JAX signatures minus
 `interpret`.  `fused_window_attention` and `flash_full_attention` are
-`torch.autograd.Function`s, as the JAX functions are `custom_vjp`s: the
-forward runs K1/K2, the backward K4/K5 (`csrc/window_attn_bwd.cu`,
-`csrc/flash_attn_bwd.cu`).  Every kernel wrapper runs its plain version
-(`*_ref`: einsum + fp32 softmax, and the explicit VJPs `*_bwd_ref`) on CPU
-tensors and launches its CUDA kernel on CUDA tensors.
+`torch.autograd.Function`s, as the JAX functions are `custom_vjp`s.  Every
+kernel wrapper runs its plain version (`*_ref`: einsum + fp32 softmax, and
+the explicit VJPs `*_bwd_ref`) on CPU tensors and launches a CUDA kernel on
+CUDA tensors.
+
+Window attention routes by shape alone (`window_fwd_route`,
+`window_bwd_route`), never by a caught error:
+- forward: K1 (`csrc/window_attn_fwd.cu`, one block per window and head)
+  where its block fits shared memory, else K1L
+  (`csrc/window_attn_fwd_large.cu`, q-blocks streaming key tiles).  Both
+  replace `_fused_forward`'s pallas_call at pack 1 or 2.
+- backward: K7 (`csrc/window_attn_bwd_qblk.cu`) wherever JAX takes its
+  q-blocked kernel (`_fused_backward`: pack 1 and round_up(N, 8) > 512),
+  and also in JAX's one-shot range wherever K4's one-block layout does not
+  fit shared memory (117 < N <= 512 at D = 64); K4
+  (`csrc/window_attn_bwd.cu`) everywhere else.
+So every window size JAX accepts runs on the card, up to head dim 128.
 """
 
 from __future__ import annotations
@@ -16,11 +29,17 @@ import torch
 
 from mtp_tpu_torch.kernels import _build
 
-LAUNCHES = {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0}
+LAUNCHES = {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0,
+            "window_large": 0, "window_bwd_qblk": 0}
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _FLASH_BQ = _FLASH_BK = 64  # query / key tile of csrc/flash_attn_fwd.cu
 _FLASH_BWD_BQ = 32  # query tile of csrc/flash_attn_bwd.cu (its key tile is 64)
+# K1L and K7 hold a thread's accumulator columns in registers: head dims up
+# to 128 (their shared memory, at most 173,568 B there, then fits a block)
+LARGE_MAX_D = 128
+# JAX's `_WIN_BWD_ONE_SHOT_MAX`: above this padded N its backward is K7
+WIN_BWD_ONE_SHOT_MAX = 512
 
 
 def window_smem_bytes(N: int, D: int) -> int:
@@ -32,6 +51,39 @@ def window_bwd_smem_bytes(N: int, D: int) -> int:
     """Shared memory of one K4 block: fp32 q, k, v, dO rows of D+1, the N×N
     probabilities and dP/dS."""
     return (4 * N * (D + 1) + 2 * N * N) * 4
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _check_large(N: int, D: int) -> None:
+    if D > LARGE_MAX_D:
+        raise ValueError(f"window attention with N={N} needs the q-blocked "
+                         f"kernels, which take head dims up to {LARGE_MAX_D}, "
+                         f"got D={D}")
+
+
+def window_fwd_route(N: int, D: int) -> str:
+    """The `LAUNCHES` key of the forward kernel for (N, D) windows: "window"
+    (K1) where its one-block layout fits shared memory, else "window_large"
+    (K1L).  Raises for what neither takes (D > 128 beyond K1's reach)."""
+    if window_smem_bytes(N, D) <= SMEM_LIMIT:
+        return "window"
+    _check_large(N, D)
+    return "window_large"
+
+
+def window_bwd_route(N: int, D: int) -> str:
+    """The `LAUNCHES` key of the backward kernel for (N, D) windows:
+    "window_bwd_qblk" (K7) where JAX's `_fused_backward` takes its q-blocked
+    kernel (pack 1, i.e. N > 64, and round_up(N, 8) > 512) or where K4's
+    one-block layout does not fit shared memory, else "window_bwd" (K4)."""
+    jax_qblocked = N > 64 and _round_up(N, 8) > WIN_BWD_ONE_SHOT_MAX
+    if not jax_qblocked and window_bwd_smem_bytes(N, D) <= SMEM_LIMIT:
+        return "window_bwd"
+    _check_large(N, D)
+    return "window_bwd_qblk"
 
 
 def flash_smem_bytes(D: int, Hk: int, Wk: int) -> int:
@@ -119,19 +171,22 @@ def _check_window(q, k, v, bias):
     _check_f32(bias=bias)
 
 
+_WINDOW_LAUNCHERS = {"window": "mtp_window_attn_fwd",
+                     "window_large": "mtp_window_attn_fwd_large"}
+
+
 def _window_fwd(q, k, v, bias, scale):
     _check_window(q, k, v, bias)
     if not _build.use_kernel(q, k, v, bias):
         return fused_window_attention_ref(q, k, v, bias, scale)
     W, nH, N, D = q.shape
-    _smem_guard(f"window attention with N={N}, D={D} (the q-blocked path for "
-                f"such windows is not ported yet)", window_smem_bytes(N, D))
+    route = window_fwd_route(N, D)
     _build.check_launchable(q=q, k=k, v=v, bias=bias)
     out = torch.empty_like(q)
-    _build.launch("mtp_window_attn_fwd", q.data_ptr(), k.data_ptr(),
+    _build.launch(_WINDOW_LAUNCHERS[route], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), bias.data_ptr(), out.data_ptr(), W * nH, N, D,
                   float(scale), _build.dtype_code(q))
-    LAUNCHES["window"] += 1
+    LAUNCHES[route] += 1
     return out
 
 
@@ -142,23 +197,27 @@ def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor,
     (q's shape and dtype) → (dq, dk, dv) in q's dtype and dbias fp32.
 
     CPU tensors run `fused_window_attention_bwd_ref`; CUDA tensors launch
-    the K4 kernel."""
+    K4 or K7, as `window_bwd_route` picks."""
     _check_window(q, k, v, bias)
     _check_dout(q, dout)
     if not _build.use_kernel(q, k, v, bias, dout):
         return fused_window_attention_bwd_ref(q, k, v, bias, dout, scale)
     W, nH, N, D = q.shape
-    _smem_guard(f"the window attention backward with N={N}, D={D}",
-                window_bwd_smem_bytes(N, D))
+    route = window_bwd_route(N, D)
     _build.check_launchable(q=q, k=k, v=v, bias=bias, dout=dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    _build.launch("mtp_window_attn_bwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  dbias.data_ptr(), W * nH, N, D, float(scale),
-                  _build.dtype_code(q))
-    LAUNCHES["window_bwd"] += 1
+    ptrs = [t.data_ptr() for t in (q, k, v, bias, dout, dq, dk, dv, dbias)]
+    if route == "window_bwd":
+        _build.launch("mtp_window_attn_bwd", *ptrs, W * nH, N, D, float(scale),
+                      _build.dtype_code(q))
+    else:
+        # per query row: log-sum-exp of the scores and rowsum(P ∘ dP), from
+        # K7's q-major pass to its k-major pass
+        stats = torch.empty((2, W * nH, N), dtype=torch.float32, device=q.device)
+        _build.launch("mtp_window_attn_bwd_qblk", *ptrs, stats.data_ptr(),
+                      W * nH, N, D, float(scale), _build.dtype_code(q))
+    LAUNCHES[route] += 1
     return dq, dk, dv, dbias
 
 

@@ -44,10 +44,11 @@ SLICE_MODULES = [
     "chip_smoke",
 ]
 
-# the six kernel sources of the serving and training paths
+# the eight kernel sources of the serving and training paths
 KERNEL_SOURCES = {
     "window_attn_fwd.cu", "flash_attn_fwd.cu", "bilinear_sample_fwd.cu",
-    "window_attn_bwd.cu", "flash_attn_bwd.cu", "bilinear_sample_bwd.cu"}
+    "window_attn_bwd.cu", "flash_attn_bwd.cu", "bilinear_sample_bwd.cu",
+    "window_attn_fwd_large.cu", "window_attn_bwd_qblk.cu"}
 
 
 def test_imports_without_jax_flax_or_the_jax_package():
@@ -135,7 +136,7 @@ def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path):
     lines = [line.split() for line in calls.read_text().splitlines()]
     compiles, links = lines[:-1], lines[-1:]
     srcs = [str(p) for p in _build.sources()]
-    assert len(srcs) == 6
+    assert len(srcs) == len(KERNEL_SOURCES)
     assert sorted(a[-1] for a in compiles) == srcs
     assert all("-c" in a and "arch=compute_90a,code=sm_90a" in a for a in compiles)
     assert "-shared" in links[0] and sorted(a[a.index("-o") + 1] for a in compiles) \

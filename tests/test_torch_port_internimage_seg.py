@@ -147,6 +147,7 @@ def test_kernel_launches_per_forward(stubbed_launches, batch):
         port(torch.zeros(batch, 64, 64, 3))
     counts, requested, checked = stubbed_launches()
     assert counts == {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0,
+                      "window_large": 0, "window_bwd_qblk": 0,
                       "bilinear_sample": N_LAYERS, "bilinear_sample_bwd": 0}
     assert requested == ["mtp_bilinear_sample_fwd"] * N_LAYERS
     assert checked == [["img", "m", "px", "py"]] * N_LAYERS
@@ -172,6 +173,7 @@ def test_kernel_launches_per_train_step(stubbed_launches, batch, remat):
     counts, requested, checked = stubbed_launches()
     fwd = N_LAYERS * (2 if remat else 1)
     assert counts == {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0,
+                      "window_large": 0, "window_bwd_qblk": 0,
                       "bilinear_sample": fwd, "bilinear_sample_bwd": N_LAYERS}
     assert requested.count("mtp_bilinear_sample_fwd") == fwd
     assert requested.count("mtp_bilinear_sample_bwd") == N_LAYERS

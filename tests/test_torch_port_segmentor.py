@@ -212,7 +212,8 @@ def test_kernel_launches_per_train_step(monkeypatch, batch):
     n_rvsa = CFG.depth - n_full
     want = {"window": n_rvsa, "flash": n_full, "window_bwd": n_rvsa,
             "flash_bwd": n_full, "bilinear_sample": 2 * n_rvsa,
-            "bilinear_sample_bwd": 2 * n_rvsa}
+            "bilinear_sample_bwd": 2 * n_rvsa, "window_large": 0,
+            "window_bwd_qblk": 0}
     assert {**fused_attn.LAUNCHES, **dcn.LAUNCHES} == want
     for name, n in (("mtp_window_attn_fwd", n_rvsa), ("mtp_flash_attn_fwd", n_full),
                     ("mtp_bilinear_sample_fwd", 2 * n_rvsa),

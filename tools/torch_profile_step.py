@@ -2,7 +2,7 @@
 """Device-time breakdown of one recipe train step of the PyTorch port on
 one NVIDIA GPU.
 
-    python3 tools/torch_profile_step.py [--recipe xl|rvsa] [--steps 2]
+    python3 tools/torch_profile_step.py [--recipe xl|rvsa|rvsa_hr] [--steps 2]
 
 Runs the recipe's train step (`chip_smoke.PATHS`: batch, crop, bf16
 autocast, remat and drop-path as the recipe sets them) through
@@ -44,6 +44,8 @@ from mtp_tpu_torch.tasks.segmentation import SegmentationTask  # noqa: E402
 GROUPS = [
     ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_kernel"),
     ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_kernel"),
+    ("K1L window_attn_fwd_large", r"window_attn_fwd_large_kernel"),
+    ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_kernel"),
     ("K1/K2/K4/K5 attention", r"window_attn|flash_(attn|bwd|fwd)"),
     ("AdamW (foreach)", r"multi_tensor_apply|foreach|adam"),
     ("cuDNN convolutions", r"conv|cudnn|dgrad|wgrad|implicit_gemm|winograd|fft"),
@@ -84,7 +86,7 @@ def main() -> None:
     state = task.init_state(torch.Generator().manual_seed(0))
     crop = recipe.backbone.img_size
     batch = {k: _to_device(v, task.device) for k, v in chip_smoke.synthetic_batch(
-        recipe.train.batch_size, crop, recipe.num_classes, 10).items()}
+        recipe.train.batch_size, (crop, crop), recipe.num_classes, 10).items()}
     step = task.train_step_fn()
     for _ in range(3):
         state, m = step(state, batch)
