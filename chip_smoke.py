@@ -16,13 +16,23 @@ forward, K7 backward).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
-2. build: compile the kernels from mtp_tpu_torch/csrc/ (nvcc, sm_90a).
+2. build: compile the kernels from mtp_tpu_torch/csrc/ (nvcc, sm_90a); the
+   registers and spills of every kernel (ptxas), and the HMMA/HGMMA count of
+   the flash kernels' SASS (cuobjdump); the bf16 K2/K5 kernels at the main
+   path's head dim 64 must have tensor-core instructions and no spills.
 3. kernels: K1 window attention, K2 flash full attention and K3 bilinear
    sampling against their plain PyTorch versions on the card, in fp32 and
-   bf16, at the ViT slice's shapes and at edge shapes; median times of the
-   kernel, its plain version and one PyTorch library call computing the
-   same function where there is one; the bound of each (section BOUNDS).
-3b. backward kernels: K4, K5 and K6 likewise, at the train step's shapes.
+   bf16, at the ViT slice's shapes and at edge shapes (K2: the slice, a
+   20×33 grid, D = 40 padded to 48, and a 128×128 grid at BH = 2 whose
+   plain version runs head by head; K2 returns (out, lse) and both are
+   checked); times of the kernel, its plain version and one PyTorch library
+   call computing the same function where there is one, each a run of
+   back-to-back calls between one pair of CUDA events over their count
+   (K2's and K5's record rows also with torch.profiler's device time); the
+   bound of each (section BOUNDS).
+3b. backward kernels: K4, K5 and K6 likewise, at the train step's shapes
+   (K5 at K2's four cases, given out and lse from the plain fp32 forward,
+   and two launches on the same inputs bitwise equal).
 3c. K8: K3 and K6 at P = 9, gc = 16, at InternImage-XL's stage 0 and stage
    3 shapes at batch 8, with init-like integer coordinates and with random
    offsets.
@@ -68,10 +78,12 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path as FilePath
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -297,19 +309,40 @@ def reset_counters() -> None:
         launched.update(dict.fromkeys(launched, 0))
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def loop_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """ms per call of fn: `reps` back-to-back calls between one pair of CUDA
+    events, after `warmup` calls, so that a call's host work (the wrapper's
+    checks and allocations) overlaps the previous call's device work as it
+    does on the main path, and the events' own resolution is spread over
+    the run."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiler_ms(fn, reps: int = 10) -> Optional[float]:
+    """Device time per call of fn from torch.profiler: the CUDA events of
+    `reps` calls, summed, over `reps`; None when the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.device_time_total for e in prof.events() if e.device_type == cuda)
+    return total / 1e3 / reps if total > 0 else None
 
 
 # ------------------------------------------------------------ phase 1 + 2 --
@@ -330,6 +363,28 @@ def phase_device() -> str:
     return card
 
 
+def sass_tensor_core_counts() -> Dict[str, int]:
+    """{kernel label: HMMA + HGMMA instructions} of every kernel in the built
+    library, from `cuobjdump -sass`."""
+    tool = FilePath(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_build.LIB)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = _build.kernel_label(fn[1])
+            counts.setdefault(name, 0)
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
+
+
+# the bf16 flash kernels at the main path's head dim (ViT-B and ViT-L: 64)
+FLASH_TC_MAIN = ("flash_fwd_tc_kernel<64>", "flash_bwd_dq_tc_kernel<64>",
+                 "flash_bwd_dkv_tc_kernel<64>")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build(force=True)
@@ -340,6 +395,16 @@ def phase_build() -> None:
         f"{' '.join(_build.NVCC_FLAGS)}; {time.perf_counter() - t0:.1f} s")
     for line in _build.PTXAS_LOG:
         log(f"[build] {line}")
+    counts = sass_tensor_core_counts()
+    for name, n in sorted(counts.items()):
+        if name.startswith("flash_"):
+            log(f"[build] SASS {name}: {n} HMMA/HGMMA instructions")
+    for name in FLASH_TC_MAIN:
+        ptxas = [line for line in _build.PTXAS_LOG if line.startswith(name + ":")]
+        if not counts.get(name):
+            raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
+        if len(ptxas) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in ptxas[0]:
+            raise AssertionError(f"{name}: ptxas reports spills or nothing: {ptxas}")
 
 
 # -------------------------------------------------------- phase 3, 3b, 3c --
@@ -358,6 +423,8 @@ class Case:
     library: Optional[Callable[[tuple], Tuple[Callable, str]]] = None
     dtypes: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
     reps: int = 20  # timed calls of each of kernel, plain and library
+    deterministic: bool = False  # two launches on the same inputs must agree bit for bit
+    profile: bool = False  # the record's device time from torch.profiler too
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -428,21 +495,22 @@ def _grid_sample_library(img, py, px, H, W, g=None):
             "grad of grid_sample")
 
 
-def _by_head(plain):
-    """The plain version run one head at a time into preallocated outputs:
-    the same function, in the memory of one head's (N, N) temporaries."""
+def _by_head(plain, dim: int = 1):
+    """The plain version run one head at a time (one index of `dim` of
+    every tensor argument) into preallocated outputs: the same function, in
+    the memory of one head's (N, N) temporaries."""
     def run(*args):
-        nH = args[0].shape[1]
-        head = lambda t, h: t[:, h:h + 1] if isinstance(t, torch.Tensor) else t
+        nH = args[0].shape[dim]
+        head = lambda t, h: t.narrow(dim, h, 1) if isinstance(t, torch.Tensor) else t
         outs = None
         for h in range(nH):
             res = plain(*(head(a, h) for a in args))
             res = res if isinstance(res, tuple) else (res,)
             if outs is None:
-                outs = [torch.empty(r.shape[:1] + (nH,) + r.shape[2:], dtype=r.dtype,
-                                    device=r.device) for r in res]
+                outs = [torch.empty(r.shape[:dim] + (nH,) + r.shape[dim + 1:],
+                                    dtype=r.dtype, device=r.device) for r in res]
             for o, r in zip(outs, res):
-                o[:, h:h + 1] = r
+                o.narrow(dim, h, 1).copy_(r)
             del res
         return outs[0] if len(outs) == 1 else tuple(outs)
     return run
@@ -509,7 +577,12 @@ def _expand_rel(rel_h, rel_w):
 
 
 def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False) -> Case:
-    """K2 (or K5 with bwd): 4·N²·D FLOPs per row of BH (10·N²·D backward)."""
+    """K2 (or K5 with bwd): 4·N²·D FLOPs per row of BH (10·N²·D backward:
+    the recomputed S, then dP, dQ, dK, dV).  K2 returns (out, lse); K5 takes
+    out and lse from the plain fp32 forward on the case's inputs, so the
+    kernel is held against statistics it did not make, and must give the
+    same bits twice.  Grids over 64 per axis run the plain versions head by
+    head (rows of BH) and 5 timed calls."""
     g = _gen(seed)
     N = grid_hw[0] * grid_hw[1]
     q, k, v, dout = (_randn((BH, N, D), g) for _ in range(4))
@@ -517,17 +590,38 @@ def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False) -> Case:
     rel_h = _randn((BH, N, grid_hw[0]), g, 0.5)
     rel_w = _randn((BH, N, grid_hw[1]), g, 0.5)
     flops = lambda a: (10 if bwd else 4) * BH * N * N * D
+    big = max(grid_hw) > 64
+    wrap = (lambda f: _by_head(f, 0)) if big else (lambda f: f)
+    extra = dict(reps=5) if big else {}
+    fwd_ref = wrap(fused_attn.flash_full_attention_ref)
     if bwd:
+        def args(dt):
+            qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+            with torch.no_grad():
+                out, lse = fwd_ref(qd.float(), kd.float(), vd.float(), rel_h, rel_w,
+                                   grid_hw, scale)
+            return (qd, kd, vd, rel_h, rel_w, out.to(dt), lse, dout.to(dt), grid_hw, scale)
         return Case(fused_attn.flash_full_attention_bwd,
-                    fused_attn.flash_full_attention_bwd_ref,
-                    lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, dout.to(dt),
-                                grid_hw, scale),
-                    flops, lambda a: _sdpa_library(a[0], a[1], a[2],
-                                                   _expand_rel(a[3], a[4]), a[7], a[5]))
-    return Case(fused_attn.flash_full_attention, fused_attn.flash_full_attention_ref,
+                    wrap(fused_attn.flash_full_attention_bwd_ref), args, flops,
+                    lambda a: _sdpa_library(a[0], a[1], a[2], _expand_rel(a[3], a[4]),
+                                            a[9], a[7]),
+                    deterministic=True, profile=True, **extra)
+    return Case(fused_attn._flash_fwd, fwd_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, grid_hw, scale),
                 flops, lambda a: _sdpa_library(a[0], a[1], a[2],
-                                               _expand_rel(a[3], a[4]), a[6]))
+                                               _expand_rel(a[3], a[4]), a[6]),
+                profile=True, **extra)
+
+
+def flash_cases(BH, seed, bwd=False) -> list:
+    """K2 / K5 at the slice shape (BH heads over the 24×24 grid, D = 64),
+    a ragged 20×33 grid (N = 660, a partial tile on both axes), D = 40 (the
+    wrapper pads it to 48) and the largest grid that routes to flash,
+    128×128 (2048² crops), at BH = 2."""
+    return [("slice", flash_case(BH, (24, 24), 64, seed, bwd=bwd)),
+            ("edge 20x33", flash_case(4, (20, 33), 64, seed + 1, scale=0.125, bwd=bwd)),
+            ("D=40 padded", flash_case(8, (24, 24), 40, seed + 2, bwd=bwd)),
+            ("grid 128x128", flash_case(2, (128, 128), 64, seed + 3, bwd=bwd))]
 
 
 def in_map_corners(py, px, H, W) -> int:
@@ -662,11 +756,21 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                     if moved != {counter: 1}:
                         raise AssertionError(f"{kname} {label}: launched {moved}, "
                                              f"expected one {counter}")
+                    if case.deterministic:
+                        again = case.kernel(*args)
+                        same = [torch.equal(a, b) for a, b in zip(got, again)]
+                        del again
+                        if not all(same):
+                            raise AssertionError(f"{kname} {label} {dtype}: two launches "
+                                                 f"on the same inputs differ: {same}")
                     free()  # the cache the last case's 18.3 GB outputs left
                     ref = case.plain(*args)
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
+                if case.deterministic:
+                    log(f"[kernel] {kname} {label} {dtype}: two launches bitwise equal "
+                        f"in all {len(got)} outputs")
                 errs, scales = zip(*(max_abs_err(a, b, *TOL[a.dtype], f"{kname} "
                                                  f"{label} {dtype} output {i}")
                                      for i, (a, b) in enumerate(zip(got, ref))))
@@ -677,11 +781,14 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                 tols = " ".join(f"{TOL[o.dtype]}" for o in got)
                 del got, ref  # the path shape's outputs hold 18.3 GB each
                 free()
-                timed = lambda fn: median_ms(fn, reps=case.reps,
-                                             warmup=min(3, case.reps // 4))
+                timed = lambda fn: loop_ms(fn, reps=case.reps,
+                                           warmup=min(3, case.reps // 4))
+                recorded = label == record_label and dtype == torch.bfloat16
                 with torch.no_grad():
                     ms = timed(lambda: case.kernel(*args))
                     plain_ms = timed(lambda: case.plain(*args))
+                    prof_ms = profiler_ms(lambda: case.kernel(*args)) \
+                        if recorded and case.profile else None
                 library_ms, what = None, "none"
                 if case.library is not None:
                     free()
@@ -695,14 +802,17 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                 bound_ms = max(t_ops, t_bytes) * 1e3
                 bound_by = "operations" if t_ops > t_bytes else "bytes"
                 lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
+                prof = "" if not (recorded and case.profile) else (
+                    f" (torch.profiler: {prof_ms:.4f} ms of device time a call)"
+                    if prof_ms is not None else " (torch.profiler: no device time seen)")
                 log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                     f"shape {tuple(args[0].shape)} max_abs_err "
                     f"{' '.join(f'{e:.3e}' for e in errs)} of max |ref| "
                     f"{' '.join(f'{m:.3e}' for m in scales)} (atol, rtol {tols}) "
-                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"kernel {ms:.4f} ms{prof}  plain {plain_ms:.4f} ms  "
                     f"library {lib} ({what})  bound {bound_ms:.4f} ms by "
                     f"{bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-                if label == record_label and dtype == torch.bfloat16:
+                if recorded:
                     record[kname] = dict(max_abs_err=max(errs), ms=ms,
                                          plain_ms=plain_ms, library_ms=library_ms,
                                          bound_ms=bound_ms, bound_by=bound_by)
@@ -717,8 +827,7 @@ def phase_kernels() -> dict:
         # 4 × 16 heads over the 24×24 grid; K/V sampling of 64 maps of 28²
         "window": [("slice", window_case(64, 16, 49, 64, 1)),
                    ("edge N=25 W=7", window_case(7, 3, 25, 48, 2))],
-        "flash": [("slice", flash_case(64, (24, 24), 64, 3)),
-                  ("edge 20x33", flash_case(4, (20, 33), 64, 4, scale=0.125))],
+        "flash": flash_cases(64, 3),
         "bilinear_sample": [
             ("slice", sample_case(64, 28, 28, 64, 784, 1, 5, edge=False)),
             ("edge P=9", sample_case(6, 13, 17, 32, 200, 9, 6, edge=True))],
@@ -732,9 +841,7 @@ def phase_backward_kernels() -> dict:
     return check_kernels({
         "window_bwd": [("slice", window_case(128, 16, 49, 64, 11, bwd=True)),
                        ("edge N=25 W=7", window_case(7, 3, 25, 48, 12, bwd=True))],
-        "flash_bwd": [("slice", flash_case(128, (24, 24), 64, 13, bwd=True)),
-                      ("edge 20x33", flash_case(4, (20, 33), 64, 14, scale=0.125,
-                                                bwd=True))],
+        "flash_bwd": flash_cases(128, 13, bwd=True),
         "bilinear_sample_bwd": [
             ("slice", sample_case(128, 28, 28, 64, 784, 1, 15, edge=False, bwd=True)),
             ("edge P=9", sample_case(6, 13, 17, 32, 200, 9, 16, edge=True, bwd=True))],

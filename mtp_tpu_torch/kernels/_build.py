@@ -36,17 +36,17 @@ SIGNATURES = {
     "mtp_window_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
     # the same, for windows too large for K1's one-block layout
     "mtp_window_attn_fwd_large": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
-    # q, k, v, rel_h, rel_w, out, BH, N, D, Hk, Wk, scale
-    "mtp_flash_attn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F],
+    # q, k, v, rel_h, rel_w, out, lse, BH, N, D, Hk, Wk, scale
+    "mtp_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_F],
     # img, py, px, m, out, BG, H, W, C, HWo, P
     "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     # q, k, v, bias, dout, dq, dk, dv, dbias, W·nH, N, D, scale
     "mtp_window_attn_bwd": [_P] * 9 + [_I, _I, _I, _F],
     # q, k, v, bias, dout, dq, dk, dv, dbias, stats, W·nH, N, D, scale
     "mtp_window_attn_bwd_qblk": [_P] * 10 + [_I, _I, _I, _F],
-    # q, k, v, rel_h, rel_w, dout, dq, dk, dv, drel_h, drel_w, stats,
-    # BH, N, D, Hk, Wk, scale
-    "mtp_flash_attn_bwd": [_P] * 12 + [_I, _I, _I, _I, _I, _F],
+    # q, k, v, rel_h, rel_w, out, lse, dout, dq, dk, dv, drel_h, drel_w,
+    # delta, BH, N, D, Hk, Wk, scale
+    "mtp_flash_attn_bwd": [_P] * 14 + [_I] * 5 + [_F],
     # img, py, px, m, g, dimg (fp32), dpy, dpx, dm, BG, H, W, C, HWo, P
     "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 6,
 }
@@ -128,13 +128,24 @@ def build(force: bool = False) -> Path:
     return LIB
 
 
+def kernel_label(mangled: str) -> str:
+    """`name<arg>` of a mangled one-argument kernel template of csrc/, e.g.
+    flash_fwd_tc_kernel<64>, flash_attn_fwd_kernel<f> (float),
+    window_attn_fwd_kernel<nv_bfloat16>; the mangled name if it is none."""
+    entry = re.search(r"\d+([a-z_]+_kernel)I(?:\d+)?(\w+?)E", mangled)
+    if not entry:
+        return mangled
+    arg = re.sub(r"^Li(\d+)$", r"\1", entry[2].strip("_"))  # an int argument
+    return f"{entry[1]}<{arg}>"
+
+
 def _ptxas_summary(text: str) -> list[str]:
     """One line per compiled kernel from `-Xptxas -v`: registers, spills."""
     out = []
     for line in text.splitlines():
-        entry = re.search(r"entry function '.*?\d+([a-z_]+_kernel)I(?:\d+)?(\w+?)E", line)
+        entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            out.append(f"{entry[1]}<{entry[2].strip('_')}>:")
+            out.append(f"{kernel_label(entry[1])}:")
         elif out and ("registers" in line or "spill" in line):
             out[-1] += " " + line.split(":")[-1].strip()
     return out
@@ -173,6 +184,15 @@ def check_launchable(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Kernels that copy rows with 16-byte `cp.async` (the flash kernels)
+    take only 16-byte-aligned storage."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the CUDA kernel "
+                             f"(data_ptr % 16 = {t.data_ptr() % 16})")
 
 
 def dtype_code(t: torch.Tensor) -> int:

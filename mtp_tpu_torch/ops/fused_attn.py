@@ -26,6 +26,7 @@ So every window size JAX accepts runs on the card, up to head dim 128.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from mtp_tpu_torch.kernels import _build
 
@@ -33,8 +34,14 @@ LAUNCHES = {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0,
             "window_large": 0, "window_bwd_qblk": 0}
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-_FLASH_BQ = _FLASH_BK = 64  # query / key tile of csrc/flash_attn_fwd.cu
-_FLASH_BWD_BQ = 32  # query tile of csrc/flash_attn_bwd.cu (its key tile is 64)
+_FLASH_BQ = _FLASH_BK = 64  # query / key tile of K2, and K5's bf16 row block
+_FLASH_BWD_BQ = 32  # query tile of K5's fp32 kernels (their key tile is 64)
+_FLASH_BWD_STREAM = 32  # rows of the tiles K5's bf16 kernels stream
+_FLASH_BWD_STAGES = 3  # depth of the q-major pass's ring of them
+_FLASH_BWD_STAGES_Q = 4  # and of the k-major pass's
+# the bf16 flash kernels take head dims that are multiples of 16 up to 128
+# (a template parameter); the wrappers zero-pad other head dims up to one
+FLASH_MAX_D = 128
 # K1L and K7 hold a thread's accumulator columns in registers: head dims up
 # to 128 (their shared memory, at most 173,568 B there, then fits a block)
 LARGE_MAX_D = 128
@@ -86,21 +93,60 @@ def window_bwd_route(N: int, D: int) -> str:
     return "window_bwd_qblk"
 
 
-def flash_smem_bytes(D: int, Hk: int, Wk: int) -> int:
-    """Shared memory of one K2 block (see csrc/flash_attn_fwd.cu)."""
+def flash_head_dim(D: int) -> int:
+    """The head dim the flash kernels (K2, K5) run at for head dim D: D
+    rounded up to a multiple of 16, at most FLASH_MAX_D.  The wrappers
+    zero-pad q, k, v (and out, dout) up to it, which is exact: zero columns
+    add nothing to q·kᵀ, and the padded output columns are dropped."""
+    if D > FLASH_MAX_D:
+        raise ValueError(f"flash attention takes head dims up to "
+                         f"{FLASH_MAX_D}, got D={D}")
+    return _round_up(D, 16)
+
+
+def flash_smem_bytes(D: int, Hk: int, Wk: int,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one K2 block (csrc/flash_attn_fwd.cu) at the
+    kernel's head dim D.  bf16: two stages of 64-key K and V tiles as bf16
+    rows of D + 8 (the 64-query q tile passes through the second one), and
+    the query tile's rel_h | rel_w rows (fp32, an odd row stride).  fp32:
+    q, k, v and the output accumulator as fp32 rows of D + 1, a 64×65 score
+    tile, the rel rows and 3 row statistics."""
+    if dtype == torch.bfloat16:
+        return 4 * _FLASH_BK * (D + 8) * 2 + _FLASH_BQ * ((Hk + Wk) | 1) * 4
     return ((2 * _FLASH_BQ + 2 * _FLASH_BK) * (D + 1)
             + _FLASH_BQ * (_FLASH_BK + 1) + _FLASH_BQ * (Hk + Wk)
             + 3 * _FLASH_BQ) * 4
 
 
-def flash_bwd_smem_bytes(D: int, Hk: int, Wk: int) -> int:
-    """Shared memory of the larger of K5's two blocks (csrc/flash_attn_bwd.cu):
-    the q-major pass holds q, dO, dQ of a 32-row tile, k, v of a 64-key tile,
-    two 32×65 score tiles, the tile's rel_h/rel_w rows and 3 row statistics;
-    the k-major pass holds k, v, dK, dV of a 64-key tile, q, dO and two score
-    tiles of 32 rows, the rel rows and 2 statistics."""
+def flash_bwd_smem_bytes(D: int, Hk: int, Wk: int,
+                         dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of the larger of K5's two blocks
+    (csrc/flash_attn_bwd.cu) at the kernel's head dim D.
+
+    bf16, with B = 32 streamed rows and bf16 rows of D + 8: the q-major
+    pass holds 3 stages of B-key K and V tiles, the 64-row q and dO tiles
+    (later, in the same memory, the fp32 64 × (2B + 1) dS of two key
+    tiles), the rows' rel_h | rel_w values and their gradient sums (fp32,
+    odd row stride) and their delta; the k-major pass holds its 64-key K
+    and V tiles and 4 stages of a B-query tile's q and dO, lse, delta, the
+    rel_h columns of the at most min(Hk, 63 // Wk + 2) key rows 64 keys
+    span, and its whole rel_w rows.
+
+    fp32: the q-major pass holds q, dO, dQ of a 32-row tile, k, v of a
+    64-key tile, two 32×65 score tiles, the tile's rel_h/rel_w rows and 2
+    row statistics; the k-major pass holds k, v, dK, dV of a 64-key tile,
+    q, dO and two score tiles of 32 rows, the rel rows and 2 statistics."""
+    if dtype == torch.bfloat16:
+        B, S, ld = _FLASH_BWD_STREAM, _FLASH_BWD_STAGES, D + 8
+        dq_pass = (2 * S * B * ld * 2 + max(2 * 64 * ld * 2, 64 * (2 * B + 1) * 4)
+                   + (2 * 64 * ((Hk + Wk) | 1) + 64) * 4)
+        nky_max = min(Hk, 63 // Wk + 2)
+        Sq = _FLASH_BWD_STAGES_Q
+        dkv_pass = (2 * 64 + 2 * Sq * B) * ld * 2 + Sq * B * (2 + nky_max + Wk) * 4
+        return max(dq_pass, dkv_pass)
     q, k, sp = _FLASH_BWD_BQ, _FLASH_BK, _FLASH_BK + 1
-    dq_pass = (3 * q + 2 * k) * (D + 1) + 2 * q * sp + q * (Hk + Wk) + 3 * q
+    dq_pass = (3 * q + 2 * k) * (D + 1) + 2 * q * sp + q * (Hk + Wk) + 2 * q
     dkv_pass = (4 * k + 2 * q) * (D + 1) + 2 * q * sp + q * (Hk + Wk) + 2 * q
     return max(dq_pass, dkv_pass) * 4
 
@@ -248,37 +294,47 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------------------------------------------ K2, K5 --
 
-def _flash_probs(q, k, rel_h, rel_w, grid_hw, scale):
+def _flash_scores(q, k, rel_h, rel_w, grid_hw, scale):
+    """The (BH, N, N) fp32 scores q·kᵀ·scale + rel_h[q, k // Wk] + rel_w[q, k % Wk]."""
     BH, N, _ = q.shape
     Hk, Wk = grid_hw
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     s = s.reshape(BH, N, Hk, Wk) + rel_h[..., :, None] + rel_w[..., None, :]
-    return torch.softmax(s.reshape(BH, N, N), dim=-1)
+    return s.reshape(BH, N, N)
 
 
-def flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw,
-                             scale: float) -> torch.Tensor:
-    """Plain version of K2: materialises the (BH, N, N) scores and bias."""
+def flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale: float):
+    """Plain version of K2: materialises the (BH, N, N) scores and bias.
+    Returns (out in q's dtype, lse fp32 (BH, N)), lse the log-sum-exp of
+    each query row's scores, which the backward takes."""
     with torch.autocast(q.device.type, enabled=False):
-        p = _flash_probs(q, k, rel_h, rel_w, grid_hw, scale)
-        return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+        s = _flash_scores(q, k, rel_h, rel_w, grid_hw, scale)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype), lse
 
 
-def flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, dout, grid_hw,
-                                 scale: float):
-    """Plain version of K5, the explicit VJP of K2 (mtp_tpu
-    `_flash_bwd_kernel`): dq, dk, dv as for window attention, and since
-    bias[q, ky·Wk + kx] = rel_h[q, ky] + rel_w[q, kx], d(rel_h) is dS summed
-    over each key row and d(rel_w) over each key column.  Returns (dq, dk,
-    dv) in q's dtype and (drel_h, drel_w) fp32."""
+def flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, out, lse, dout,
+                                 grid_hw, scale: float):
+    """Plain version of K5, from K2's out and lse: with P = exp(s − lse),
+    delta = rowsum(dO ∘ O) (= rowsum(P ∘ dP), since O = P·V) and
+    dS = P ∘ (dP − delta),
+        dV = Pᵀ dO,  dQ = dS K · scale,  dK = dSᵀ Q · scale,
+    and since bias[q, ky·Wk + kx] = rel_h[q, ky] + rel_w[q, kx], d(rel_h)
+    is dS summed over each key row and d(rel_w) over each key column.
+    Returns (dq, dk, dv) in q's dtype and (drel_h, drel_w) fp32.  (The tests
+    hold it to autograd through `flash_full_attention_ref` and to the JAX
+    kernel, which recompute the statistics.)"""
     BH, N, _ = q.shape
     Hk, Wk = grid_hw
     with torch.autocast(q.device.type, enabled=False):
         qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-        p = _flash_probs(q, k, rel_h, rel_w, grid_hw, scale)
+        p = torch.exp(_flash_scores(q, k, rel_h, rel_w, grid_hw, scale)
+                      - lse[..., None])
+        delta = (do * out.float()).sum(-1, keepdim=True)
         dv = torch.einsum("bqk,bqd->bkd", p, do)
         dp = torch.einsum("bqd,bkd->bqk", do, vf)
-        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        ds = p * (dp - delta)
         dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
         dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
         ds = ds.reshape(BH, N, Hk, Wk)
@@ -298,54 +354,100 @@ def _check_flash(q, k, v, rel_h, rel_w, grid_hw):
     _check_f32(rel_h=rel_h, rel_w=rel_w)
 
 
-def _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
-    _check_flash(q, k, v, rel_h, rel_w, grid_hw)
-    if not _build.use_kernel(q, k, v, rel_h, rel_w):
-        return flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale)
+def _check_saved(q, out, lse):
+    BH, N, _ = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if lse.shape != (BH, N):
+        raise ValueError(f"lse must be {(BH, N)}, got {tuple(lse.shape)}")
+    _check_f32(lse=lse)
+
+
+def _pad_head(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """t with its last dim zero-padded to Dp."""
+    return t if t.shape[-1] == Dp else F.pad(t, (0, Dp - t.shape[-1]))
+
+
+def _launch_flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
+    """K2 on CUDA tensors whose head dim the kernels take: (out, lse)."""
     BH, N, D = q.shape
     Hk, Wk = grid_hw
     _smem_guard(f"flash attention with D={D}, grid {grid_hw}",
-                flash_smem_bytes(D, Hk, Wk))
+                flash_smem_bytes(D, Hk, Wk, q.dtype))
     _build.check_launchable(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w)
+    _build.check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
+    lse = torch.empty((BH, N), dtype=torch.float32, device=q.device)
     _build.launch("mtp_flash_attn_fwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                  out.data_ptr(), BH, N, D, Hk, Wk, float(scale),
-                  _build.dtype_code(q))
+                  out.data_ptr(), lse.data_ptr(), BH, N, D, Hk, Wk,
+                  float(scale), _build.dtype_code(q))
     LAUNCHES["flash"] += 1
-    return out
+    return out, lse
+
+
+def _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
+    """K2: (out in q's dtype, lse fp32 (BH, N)).  CPU tensors run
+    `flash_full_attention_ref`; CUDA tensors launch the kernel, at the head
+    dim `flash_head_dim` gives (q, k, v zero-padded up to it, out cut back)."""
+    _check_flash(q, k, v, rel_h, rel_w, grid_hw)
+    if not _build.use_kernel(q, k, v, rel_h, rel_w):
+        return flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale)
+    D = q.shape[-1]
+    Dp = flash_head_dim(D)
+    out, lse = _launch_flash_fwd(*(_pad_head(t, Dp) for t in (q, k, v)),
+                                 rel_h, rel_w, grid_hw, scale)
+    return (out if Dp == D else out[..., :D].contiguous()), lse
+
+
+def _launch_flash_bwd(q, k, v, rel_h, rel_w, out, lse, dout, grid_hw, scale):
+    """K5 on CUDA tensors whose head dim the kernels take."""
+    BH, N, D = q.shape
+    Hk, Wk = grid_hw
+    _smem_guard(f"the flash attention backward with D={D}, grid {grid_hw}",
+                flash_bwd_smem_bytes(D, Hk, Wk, q.dtype))
+    _build.check_launchable(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w, out=out,
+                            lse=lse, dout=dout)
+    _build.check_aligned(q=q, k=k, v=v, out=out, dout=dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
+    # rowsum(dO ∘ O) per query row, from K5's q-major pass to its k-major pass
+    delta = torch.empty((BH, N), dtype=torch.float32, device=q.device)
+    _build.launch("mtp_flash_attn_bwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  drel_h.data_ptr(), drel_w.data_ptr(), delta.data_ptr(),
+                  BH, N, D, Hk, Wk, float(scale), _build.dtype_code(q))
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv, drel_h, drel_w
 
 
 def flash_full_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, rel_h: torch.Tensor,
-                             rel_w: torch.Tensor, dout: torch.Tensor,
+                             rel_w: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
                              grid_hw: tuple, scale: float):
-    """Gradients of `flash_full_attention` for the output cotangent dout →
-    (dq, dk, dv) in q's dtype and (drel_h, drel_w) fp32.
+    """Gradients of `flash_full_attention` for the output cotangent dout,
+    from the forward's out and lse (`_flash_fwd`) → (dq, dk, dv) in q's
+    dtype and (drel_h, drel_w) fp32.
 
     CPU tensors run `flash_full_attention_bwd_ref`; CUDA tensors launch the
-    K5 kernels."""
+    K5 kernels, at the head dim `flash_head_dim` gives."""
     _check_flash(q, k, v, rel_h, rel_w, grid_hw)
     _check_dout(q, dout)
-    if not _build.use_kernel(q, k, v, rel_h, rel_w, dout):
-        return flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, dout,
-                                            grid_hw, scale)
-    BH, N, D = q.shape
-    Hk, Wk = grid_hw
-    _smem_guard(f"the flash attention backward with D={D}, grid {grid_hw}",
-                flash_bwd_smem_bytes(D, Hk, Wk))
-    _build.check_launchable(q=q, k=k, v=v, rel_h=rel_h, rel_w=rel_w, dout=dout)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # d(rel_h)/d(rel_w) are accumulated in place over the key tiles
-    drel_h, drel_w = torch.zeros_like(rel_h), torch.zeros_like(rel_w)
-    # per query row: log-sum-exp of the scores and rowsum(P ∘ dP)
-    stats = torch.empty((2, BH, N), dtype=torch.float32, device=q.device)
-    _build.launch("mtp_flash_attn_bwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  drel_h.data_ptr(), drel_w.data_ptr(), stats.data_ptr(),
-                  BH, N, D, Hk, Wk, float(scale), _build.dtype_code(q))
-    LAUNCHES["flash_bwd"] += 1
+    _check_saved(q, out, lse)
+    if not _build.use_kernel(q, k, v, rel_h, rel_w, out, lse, dout):
+        return flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, out, lse,
+                                            dout, grid_hw, scale)
+    D = q.shape[-1]
+    Dp = flash_head_dim(D)
+    q, k, v, out, dout = (_pad_head(t, Dp) for t in (q, k, v, out, dout))
+    dq, dk, dv, drel_h, drel_w = _launch_flash_bwd(
+        q, k, v, rel_h, rel_w, out, lse, dout, grid_hw, scale)
+    if Dp != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv, drel_h, drel_w
 
 
@@ -353,14 +455,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, grid_hw, scale):
         ctx.grid_hw, ctx.scale = grid_hw, scale
-        ctx.save_for_backward(q, k, v, rel_h, rel_w)
-        return _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale)
+        out, lse = _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
         grads = flash_full_attention_bwd(
-            q, k, v, rel_h, rel_w, dout.to(q.dtype).contiguous(),
+            q, k, v, rel_h, rel_w, out, lse, dout.to(q.dtype).contiguous(),
             ctx.grid_hw, ctx.scale)
         return (*grads, None, None)
 

@@ -19,6 +19,7 @@ from mtp_tpu.ops import rel_pos as jrp
 from mtp_tpu.ops.dcnv3_pallas import dcnv3_sample as jax_dcnv3_sample
 from mtp_tpu.ops.grid_sample import grid_sample as jax_grid_sample
 from mtp_tpu.ops.pallas_attn import _flash_backward, _fused_backward
+from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops import rel_pos as prp
@@ -94,6 +95,9 @@ def _flash_inputs(seed, BH, grid_hw, D):
     ((6, 6), 16, True),    # bf16 q/k/v/dO: bf16 dq/dk/dv, fp32 drel
 ])
 def test_flash_attention_backward_matches_pallas(grid_hw, D, bf16):
+    """The plain K5, given the plain K2's out and lse, against the Pallas
+    backward and against autograd through the plain forward (both recompute
+    the row statistics from q, k and the bias)."""
     q, k, v, rel_h, rel_w, do = _flash_inputs(sum(grid_hw), 3, grid_hw, D)
     scale = 0.3
     if bf16:
@@ -107,17 +111,96 @@ def test_flash_attention_backward_matches_pallas(grid_hw, D, bf16):
     ref = _flash_backward(jq, jk, jv, jnp.asarray(rel_h), jnp.asarray(rel_w),
                           jdo, grid_hw=grid_hw, scale=scale, interpret=True)
     pq, pk, pv, pdo = qkvd
+    out, lse = fused_attn._flash_fwd(pq, pk, pv, _t(rel_h), _t(rel_w), grid_hw,
+                                     scale)
+    before = dict(fused_attn.LAUNCHES)
     got = fused_attn.flash_full_attention_bwd(pq, pk, pv, _t(rel_h), _t(rel_w),
-                                              pdo, grid_hw, scale)
+                                              out, lse, pdo, grid_hw, scale)
+    assert fused_attn.LAUNCHES == before  # CPU: plain version
     assert got[0].dtype == pq.dtype and got[3].dtype == torch.float32
     names = ("dq", "dk", "dv", "drel_h", "drel_w")
     for name, a, b in zip(names, got, ref):
         _close(a, np.asarray(b, np.float32), atol, rtol, what=name)
     auto = _autograd(
-        lambda *x: fused_attn.flash_full_attention_ref(*x, grid_hw, scale),
+        lambda *x: fused_attn.flash_full_attention_ref(*x, grid_hw, scale)[0],
         [pq, pk, pv, _t(rel_h), _t(rel_w)], pdo)
     for name, a, b in zip(names, got, auto):
         _close(a, b.float().numpy(), atol, rtol, what=name)
+
+
+def _stub_flash_launches(monkeypatch, launched):
+    """Force the kernel route on CPU tensors, with K2's and K5's launches
+    replaced by their plain versions, recording the head dim each got."""
+    def fwd(q, *rest):
+        launched.append(("fwd", q.shape[-1]))
+        return fused_attn.flash_full_attention_ref(q, *rest)
+
+    def bwd(q, *rest):
+        launched.append(("bwd", q.shape[-1]))
+        return fused_attn.flash_full_attention_bwd_ref(q, *rest)
+
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(fused_attn, "_launch_flash_fwd", fwd)
+    monkeypatch.setattr(fused_attn, "_launch_flash_bwd", bwd)
+
+
+@pytest.mark.parametrize("D,Dp", [(40, 48), (16, 16), (8, 16), (128, 128)])
+def test_flash_head_dim_padding(monkeypatch, D, Dp):
+    """On the kernel route K2 and K5 run at the head dim rounded up to a
+    multiple of 16, on zero-padded q, k, v, out and dout, and give what the
+    unpadded plain versions give, cut back to D."""
+    assert fused_attn.flash_head_dim(D) == Dp
+    grid_hw = (4, 5)
+    q, k, v, rel_h, rel_w, do = (_t(x) for x in _flash_inputs(D, 2, grid_hw, D))
+    out, lse = fused_attn.flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, 0.3)
+    want = fused_attn.flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, out, lse,
+                                                   do, grid_hw, 0.3)
+    launched = []
+    _stub_flash_launches(monkeypatch, launched)
+    got_out, got_lse = fused_attn._flash_fwd(q, k, v, rel_h, rel_w, grid_hw, 0.3)
+    got = fused_attn.flash_full_attention_bwd(q, k, v, rel_h, rel_w, got_out,
+                                              got_lse, do, grid_hw, 0.3)
+    assert launched == [("fwd", Dp), ("bwd", Dp)]
+    _close(got_out, out.numpy(), what="out")
+    _close(got_lse, lse.numpy(), what="lse")
+    for name, a, b in zip(("dq", "dk", "dv", "drel_h", "drel_w"), got, want):
+        assert a.shape == b.shape and a.is_contiguous(), name
+        _close(a, b.numpy(), what=name)
+
+
+def test_flash_rejects_head_dims_over_128_and_unaligned_storage(monkeypatch):
+    """On the kernel route a head dim over 128 raises (no padding reaches
+    the kernels' template range), and so does storage that the 16-byte
+    asynchronous copies cannot read, before any launch."""
+    launched = []
+    _stub_flash_launches(monkeypatch, launched)
+    monkeypatch.setattr(_build, "launch", lambda *a: launched.append(a))
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fused_attn.flash_head_dim(136)
+    grid_hw = (3, 4)
+    q, k, v, rel_h, rel_w, do = (_t(x) for x in _flash_inputs(1, 2, grid_hw, 136))
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fused_attn._flash_fwd(q, k, v, rel_h, rel_w, grid_hw, 0.3)
+    lse = torch.zeros(2, 12)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fused_attn.flash_full_attention_bwd(q, k, v, rel_h, rel_w, q, lse, do,
+                                            grid_hw, 0.3)
+    monkeypatch.undo()  # the real launchers, which check alignment first
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(fused_attn, "LAUNCHES", dict.fromkeys(fused_attn.LAUNCHES, 0))
+    monkeypatch.setattr(_build, "launch", lambda *a: launched.append(a))
+    buf = torch.zeros(2 * 12 * 16 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(2, 12, 16)  # contiguous, 2 bytes off alignment
+    aligned = torch.zeros(2, 12, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attn._flash_fwd(shifted, aligned, aligned, rel_h, rel_w, grid_hw, 0.3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attn.flash_full_attention_bwd(aligned, aligned, aligned, rel_h, rel_w,
+                                            aligned, lse, shifted, grid_hw, 0.3)
+    assert launched == []
+    fused_attn._flash_fwd(aligned, aligned, aligned, rel_h, rel_w, grid_hw, 0.3)
+    assert [a[0] for a in launched] == ["mtp_flash_attn_fwd"]
+    assert fused_attn.LAUNCHES["flash"] == 1
 
 
 # ---------------------------------------------------------------------- K6 --

@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from mtp_tpu.ops.dcnv3_pallas import dcnv3_sample as jax_dcnv3_sample
-from mtp_tpu.ops.pallas_attn import flash_full_attention as jax_flash
+from mtp_tpu.ops.pallas_attn import _flash_forward as jax_flash_forward
 from mtp_tpu.ops.pallas_attn import fused_window_attention as jax_window
 from mtp_tpu_torch.ops import dcnv3_sample as port_dcn
 from mtp_tpu_torch.ops import fused_attn
@@ -44,6 +44,9 @@ def test_window_attention_matches_pallas(W, nH, N, D):
 
 @pytest.mark.parametrize("grid_hw,D", [((5, 7), 16), ((4, 4), 8)])
 def test_flash_attention_matches_pallas(grid_hw, D):
+    """The plain K2 returns (out, lse): out against the Pallas forward, lse
+    against a numpy log-sum-exp of the same scores; the differentiable
+    function returns the same out."""
     Hk, Wk = grid_hw
     BH, N = 3, Hk * Wk
     rng = np.random.default_rng(N)
@@ -51,11 +54,22 @@ def test_flash_attention_matches_pallas(grid_hw, D):
                for _ in range(3))
     rel_h = rng.standard_normal((BH, N, Hk)).astype(np.float32)
     rel_w = rng.standard_normal((BH, N, Wk)).astype(np.float32)
-    ref = jax_flash(*map(jnp.asarray, (q, k, v, rel_h, rel_w)), grid_hw, 0.3,
-                    interpret=True)
+    ref = jax_flash_forward(*map(jnp.asarray, (q, k, v, rel_h, rel_w)), grid_hw,
+                            0.3, interpret=True)
+    before = dict(fused_attn.LAUNCHES)
+    out, lse = fused_attn._flash_fwd(_t(q), _t(k), _t(v), _t(rel_h), _t(rel_w),
+                                     grid_hw, 0.3)
+    assert fused_attn.LAUNCHES == before  # CPU: plain version
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+    s = (np.einsum("bqd,bkd->bqk", q.astype(np.float64), k) * 0.3
+         + (rel_h[..., :, None] + rel_w[..., None, :]).reshape(BH, N, N))
+    m = s.max(-1)
+    want = m + np.log(np.exp(s - m[..., None]).sum(-1))
+    assert lse.shape == (BH, N) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, atol=ATOL, rtol=RTOL)
     got = fused_attn.flash_full_attention(_t(q), _t(k), _t(v), _t(rel_h),
                                           _t(rel_w), grid_hw, 0.3)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(got.numpy(), out.numpy())
 
 
 def _sample_inputs(seed, BG, H, W, C, HWo, P, unit_mask=False):
@@ -118,10 +132,17 @@ def test_wrappers_reject_what_no_kernel_takes():
 
 
 def test_shared_memory_budget_of_the_slice_shapes():
-    """The slice's K1 (N=49, D=64) and K2 (24×24 grid, D=64) blocks fit the
-    227 KB a Hopper block may use; 2048² full attention (128×128 grid) still
-    fits K2, while a 1024-token window overflows K1."""
+    """The slice's K1 (N=49, D=64) and K2/K5 (24×24 grid, D=64) blocks fit
+    the 227 KB a Hopper block may use, in both dtypes; 2048² full attention
+    (128×128 grid) still fits K2 and K5 at every head dim the bf16 kernels
+    take, while a 1024-token window overflows K1."""
     assert fused_attn.window_smem_bytes(49, 64) <= 48 * 1024
-    assert fused_attn.flash_smem_bytes(64, 24, 24) <= fused_attn.SMEM_LIMIT
-    assert fused_attn.flash_smem_bytes(64, 128, 128) <= fused_attn.SMEM_LIMIT
+    for dtype in (torch.bfloat16, torch.float32):
+        for grid in (24, 128):
+            assert fused_attn.flash_smem_bytes(64, grid, grid, dtype) <= fused_attn.SMEM_LIMIT
+            assert fused_attn.flash_bwd_smem_bytes(64, grid, grid, dtype) <= fused_attn.SMEM_LIMIT
+    for D in range(16, fused_attn.FLASH_MAX_D + 1, 16):
+        for grid_hw in ((128, 128), (1, 128), (128, 1), (20, 33)):
+            assert fused_attn.flash_smem_bytes(D, *grid_hw) <= fused_attn.SMEM_LIMIT
+            assert fused_attn.flash_bwd_smem_bytes(D, *grid_hw) <= fused_attn.SMEM_LIMIT
     assert fused_attn.window_smem_bytes(1024, 64) > fused_attn.SMEM_LIMIT

@@ -46,7 +46,9 @@ GROUPS = [
     ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_kernel"),
     ("K1L window_attn_fwd_large", r"window_attn_fwd_large_kernel"),
     ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_kernel"),
-    ("K1/K2/K4/K5 attention", r"window_attn|flash_(attn|bwd|fwd)"),
+    ("K5 flash_attn_bwd (both passes)", r"flash_bwd_"),
+    ("K2 flash_attn_fwd", r"flash_(attn_)?fwd"),
+    ("K1/K4 window attention", r"window_attn"),
     ("AdamW (foreach)", r"multi_tensor_apply|foreach|adam"),
     ("cuDNN convolutions", r"conv|cudnn|dgrad|wgrad|implicit_gemm|winograd|fft"),
     ("cuBLAS GEMMs", r"gemm|sm90_xmma|cutlass|ampere_|sm80_|gemv|splitK|nvjet"),
