@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtp_tpu_torch.core.optim import LayerDecayAdamW
+from mtp_tpu_torch.ops.precision import at_least_fp32
 
 
 @dataclass
@@ -65,7 +66,7 @@ def make_train_step(loss_fn: LossFn):
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy, labels (B,) int — mmpretrain CrossEntropyLoss."""
-    return F.cross_entropy(logits.float(), labels.long())
+    return F.cross_entropy(at_least_fp32(logits), labels.long())
 
 
 def seg_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -76,6 +77,6 @@ def seg_xent(logits: torch.Tensor, labels: torch.Tensor,
 
     logits (B, H, W, K) at label resolution; labels (B, H, W) int."""
     labels = labels.long()
-    ce = F.cross_entropy(logits.float().permute(0, 3, 1, 2), labels,
+    ce = F.cross_entropy(at_least_fp32(logits).permute(0, 3, 1, 2), labels,
                          ignore_index=ignore_index, reduction="none")
     return ce.sum() / (labels != ignore_index).sum().clamp(min=1)

@@ -449,27 +449,8 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the threads that hold the rows' fragments
   {
     const int r = tid >> 1, h = tid & 1;
-    float a = 0.f;
-    if (q0 + r < N) {
-      const long long o = base + static_cast<long long>(q0 + r) * D + h * (D / 2);
-      constexpr int kV = D / 16;  // 16-byte vectors in half a row
-      uint4 ov[kV], dv4[kV];
-#pragma unroll
-      for (int i = 0; i < kV; ++i) {
-        ov[i] = reinterpret_cast<const uint4*>(out + o)[i];
-        dv4[i] = reinterpret_cast<const uint4*>(dout + o)[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kV; ++i) {
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4[i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
-          a = fmaf(x.x, y.x, fmaf(x.y, y.y, a));
-        }
-      }
-    }
+    const long long o = base + static_cast<long long>(q0 + r) * D + h * (D / 2);
+    float a = q0 + r < N ? mtp::half_row_dot<D>(out + o, dout + o) : 0.f;
     a += __shfl_xor_sync(0xffffffffu, a, 1);
     if (h == 0) {
       dls[r] = a;

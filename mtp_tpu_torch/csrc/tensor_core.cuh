@@ -1,7 +1,9 @@
-// Tensor-core and asynchronous-copy primitives of the bf16 flash kernels
-// (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu): `cp.async` copies from
-// device to shared memory, `ldmatrix` loads of 8×8 bf16 tiles into the
-// operand fragments of `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators).
+// Tensor-core and asynchronous-copy primitives of the bf16 attention
+// kernels (K2 csrc/flash_attn_fwd.cu, K5 csrc/flash_attn_bwd.cu, K1L
+// csrc/window_attn_fwd_large.cu, K7 csrc/window_attn_bwd_qblk.cu):
+// `cp.async` copies from device to shared memory (bf16 rows, fp32 bias
+// tiles), `ldmatrix` loads of 8×8 bf16 tiles into the operand fragments of
+// `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators).
 //
 // Fragment layout of m16n8k16 for the thread of lane l, g = l / 4, t = l % 4:
 //   A (16×16, row-major) a[0]: (g, 2t..2t+1)  a[1]: (g+8, 2t..)  a[2]: (g, 2t+8..)  a[3]: (g+8, 2t+8..)
@@ -118,6 +120,58 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_b
     const bool ok = r0 + r < N;
     cp_async16(dst + r * LD + c, src + static_cast<long long>(ok ? r0 + r : 0) * D + c, ok);
   }
+}
+
+// The (ROWS queries × COLS keys) tile at (q0, k0) of one (N, N) fp32 bias
+// matrix `b` into a shared tile of row stride BS floats, asynchronously, the
+// THREADS threads of the block sharing the copies; zeros past N on either
+// axis.  vec: 16-byte copies (every row 16-byte aligned: N % 4 == 0 and an
+// aligned base), else 4-byte ones.  Row offsets are 64-bit: a call's bias
+// may hold more than 2^31 elements.
+template <int ROWS, int COLS, int BS, int THREADS>
+__device__ __forceinline__ void load_bias_async(float* dst, const float* b, int q0, int k0,
+                                                int N, bool vec) {
+  if (vec) {
+    constexpr int kChunks = COLS / 4;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = q0 + r < N && k0 + c < N;  // a chunk is all in or all out
+      cp_async16(dst + r * BS + c,
+                 b + (ok ? static_cast<long long>(q0 + r) * N + k0 + c : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += THREADS) {
+      const int r = i / COLS, c = i % COLS;
+      const bool ok = q0 + r < N && k0 + c < N;
+      cp_async4(dst + r * BS + c, b + (ok ? static_cast<long long>(q0 + r) * N + k0 + c : 0),
+                ok);
+    }
+  }
+}
+
+// Σ a[i]·b[i] over D / 2 bf16 values (half of a row of head dim D), fp32,
+// from 16-byte loads, every load issued before the first sum.
+template <int D>
+__device__ __forceinline__ float half_row_dot(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  constexpr int kV = D / 16;  // 16-byte vectors in half a row
+  uint4 av[kV], bv[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    av[i] = reinterpret_cast<const uint4*>(a)[i];
+    bv[i] = reinterpret_cast<const uint4*>(b)[i];
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av[i]);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+      s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+    }
+  }
+  return s;
 }
 
 // (ky, kx) of key index + step on a grid of Wk columns.

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtp_tpu_torch.ops.dropout import dropout
+from mtp_tpu_torch.ops.precision import at_least_fp32
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
@@ -51,7 +52,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.float()
+        xf = at_least_fp32(x)
         mean = xf.mean((0, 2, 3))
         var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
         with torch.no_grad():

@@ -34,16 +34,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, bias, out, W·nH, N, D, scale
     "mtp_window_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
-    # the same, for windows too large for K1's one-block layout
-    "mtp_window_attn_fwd_large": [_P, _P, _P, _P, _P, _I, _I, _I, _F],
+    # q, k, v, bias, out, lse, W·nH, N, D, scale (K1L, whose backward is K7)
+    "mtp_window_attn_fwd_large": [_P] * 6 + [_I, _I, _I, _F],
     # q, k, v, rel_h, rel_w, out, lse, BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_F],
     # img, py, px, m, out, BG, H, W, C, HWo, P
     "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     # q, k, v, bias, dout, dq, dk, dv, dbias, W·nH, N, D, scale
     "mtp_window_attn_bwd": [_P] * 9 + [_I, _I, _I, _F],
-    # q, k, v, bias, dout, dq, dk, dv, dbias, stats, W·nH, N, D, scale
-    "mtp_window_attn_bwd_qblk": [_P] * 10 + [_I, _I, _I, _F],
+    # q, k, v, bias, out, lse, dout, dq, dk, dv, dbias, delta, W·nH, N, D,
+    # scale
+    "mtp_window_attn_bwd_qblk": [_P] * 12 + [_I, _I, _I, _F],
     # q, k, v, rel_h, rel_w, out, lse, dout, dq, dk, dv, drel_h, drel_w,
     # delta, BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_bwd": [_P] * 14 + [_I] * 5 + [_F],
@@ -187,8 +188,8 @@ def check_launchable(**tensors: torch.Tensor) -> None:
 
 
 def check_aligned(**tensors: torch.Tensor) -> None:
-    """Kernels that copy rows with 16-byte `cp.async` (the flash kernels)
-    take only 16-byte-aligned storage."""
+    """Kernels that copy rows with 16-byte `cp.async` (the flash kernels,
+    K1L and K7) take only 16-byte-aligned storage."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the CUDA kernel "

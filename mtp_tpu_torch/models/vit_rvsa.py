@@ -53,6 +53,7 @@ from mtp_tpu_torch.ops.dropout import apply_drop_path, drop_path_mask, dropout
 from mtp_tpu_torch.ops.fused_attn import (flash_full_attention,
                                           fused_window_attention)
 from mtp_tpu_torch.ops.grid_sample import grid_sample
+from mtp_tpu_torch.ops.precision import at_least_fp32
 from mtp_tpu_torch.ops.rel_pos import (decomposed_rel_pos_bias,
                                        decomposed_rel_pos_factors,
                                        swin_rel_pos_bias, swin_rel_pos_index)
@@ -204,7 +205,7 @@ class RVSAAttention(nn.Module):
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, nH, Hp, Wp, hd)
 
         with torch.autocast(x.device.type, enabled=False):
-            grid = self._sampling_grid(F.pad(x.float(), pad), H, W)
+            grid = self._sampling_grid(F.pad(at_least_fp32(x), pad), H, W)
 
         k_sel = grid_sample(k.reshape(B * nH, Hp, Wp, hd), grid,
                             align_corners=True, padding_mode="zeros")
@@ -221,8 +222,8 @@ class RVSAAttention(nn.Module):
         kw, vw = to_windows(k_sel), to_windows(v_sel)
         bias = decomposed_rel_pos_bias(qw, (ws, ws), (ws, ws),
                                        self.rel_pos_h, self.rel_pos_w)
-        bias = bias + swin_rel_pos_bias(self.relative_position_bias_table.float(),
-                                        self.relative_position_index)
+        table = at_least_fp32(self.relative_position_bias_table)
+        bias = bias + swin_rel_pos_bias(table, self.relative_position_index)
         out = fused_window_attention(qw, kw, vw, bias.contiguous(), self.scale)
 
         out = out.reshape(B, nh, nw, nH, ws, ws, hd)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mtp_tpu_torch.ops.dcnv3_sample import dcnv3_sample
+from mtp_tpu_torch.ops.precision import at_least_fp32
 
 
 def sampling_points(offset: torch.Tensor, mask: torch.Tensor, *,
@@ -54,14 +55,15 @@ def sampling_points(offset: torch.Tensor, mask: torch.Tensor, *,
     fix_x = fix(ref_x[None, None, :, None, None] + tap_x[None, None, None, None, :])
     fix_y = fix(ref_y[None, :, None, None, None] + tap_y[None, None, None, None, :])
 
-    off = offset.float().reshape(N, Ho, Wo, group, P, 2)
+    off = at_least_fp32(offset).reshape(N, Ho, Wo, group, P, 2)
     px = fix_x + off[..., 0] * offset_scale
     py = fix_y + off[..., 1] * offset_scale
 
     def grp(t):  # (N, Ho, Wo, G, P) → (N·G, Ho·Wo, P)
         return t.permute(0, 3, 1, 2, 4).reshape(N * group, Ho * Wo, P).contiguous()
 
-    return grp(py), grp(px), grp(mask.float().reshape(N, Ho, Wo, group, P))
+    mask = at_least_fp32(mask).reshape(N, Ho, Wo, group, P)
+    return grp(py), grp(px), grp(mask)
 
 
 def dcnv3_core(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor, *,
@@ -115,7 +117,7 @@ class DCNv3(nn.Module):
         conv, norm, act = self.dw_conv
         h = act(norm(conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)))
         with torch.autocast(x.device.type, enabled=False):
-            h = h.float()
+            h = at_least_fp32(h)
             offset = self.offset(h)
             mask = F.softmax(self.mask(h).reshape(N, H, W, self.group, P), -1)
         out = dcnv3_core(proj, offset, mask.reshape(N, H, W, self.group * P),

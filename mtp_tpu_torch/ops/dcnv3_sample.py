@@ -8,7 +8,8 @@ TPU this was a one-hot matrix product built in VMEM; here it is one gather
 kernel (`csrc/bilinear_sample_fwd.cu`) and one scatter/reduce kernel for the
 gradients (`csrc/bilinear_sample_bwd.cu`).  `dcnv3_sample` is a
 `torch.autograd.Function`, differentiable in img, py, px and m, with the
-JAX package's subgradient at integer coordinates (`_coord_grads`).
+JAX package's subgradient at integer coordinates (`_coord_grads`).  The
+plain versions also take float64 and compute in it (`ops/precision.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from mtp_tpu_torch.kernels import _build
+from mtp_tpu_torch.ops.precision import at_least_fp32, plain_float64
 
 LAUNCHES = {"bilinear_sample": 0, "bilinear_sample_bwd": 0}
 
@@ -30,11 +32,13 @@ def _check(img, py, px, m, H, W):
     if px.shape != py.shape or m.shape != py.shape or py.shape[0] != BG:
         raise ValueError(f"py/px/m must share shape (BG={BG}, HWo, P): "
                          f"{tuple(py.shape)} {tuple(px.shape)} {tuple(m.shape)}")
-    if img.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"img must be float32 or bfloat16, got {img.dtype}")
+    if not (img.dtype in _build.DTYPE_CODES or plain_float64(img)):
+        raise TypeError(f"img must be float32 or bfloat16 (or float64 on the "
+                        f"CPU), got {img.dtype}")
+    want = torch.float64 if img.dtype == torch.float64 else torch.float32
     for name, t in (("py", py), ("px", px), ("m", m)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
 
 
 def _corners(py, px, H, W):
@@ -66,8 +70,8 @@ def dcnv3_sample_ref(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     map, times m, summed over P; fp32 math, output in img's dtype."""
     BG, _, C = img.shape
     _, HWo, P = py.shape
-    flat = img.float()
-    out = torch.zeros(BG, HWo, C, dtype=torch.float32, device=img.device)
+    flat = at_least_fp32(img)
+    out = torch.zeros(BG, HWo, C, dtype=flat.dtype, device=img.device)
     for lin, valid, wy, wx, _, _ in _corners(py, px, H, W):
         w = torch.where(valid, wy * wx * m, torch.zeros_like(m))
         out += (_gather(flat, lin) * w[..., None]).sum(2)
@@ -85,8 +89,8 @@ def dcnv3_sample_bwd_ref(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     and dpy, dpx, dm fp32."""
     BG, HW, C = img.shape
     _, HWo, P = py.shape
-    flat, gf = img.float(), g.float()[:, :, None, :]
-    dimg = torch.zeros(BG, HW, C, dtype=torch.float32, device=img.device)
+    flat, gf = at_least_fp32(img), at_least_fp32(g)[:, :, None, :]
+    dimg = torch.zeros(BG, HW, C, dtype=flat.dtype, device=img.device)
     dpy, dpx, dm = (torch.zeros_like(py) for _ in range(3))
     zero = torch.zeros_like(m)
     for lin, valid, wy, wx, dwy, dwx in _corners(py, px, H, W):

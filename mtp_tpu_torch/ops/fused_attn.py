@@ -7,20 +7,25 @@ Port of `mtp_tpu/ops/pallas_attn.py`, with the JAX signatures minus
 `torch.autograd.Function`s, as the JAX functions are `custom_vjp`s.  Every
 kernel wrapper runs its plain version (`*_ref`: einsum + fp32 softmax, and
 the explicit VJPs `*_bwd_ref`) on CPU tensors and launches a CUDA kernel on
-CUDA tensors.
+CUDA tensors.  The plain versions also take float64 and compute in it
+(`ops/precision.py`).
 
 Window attention routes by shape alone (`window_fwd_route`,
-`window_bwd_route`), never by a caught error:
-- forward: K1 (`csrc/window_attn_fwd.cu`, one block per window and head)
-  where its block fits shared memory, else K1L
-  (`csrc/window_attn_fwd_large.cu`, q-blocks streaming key tiles).  Both
-  replace `_fused_forward`'s pallas_call at pack 1 or 2.
+`window_bwd_route`), never by a caught error, and in pairs:
 - backward: K7 (`csrc/window_attn_bwd_qblk.cu`) wherever JAX takes its
   q-blocked kernel (`_fused_backward`: pack 1 and round_up(N, 8) > 512),
   and also in JAX's one-shot range wherever K4's one-block layout does not
   fit shared memory (117 < N <= 512 at D = 64); K4
   (`csrc/window_attn_bwd.cu`) everywhere else.
-So every window size JAX accepts runs on the card, up to head dim 128.
+- forward: K1L (`csrc/window_attn_fwd_large.cu`, q-blocks streaming key
+  tiles) wherever the backward is K7, since K7 takes the output and the
+  per-row log-sum-exp that K1L writes; K1 (`csrc/window_attn_fwd.cu`, one
+  block per window and head) only where its block fits shared memory and
+  K4 is the backward (K4's block is the larger, so that is wherever K4 is
+  the backward).  Both replace `_fused_forward`'s pallas_call at pack 1
+  or 2.
+So every window size JAX accepts runs on the card, up to head dim 128, and
+`_WindowAttention` saves out and lse only for the K1L/K7 pair.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from mtp_tpu_torch.kernels import _build
+from mtp_tpu_torch.ops.precision import at_least_fp32, plain_float64
 
 LAUNCHES = {"window": 0, "flash": 0, "window_bwd": 0, "flash_bwd": 0,
             "window_large": 0, "window_bwd_qblk": 0}
@@ -43,7 +49,9 @@ _FLASH_BWD_STAGES_Q = 4  # and of the k-major pass's
 # (a template parameter); the wrappers zero-pad other head dims up to one
 FLASH_MAX_D = 128
 # K1L and K7 hold a thread's accumulator columns in registers: head dims up
-# to 128 (their shared memory, at most 173,568 B there, then fits a block)
+# to 128 (their bf16 kernels are templates over multiples of 16 up to it, as
+# the flash kernels; their shared memory, at most 173,568 B there, then fits
+# a block)
 LARGE_MAX_D = 128
 # JAX's `_WIN_BWD_ONE_SHOT_MAX`: above this padded N its backward is K7
 WIN_BWD_ONE_SHOT_MAX = 512
@@ -71,11 +79,30 @@ def _check_large(N: int, D: int) -> None:
                          f"got D={D}")
 
 
+def _k7_backward(N: int, D: int) -> bool:
+    """Whether (N, D) windows take K7 for their backward: where JAX's
+    `_fused_backward` takes its q-blocked kernel (pack 1, i.e. N > 64, and
+    round_up(N, 8) > 512) or where K4's one-block layout does not fit
+    shared memory."""
+    jax_qblocked = N > 64 and _round_up(N, 8) > WIN_BWD_ONE_SHOT_MAX
+    return jax_qblocked or window_bwd_smem_bytes(N, D) > SMEM_LIMIT
+
+
+def _large_pair(N: int, D: int) -> bool:
+    """Whether (N, D) windows run the K1L/K7 pair: wherever the backward is
+    K7 and K1L/K7 take the head dim."""
+    return D <= LARGE_MAX_D and _k7_backward(N, D)
+
+
 def window_fwd_route(N: int, D: int) -> str:
-    """The `LAUNCHES` key of the forward kernel for (N, D) windows: "window"
-    (K1) where its one-block layout fits shared memory, else "window_large"
-    (K1L).  Raises for what neither takes (D > 128 beyond K1's reach)."""
-    if window_smem_bytes(N, D) <= SMEM_LIMIT:
+    """The `LAUNCHES` key of the forward kernel for (N, D) windows, paired
+    with `window_bwd_route`: "window_large" (K1L) wherever the backward is
+    K7, which takes the output and log-sum-exp K1L writes; "window" (K1)
+    only where its one-block layout fits shared memory and K4 is the
+    backward.  Head dims over 128, which K1L and K7 do not take, run K1
+    where it fits (their backward, K4, only where K4 fits too); beyond K1's
+    reach they raise."""
+    if window_smem_bytes(N, D) <= SMEM_LIMIT and not _large_pair(N, D):
         return "window"
     _check_large(N, D)
     return "window_large"
@@ -85,19 +112,20 @@ def window_bwd_route(N: int, D: int) -> str:
     """The `LAUNCHES` key of the backward kernel for (N, D) windows:
     "window_bwd_qblk" (K7) where JAX's `_fused_backward` takes its q-blocked
     kernel (pack 1, i.e. N > 64, and round_up(N, 8) > 512) or where K4's
-    one-block layout does not fit shared memory, else "window_bwd" (K4)."""
-    jax_qblocked = N > 64 and _round_up(N, 8) > WIN_BWD_ONE_SHOT_MAX
-    if not jax_qblocked and window_bwd_smem_bytes(N, D) <= SMEM_LIMIT:
+    one-block layout does not fit shared memory, else "window_bwd" (K4).
+    Raises where K7 would be needed at a head dim over 128."""
+    if not _k7_backward(N, D):
         return "window_bwd"
     _check_large(N, D)
     return "window_bwd_qblk"
 
 
 def flash_head_dim(D: int) -> int:
-    """The head dim the flash kernels (K2, K5) run at for head dim D: D
-    rounded up to a multiple of 16, at most FLASH_MAX_D.  The wrappers
-    zero-pad q, k, v (and out, dout) up to it, which is exact: zero columns
-    add nothing to q·kᵀ, and the padded output columns are dropped."""
+    """The head dim the flash kernels (K2, K5) and K1L/K7 run at for head
+    dim D: D rounded up to a multiple of 16, at most FLASH_MAX_D.  The
+    wrappers zero-pad q, k, v (and out, dout) up to it, which is exact: zero
+    columns add nothing to q·kᵀ or to rowsum(dO ∘ O), and the padded output
+    columns are dropped."""
     if D > FLASH_MAX_D:
         raise ValueError(f"flash attention takes head dims up to "
                          f"{FLASH_MAX_D}, got D={D}")
@@ -155,15 +183,18 @@ def _check_qkv(q, k, v, ndim):
     if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share a {ndim}-d shape: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"q, k, v must all be float32 or all bfloat16: "
-                        f"{q.dtype} {k.dtype} {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype) or not (
+            q.dtype in _build.DTYPE_CODES or plain_float64(q)):
+        raise TypeError(f"q, k, v must all be float32 or all bfloat16 (or "
+                        f"float64 on the CPU): {q.dtype} {k.dtype} {v.dtype}")
 
 
-def _check_f32(**tensors):
+def _check_f32(q, **tensors):
+    """The fp32 inputs (float64 with float64 q, on the CPU)."""
+    want = torch.float64 if q.dtype == torch.float64 else torch.float32
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
 
 
 def _check_dout(q, dout):
@@ -178,18 +209,18 @@ def _smem_guard(what: str, need: int) -> None:
                          f"{SMEM_LIMIT} B of one block")
 
 
-# ------------------------------------------------------------------ K1, K4 --
+# ------------------------------------------------------- K1, K4, K1L, K7 --
 
-def _window_probs(q, k, bias, scale):
-    s = torch.einsum("whqd,whkd->whqk", q.float(), k.float()) * scale
-    return torch.softmax(s + bias, dim=-1)
+def _window_scores(q, k, bias, scale):
+    s = torch.einsum("whqd,whkd->whqk", at_least_fp32(q), at_least_fp32(k)) * scale
+    return s + bias
 
 
 def fused_window_attention_ref(q, k, v, bias, scale: float) -> torch.Tensor:
     """Plain version of K1: fp32 einsum + softmax, output in q's dtype."""
     with torch.autocast(q.device.type, enabled=False):
-        p = _window_probs(q, k, bias, scale)
-        return torch.einsum("whqk,whkd->whqd", p, v.float()).to(q.dtype)
+        p = torch.softmax(_window_scores(q, k, bias, scale), dim=-1)
+        return torch.einsum("whqk,whkd->whqd", p, at_least_fp32(v)).to(q.dtype)
 
 
 def fused_window_attention_bwd_ref(q, k, v, bias, dout, scale: float):
@@ -199,11 +230,42 @@ def fused_window_attention_bwd_ref(q, k, v, bias, dout, scale: float):
         dQ = dS K · scale,  dK = dSᵀ Q · scale,  dbias = dS.
     Returns (dq, dk, dv) in q's dtype and dbias fp32."""
     with torch.autocast(q.device.type, enabled=False):
-        qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-        p = _window_probs(q, k, bias, scale)
+        qf, kf, vf, do = (at_least_fp32(t) for t in (q, k, v, dout))
+        p = torch.softmax(_window_scores(q, k, bias, scale), dim=-1)
         dv = torch.einsum("whqk,whqd->whkd", p, do)
         dp = torch.einsum("whqd,whkd->whqk", do, vf)
         ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq = torch.einsum("whqk,whkd->whqd", ds, kf) * scale
+        dk = torch.einsum("whqk,whqd->whkd", ds, qf) * scale
+        return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds
+
+
+def fused_window_attention_large_ref(q, k, v, bias, scale: float):
+    """Plain version of K1L: (out in q's dtype, lse fp32 (W, nH, N)), lse
+    the log-sum-exp of each query row's scores, which K7 takes."""
+    with torch.autocast(q.device.type, enabled=False):
+        s = _window_scores(q, k, bias, scale)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        return torch.einsum("whqk,whkd->whqd", p, at_least_fp32(v)).to(q.dtype), lse
+
+
+def fused_window_attention_large_bwd_ref(q, k, v, bias, out, lse, dout,
+                                         scale: float):
+    """Plain version of K7, from K1L's out and lse: with P = exp(s − lse),
+    delta = rowsum(dO ∘ O) (= rowsum(P ∘ dP), since O = P·V) and
+    dS = P ∘ (dP − delta),
+        dV = Pᵀ dO,  dQ = dS K · scale,  dK = dSᵀ Q · scale,  dbias = dS.
+    Returns (dq, dk, dv) in q's dtype and dbias fp32.  (The tests hold it to
+    autograd through `fused_window_attention_ref` and to the JAX kernels,
+    which recompute the statistics.)"""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, do = (at_least_fp32(t) for t in (q, k, v, dout))
+        p = torch.exp(_window_scores(q, k, bias, scale) - lse[..., None])
+        delta = (do * at_least_fp32(out)).sum(-1, keepdim=True)
+        dv = torch.einsum("whqk,whqd->whkd", p, do)
+        dp = torch.einsum("whqd,whkd->whqk", do, vf)
+        ds = p * (dp - delta)
         dq = torch.einsum("whqk,whkd->whqd", ds, kf) * scale
         dk = torch.einsum("whqk,whqd->whkd", ds, qf) * scale
         return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds
@@ -214,56 +276,116 @@ def _check_window(q, k, v, bias):
     W, nH, N, _ = q.shape
     if bias.shape != (W, nH, N, N):
         raise ValueError(f"bias must be {(W, nH, N, N)}, got {tuple(bias.shape)}")
-    _check_f32(bias=bias)
+    _check_f32(q, bias=bias)
 
 
-_WINDOW_LAUNCHERS = {"window": "mtp_window_attn_fwd",
-                     "window_large": "mtp_window_attn_fwd_large"}
+def _check_window_saved(q, out, lse):
+    W, nH, N, _ = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out must match q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if lse.shape != (W, nH, N):
+        raise ValueError(f"lse must be {(W, nH, N)}, got {tuple(lse.shape)}")
+    _check_f32(q, lse=lse)
 
 
 def _window_fwd(q, k, v, bias, scale):
+    """K1.  CPU tensors run `fused_window_attention_ref`."""
     _check_window(q, k, v, bias)
     if not _build.use_kernel(q, k, v, bias):
         return fused_window_attention_ref(q, k, v, bias, scale)
     W, nH, N, D = q.shape
-    route = window_fwd_route(N, D)
+    _smem_guard(f"window attention (K1) with N={N}, D={D}", window_smem_bytes(N, D))
     _build.check_launchable(q=q, k=k, v=v, bias=bias)
     out = torch.empty_like(q)
-    _build.launch(_WINDOW_LAUNCHERS[route], q.data_ptr(), k.data_ptr(),
+    _build.launch("mtp_window_attn_fwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), bias.data_ptr(), out.data_ptr(), W * nH, N, D,
                   float(scale), _build.dtype_code(q))
-    LAUNCHES[route] += 1
+    LAUNCHES["window"] += 1
     return out
+
+
+def _window_large_fwd(q, k, v, bias, scale):
+    """K1L: (out in q's dtype, lse fp32 (W, nH, N)).  CPU tensors run
+    `fused_window_attention_large_ref`; CUDA tensors launch the kernel, at
+    the head dim `flash_head_dim` gives (q, k, v zero-padded up to it, out
+    cut back), at any N."""
+    _check_window(q, k, v, bias)
+    if not _build.use_kernel(q, k, v, bias):
+        return fused_window_attention_large_ref(q, k, v, bias, scale)
+    W, nH, N, D = q.shape
+    _check_large(N, D)
+    q, k, v = (_pad_head(t, flash_head_dim(D)) for t in (q, k, v))
+    _build.check_launchable(q=q, k=k, v=v, bias=bias)
+    _build.check_aligned(q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((W, nH, N), dtype=torch.float32, device=q.device)
+    _build.launch("mtp_window_attn_fwd_large", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  W * nH, N, q.shape[-1], float(scale), _build.dtype_code(q))
+    LAUNCHES["window_large"] += 1
+    return (out if out.shape[-1] == D else out[..., :D].contiguous()), lse
 
 
 def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, bias: torch.Tensor,
                                dout: torch.Tensor, scale: float):
     """Gradients of `fused_window_attention` for the output cotangent dout
-    (q's shape and dtype) → (dq, dk, dv) in q's dtype and dbias fp32.
+    (q's shape and dtype) → (dq, dk, dv) in q's dtype and dbias fp32, by K4,
+    which recomputes the probabilities.
 
     CPU tensors run `fused_window_attention_bwd_ref`; CUDA tensors launch
-    K4 or K7, as `window_bwd_route` picks."""
+    K4, and raise where its block does not fit shared memory (there the
+    backward is K7, `fused_window_attention_large_bwd`)."""
     _check_window(q, k, v, bias)
     _check_dout(q, dout)
     if not _build.use_kernel(q, k, v, bias, dout):
         return fused_window_attention_bwd_ref(q, k, v, bias, dout, scale)
     W, nH, N, D = q.shape
-    route = window_bwd_route(N, D)
+    _smem_guard(f"the window attention backward (K4) with N={N}, D={D}",
+                window_bwd_smem_bytes(N, D))
     _build.check_launchable(q=q, k=k, v=v, bias=bias, dout=dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    ptrs = [t.data_ptr() for t in (q, k, v, bias, dout, dq, dk, dv, dbias)]
-    if route == "window_bwd":
-        _build.launch("mtp_window_attn_bwd", *ptrs, W * nH, N, D, float(scale),
-                      _build.dtype_code(q))
-    else:
-        # per query row: log-sum-exp of the scores and rowsum(P ∘ dP), from
-        # K7's q-major pass to its k-major pass
-        stats = torch.empty((2, W * nH, N), dtype=torch.float32, device=q.device)
-        _build.launch("mtp_window_attn_bwd_qblk", *ptrs, stats.data_ptr(),
-                      W * nH, N, D, float(scale), _build.dtype_code(q))
-    LAUNCHES[route] += 1
+    _build.launch("mtp_window_attn_bwd", *(t.data_ptr() for t in (
+        q, k, v, bias, dout, dq, dk, dv, dbias)), W * nH, N, D, float(scale),
+        _build.dtype_code(q))
+    LAUNCHES["window_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+def fused_window_attention_large_bwd(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, bias: torch.Tensor,
+                                     out: torch.Tensor, lse: torch.Tensor,
+                                     dout: torch.Tensor, scale: float):
+    """Gradients of `fused_window_attention` for the output cotangent dout,
+    from K1L's out and lse (`_window_large_fwd`) → (dq, dk, dv) in q's
+    dtype and dbias fp32, by K7.
+
+    CPU tensors run `fused_window_attention_large_bwd_ref`; CUDA tensors
+    launch the K7 kernels, at the head dim `flash_head_dim` gives, at any
+    N."""
+    _check_window(q, k, v, bias)
+    _check_dout(q, dout)
+    _check_window_saved(q, out, lse)
+    if not _build.use_kernel(q, k, v, bias, out, lse, dout):
+        return fused_window_attention_large_bwd_ref(q, k, v, bias, out, lse,
+                                                    dout, scale)
+    W, nH, N, D = q.shape
+    _check_large(N, D)
+    q, k, v, out, dout = (_pad_head(t, flash_head_dim(D)) for t in (q, k, v, out, dout))
+    _build.check_launchable(q=q, k=k, v=v, bias=bias, out=out, lse=lse, dout=dout)
+    _build.check_aligned(q=q, k=k, v=v, out=out, dout=dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    # rowsum(dO ∘ O) per query row, from K7's q-major pass to its k-major pass
+    delta = torch.empty((W * nH, N), dtype=torch.float32, device=q.device)
+    _build.launch("mtp_window_attn_bwd_qblk", *(t.data_ptr() for t in (
+        q, k, v, bias, out, lse, dout, dq, dk, dv, dbias, delta)), W * nH, N,
+        q.shape[-1], float(scale), _build.dtype_code(q))
+    LAUNCHES["window_bwd_qblk"] += 1
+    if q.shape[-1] != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv, dbias
 
 
@@ -271,26 +393,37 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v, bias)
-        return _window_fwd(q, k, v, bias, scale)
+        _check_window(q, k, v, bias)
+        W, nH, N, D = q.shape
+        if _large_pair(N, D):  # K1L now, K7 in the backward
+            out, lse = _window_large_fwd(q, k, v, bias, scale)
+            ctx.save_for_backward(q, k, v, bias, out, lse)
+        else:  # K1, K4
+            out = _window_fwd(q, k, v, bias, scale)
+            ctx.save_for_backward(q, k, v, bias)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, bias = ctx.saved_tensors
-        grads = fused_window_attention_bwd(
-            q, k, v, bias, dout.to(q.dtype).contiguous(), ctx.scale)
+        q, k, v, bias, *saved = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        if saved:
+            grads = fused_window_attention_large_bwd(q, k, v, bias, *saved, dout,
+                                                     ctx.scale)
+        else:
+            grads = fused_window_attention_bwd(q, k, v, bias, dout, ctx.scale)
         return (*grads, None)
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, scale: float) -> torch.Tensor:
     """softmax(q·kᵀ·scale + bias)·v per (window, head), differentiable in q,
-    k, v and bias.
+    k, v and bias; K1 and K4, or K1L and K7, as `window_fwd_route` and
+    `window_bwd_route` pair them.
 
     q/k/v (W, nH, N, D) fp32 or bf16; bias (W, nH, N, N) fp32 → (W, nH, N, D)
     in q's dtype."""
     return _WindowAttention.apply(q, k, v, bias, scale)
-
 
 # ------------------------------------------------------------------ K2, K5 --
 
@@ -298,7 +431,7 @@ def _flash_scores(q, k, rel_h, rel_w, grid_hw, scale):
     """The (BH, N, N) fp32 scores q·kᵀ·scale + rel_h[q, k // Wk] + rel_w[q, k % Wk]."""
     BH, N, _ = q.shape
     Hk, Wk = grid_hw
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqd,bkd->bqk", at_least_fp32(q), at_least_fp32(k)) * scale
     s = s.reshape(BH, N, Hk, Wk) + rel_h[..., :, None] + rel_w[..., None, :]
     return s.reshape(BH, N, N)
 
@@ -311,7 +444,7 @@ def flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale: float):
         s = _flash_scores(q, k, rel_h, rel_w, grid_hw, scale)
         lse = torch.logsumexp(s, dim=-1)
         p = torch.exp(s - lse[..., None])
-        return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype), lse
+        return torch.einsum("bqk,bkd->bqd", p, at_least_fp32(v)).to(q.dtype), lse
 
 
 def flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, out, lse, dout,
@@ -328,10 +461,10 @@ def flash_full_attention_bwd_ref(q, k, v, rel_h, rel_w, out, lse, dout,
     BH, N, _ = q.shape
     Hk, Wk = grid_hw
     with torch.autocast(q.device.type, enabled=False):
-        qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+        qf, kf, vf, do = (at_least_fp32(t) for t in (q, k, v, dout))
         p = torch.exp(_flash_scores(q, k, rel_h, rel_w, grid_hw, scale)
                       - lse[..., None])
-        delta = (do * out.float()).sum(-1, keepdim=True)
+        delta = (do * at_least_fp32(out)).sum(-1, keepdim=True)
         dv = torch.einsum("bqk,bqd->bkd", p, do)
         dp = torch.einsum("bqd,bkd->bqk", do, vf)
         ds = p * (dp - delta)
@@ -351,7 +484,7 @@ def _check_flash(q, k, v, rel_h, rel_w, grid_hw):
     if rel_h.shape != (BH, N, Hk) or rel_w.shape != (BH, N, Wk):
         raise ValueError(f"rel_h/rel_w must be {(BH, N, Hk)}/{(BH, N, Wk)}, "
                          f"got {tuple(rel_h.shape)}/{tuple(rel_w.shape)}")
-    _check_f32(rel_h=rel_h, rel_w=rel_w)
+    _check_f32(q, rel_h=rel_h, rel_w=rel_w)
 
 
 def _check_saved(q, out, lse):
@@ -361,7 +494,7 @@ def _check_saved(q, out, lse):
                          f"{tuple(out.shape)} {out.dtype}")
     if lse.shape != (BH, N):
         raise ValueError(f"lse must be {(BH, N)}, got {tuple(lse.shape)}")
-    _check_f32(lse=lse)
+    _check_f32(q, lse=lse)
 
 
 def _pad_head(t: torch.Tensor, Dp: int) -> torch.Tensor:

@@ -17,10 +17,11 @@ from __future__ import annotations
 import torch
 
 from mtp_tpu_torch.ops.dcnv3_sample import dcnv3_sample
+from mtp_tpu_torch.ops.precision import at_least_fp32
 
 
 def _pixel_coords(grid: torch.Tensor, H: int, W: int, align_corners: bool):
-    gx, gy = grid[..., 0].float(), grid[..., 1].float()
+    gx, gy = at_least_fp32(grid[..., 0]), at_least_fp32(grid[..., 1])
     if align_corners:
         return (gx + 1.0) * 0.5 * (W - 1), (gy + 1.0) * 0.5 * (H - 1)
     return ((gx + 1.0) * W - 1.0) * 0.5, ((gy + 1.0) * H - 1.0) * 0.5

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mtp_tpu_torch.ops.precision import at_least_fp32
+
 
 def _index(idx, device) -> torch.Tensor:
     """numpy index array or long tensor → long tensor on `device` (no copy
@@ -46,10 +48,10 @@ def decomposed_rel_pos_factors(q: torch.Tensor, q_shape: tuple[int, int],
     q_h, q_w = q_shape
     k_h, k_w = k_shape
     with torch.autocast(q.device.type, enabled=False):
-        Rh = rel_pos_h.float()[_index(rel_pos_indices(q_h, k_h), q.device)]
-        Rw = rel_pos_w.float()[_index(rel_pos_indices(q_w, k_w), q.device)]
+        Rh = at_least_fp32(rel_pos_h)[_index(rel_pos_indices(q_h, k_h), q.device)]
+        Rw = at_least_fp32(rel_pos_w)[_index(rel_pos_indices(q_w, k_w), q.device)]
         lead = q.shape[:-2]
-        r_q = q.float().reshape(lead + (q_h, q_w, q.shape[-1]))
+        r_q = at_least_fp32(q).reshape(lead + (q_h, q_w, q.shape[-1]))
         rel_h = torch.einsum("...hwc,hkc->...hwk", r_q, Rh)
         rel_w = torch.einsum("...hwc,wkc->...hwk", r_q, Rw)
     n = q_h * q_w
@@ -79,7 +81,7 @@ def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor,
     """attn (..., q_h*q_w, k_h*k_w) + the decomposed bias computed from q
     (..., q_h*q_w, head_dim), in fp32."""
     bias = decomposed_rel_pos_bias(q, q_shape, k_shape, rel_pos_h, rel_pos_w)
-    return attn.float() + bias
+    return at_least_fp32(attn) + bias
 
 
 def swin_rel_pos_index(q_ws: int, k_ws: int) -> np.ndarray:

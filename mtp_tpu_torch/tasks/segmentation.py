@@ -28,6 +28,7 @@ from mtp_tpu_torch.eval.metrics import SegAccumulator
 from mtp_tpu_torch.eval.slide import slide_inference
 from mtp_tpu_torch.heads.upernet import resize_bilinear
 from mtp_tpu_torch.models.segmentor import Segmentor
+from mtp_tpu_torch.ops.precision import at_least_fp32
 
 
 class SegmentationTask:
@@ -82,7 +83,7 @@ class SegmentationTask:
         with self.autocast():
             out = model(images, train=True, deterministic=deterministic,
                         generator=generator)
-        logits = resize_bilinear(out.float(), tuple(labels.shape[1:3]))
+        logits = resize_bilinear(at_least_fp32(out), tuple(labels.shape[1:3]))
         loss = seg_xent(logits, labels, self.cfg.ignore_index)
         valid = labels != self.cfg.ignore_index
         hit = (logits.argmax(-1) == labels) & valid

@@ -77,6 +77,42 @@ def test_window_attention_backward_matches_pallas(W, nH, N, D):
         _close(a, b.numpy(), what=name)
 
 
+# ---------------------------------------------------------------------- K7 --
+
+@pytest.mark.parametrize("N,D,bf16", [
+    (130, 16, True),    # JAX's one-shot backward at pack 1; bf16 q/k/v/dO
+    (600, 8, False),    # JAX's q-blocked backward, the kernel K7 replaces
+])
+def test_large_window_backward_matches_pallas(N, D, bf16):
+    """The plain K7, given the plain K1L's out and lse, against the Pallas
+    backward, which recomputes the row statistics from q, k and the bias."""
+    rng = np.random.default_rng(N)
+    q, k, v, do = (rng.standard_normal((1, 2, N, D)).astype(np.float32)
+                   for _ in range(4))
+    bias = (rng.standard_normal((1, 2, N, N)) * 0.5).astype(np.float32)
+    scale = D ** -0.5
+    if bf16:
+        qkvd = [_t(x).bfloat16() for x in (q, k, v, do)]
+        jax_in = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in qkvd]
+        atol, rtol = BF16_ATOL, BF16_RTOL
+    else:
+        qkvd = [_t(x) for x in (q, k, v, do)]
+        jax_in = [jnp.asarray(x) for x in (q, k, v, do)]
+        atol, rtol = ATOL, RTOL
+    jq, jk, jv, jdo = jax_in
+    ref = _fused_backward(jq, jk, jv, jnp.asarray(bias), jdo, scale=scale,
+                          interpret=True)
+    pq, pk, pv, pdo = qkvd
+    out, lse = fused_attn._window_large_fwd(pq, pk, pv, _t(bias), scale)
+    before = dict(fused_attn.LAUNCHES)
+    got = fused_attn.fused_window_attention_large_bwd(pq, pk, pv, _t(bias), out,
+                                                      lse, pdo, scale)
+    assert fused_attn.LAUNCHES == before  # CPU: plain version
+    assert got[0].dtype == pq.dtype and got[3].dtype == torch.float32
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        _close(a, np.asarray(b, np.float32), atol, rtol, what=name)
+
+
 # ---------------------------------------------------------------------- K5 --
 
 def _flash_inputs(seed, BH, grid_hw, D):

@@ -102,9 +102,11 @@ def _window_inputs(seed, W, nH, N, D):
 @pytest.mark.parametrize("N", [387, 910])
 def test_large_window_attention_matches_pallas(monkeypatch, N):
     """Forward and backward of one large window (129×3 and 130×7 grids)
-    against `_fused_forward` and `_fused_backward(interpret=True)`; JAX takes
-    its q-blocked backward (the kernel K7 replaces) at N = 910 and its
-    one-shot backward at N = 387."""
+    against `_fused_forward` and `_fused_backward(interpret=True)`: the plain
+    K1L's out, and its lse against the log-sum-exp of the scores in float64;
+    the plain K7 from that out and lse.  JAX takes its q-blocked backward
+    (the kernel K7 replaces) at N = 910 and its one-shot backward at
+    N = 387; both recompute the row statistics."""
     W, nH, D = 1, 2, 16
     q, k, v, bias, do = _window_inputs(N, W, nH, N, D)
     scale = D ** -0.5
@@ -119,21 +121,51 @@ def test_large_window_attention_matches_pallas(monkeypatch, N):
                                                     True)
     assert qblocked == ([(W, nH, N, D)] if N > 512 else [])
     assert fused_attn.window_bwd_route(N, D) == "window_bwd_qblk"
+    assert fused_attn.window_fwd_route(N, D) == "window_large"
+    scores = np.einsum("whqd,whkd->whqk", q.astype(np.float64),
+                       k.astype(np.float64)) * scale + bias
+    want_lse = torch.logsumexp(torch.from_numpy(scores), dim=-1)
 
     before = dict(fused_attn.LAUNCHES)
-    got = fused_attn.fused_window_attention(_t(q), _t(k), _t(v), _t(bias), scale)
-    got_b = fused_attn.fused_window_attention_bwd(_t(q), _t(k), _t(v), _t(bias),
-                                                  _t(do), scale)
+    out, lse = fused_attn._window_large_fwd(_t(q), _t(k), _t(v), _t(bias), scale)
+    got_b = fused_attn.fused_window_attention_large_bwd(
+        _t(q), _t(k), _t(v), _t(bias), out, lse, _t(do), scale)
     assert fused_attn.LAUNCHES == before  # CPU: plain versions
-    _close(got, ref, what="out")
+    assert lse.shape == (W, nH, N) and lse.dtype == torch.float32
+    _close(out, ref, what="out")
+    _close(lse, want_lse.numpy(), what="lse")
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got_b, ref_b):
         _close(a, b, what=name)
+
+
+@pytest.mark.parametrize("N,D,bf16", [(387, 16, False), (910, 8, False),
+                                      (130, 16, True)])
+def test_large_window_backward_matches_autograd(N, D, bf16):
+    """The plain K7, given the plain K1L's out and lse, against torch
+    autograd through the plain forward `fused_window_attention_ref`, which
+    recomputes the statistics; bf16 q/k/v/dO give bf16 dq/dk/dv and an
+    fp32 dbias, held to one bf16 rounding."""
+    q, k, v, bias, do = (_t(x) for x in _window_inputs(N + D, 1, 2, N, D))
+    if bf16:
+        q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    atol, rtol = (2e-2, 1e-2) if bf16 else (ATOL, RTOL)
+    scale = D ** -0.5
+    out, lse = fused_attn.fused_window_attention_large_ref(q, k, v, bias, scale)
+    got = fused_attn.fused_window_attention_large_bwd(q, k, v, bias, out, lse, do,
+                                                      scale)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    auto = torch.autograd.grad(
+        fused_attn.fused_window_attention_ref(*leaves, scale), leaves, do)
+    assert [a.dtype for a in got] == [q.dtype] * 3 + [torch.float32]
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, auto):
+        _close(a, b.float().numpy(), atol, rtol, what=name)
 
 
 # ------------------------------------------------------------- (b) routing --
 
 @pytest.mark.parametrize("N,D,fwd,bwd", [
     (49, 64, "window", "window_bwd"),               # RVSA's 7×7 windows
+    (130, 64, "window_large", "window_bwd_qblk"),   # K1 fits, K4 does not: the pair
     (387, 64, "window_large", "window_bwd_qblk"),   # 129×3: JAX one-shot, K4 too big
     (910, 64, "window_large", "window_bwd_qblk"),   # 130×7: JAX's K7
     (387, 16, "window_large", "window_bwd_qblk"),
@@ -158,26 +190,82 @@ def test_window_attention_routes_by_shape(stubbed_launches, N, D, fwd, bwd):
 def test_routing_follows_the_jax_rule_and_shared_memory():
     """Backward: K7 at every N where JAX's `_fused_backward` takes its
     q-blocked kernel (pack 1 and round_up(N, 8) > 512), K4 only where JAX
-    takes its one-shot kernel and K4's block fits shared memory.  Forward:
-    K1 exactly where its block fits.  The main path's N = 16,900 routes
-    without raising; head dims over 128 beyond K1's reach raise."""
-    for N in range(1, 1100):
-        jax_qblocked = N > 64 and pallas_attn._round_up(N, 8) > \
-            pallas_attn._WIN_BWD_ONE_SHOT_MAX
-        k4_fits = fused_attn.window_bwd_smem_bytes(N, 64) <= fused_attn.SMEM_LIMIT
-        want = "window_bwd" if k4_fits and not jax_qblocked else "window_bwd_qblk"
-        assert fused_attn.window_bwd_route(N, 64) == want, N
-        k1_fits = fused_attn.window_smem_bytes(N, 64) <= fused_attn.SMEM_LIMIT
-        assert fused_attn.window_fwd_route(N, 64) == (
-            "window" if k1_fits else "window_large"), N
+    takes its one-shot kernel and K4's block fits shared memory.  Forward,
+    paired with it: K1L exactly where the backward is K7, so K1 only where
+    its block fits and K4 is the backward (at D = 64 that moves N = 118…162
+    from K1 to K1L).  The main path's N = 16,900 routes without raising;
+    head dims over 128 beyond K1's reach raise."""
+    for D in (64, 16):
+        for N in range(1, 1100):
+            jax_qblocked = N > 64 and pallas_attn._round_up(N, 8) > \
+                pallas_attn._WIN_BWD_ONE_SHOT_MAX
+            k4_fits = fused_attn.window_bwd_smem_bytes(N, D) <= fused_attn.SMEM_LIMIT
+            want = "window_bwd" if k4_fits and not jax_qblocked else "window_bwd_qblk"
+            assert fused_attn.window_bwd_route(N, D) == want, (N, D)
+            k1_fits = fused_attn.window_smem_bytes(N, D) <= fused_attn.SMEM_LIMIT
+            assert fused_attn.window_fwd_route(N, D) == (
+                "window" if k1_fits and want == "window_bwd" else "window_large"), (N, D)
     assert fused_attn.window_bwd_route(117, 64) == "window_bwd"
     assert fused_attn.window_bwd_route(118, 64) == "window_bwd_qblk"
+    assert fused_attn.window_fwd_route(117, 64) == "window"
+    assert fused_attn.window_fwd_route(118, 64) == "window_large"
+    assert fused_attn.window_smem_bytes(162, 64) <= fused_attn.SMEM_LIMIT
     assert fused_attn.window_fwd_route(16900, 64) == "window_large"
     assert fused_attn.window_bwd_route(16900, 64) == "window_bwd_qblk"
     with pytest.raises(ValueError, match="head dims"):
         fused_attn.window_fwd_route(16900, 256)
     with pytest.raises(ValueError, match="head dims"):
         fused_attn.window_bwd_route(910, 256)
+
+
+def test_k7_takes_the_out_and_lse_k1l_wrote(monkeypatch):
+    """With the kernel route forced and launches stubbed: the K7 launch of a
+    large window's backward gets the very out and lse storage that the K1L
+    launch of the same forward wrote (and q, k, v, bias as the forward
+    had them); a K1/K4 window saves neither."""
+    launches = []
+    monkeypatch.setattr(_build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(_build, "launch", lambda name, *a: launches.append((name, a)))
+    monkeypatch.setattr(fused_attn, "LAUNCHES", dict.fromkeys(fused_attn.LAUNCHES, 0))
+    q = torch.zeros(1, 2, 387, 16, requires_grad=True)
+    bias = torch.zeros(1, 2, 387, 387, requires_grad=True)
+    out = fused_attn.fused_window_attention(q, q, q, bias, 0.5)
+    out.backward(torch.ones_like(out))
+    (fwd, fa), (bwd, ba) = launches
+    assert (fwd, bwd) == ("mtp_window_attn_fwd_large", "mtp_window_attn_bwd_qblk")
+    # K1L: q, k, v, bias, out, lse, ...; K7: q, k, v, bias, out, lse, dout, ...
+    assert fa[4] == out.data_ptr() and ba[:6] == fa[:6]
+    assert fa[-5:] == ba[-5:] == (2, 387, 16, 0.5, 0)  # W·nH, N, D, scale, fp32
+    launches.clear()
+    small = torch.zeros(1, 2, 49, 16, requires_grad=True)
+    out = fused_attn.fused_window_attention(small, small, small,
+                                            torch.zeros(1, 2, 49, 49), 0.5)
+    assert len(out.grad_fn.saved_tensors) == 4  # q, k, v, bias
+    assert [name for name, _ in launches] == ["mtp_window_attn_fwd"]
+
+
+@pytest.mark.parametrize("D,Dp", [(40, 48), (64, 64), (8, 16)])
+def test_large_window_head_dim_padding(stubbed_launches, monkeypatch, D, Dp):
+    """On the kernel route K1L and K7 run at the head dim rounded up to a
+    multiple of 16 (zero-padded q, k, v, out and dout) and hand back outputs
+    cut to D, contiguous; over 128 they raise before any launch."""
+    dims = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *a: dims.append((name, a[-3])))
+    q = torch.zeros(1, 2, 200, D, requires_grad=True)
+    bias = torch.zeros(1, 2, 200, 200, requires_grad=True)
+    out = fused_attn.fused_window_attention(q, q, q, bias, 0.5)
+    out.backward(torch.ones_like(out))
+    assert dims == [("mtp_window_attn_fwd_large", Dp), ("mtp_window_attn_bwd_qblk", Dp)]
+    assert out.shape == q.shape and out.is_contiguous()
+    assert q.grad.shape == q.shape and bias.grad.shape == bias.shape
+    wide = torch.zeros(1, 2, 200, 136)
+    with pytest.raises(ValueError, match="head dims"):
+        fused_attn._window_large_fwd(wide, wide, wide, bias.detach(), 0.5)
+    with pytest.raises(ValueError, match="head dims"):
+        fused_attn.fused_window_attention_large_bwd(
+            wide, wide, wide, bias.detach(), wide, torch.zeros(1, 2, 200), wide, 0.5)
+    assert len(dims) == 2
 
 
 def test_full_attention_fallback_at_129x3(stubbed_launches):

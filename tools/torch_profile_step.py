@@ -44,8 +44,8 @@ from mtp_tpu_torch.tasks.segmentation import SegmentationTask  # noqa: E402
 GROUPS = [
     ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_kernel"),
     ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_kernel"),
-    ("K1L window_attn_fwd_large", r"window_attn_fwd_large_kernel"),
-    ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_kernel"),
+    ("K1L window_attn_fwd_large", r"window_attn_fwd_large_(tc_)?kernel"),
+    ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_(tc_)?kernel"),
     ("K5 flash_attn_bwd (both passes)", r"flash_bwd_"),
     ("K2 flash_attn_fwd", r"flash_(attn_)?fwd"),
     ("K1/K4 window attention", r"window_attn"),
