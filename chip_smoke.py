@@ -18,22 +18,26 @@ Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
 2. build: compile the kernels from mtp_tpu_torch/csrc/ (nvcc, sm_90a); the
    registers and spills of every kernel (ptxas), and the HMMA/HGMMA count of
-   the tensor-core kernels' SASS (cuobjdump); the bf16 K2/K5 and K1L/K7
-   kernels at the main path's head dim 64 must have tensor-core
+   the tensor-core kernels' SASS (cuobjdump); the bf16 K2/K5, K1L/K7 and
+   K1/K4 kernels at the main path's head dim 64 must have tensor-core
    instructions and no spills.
 3. kernels: K1 window attention, K2 flash full attention and K3 bilinear
    sampling against their plain PyTorch versions on the card, in fp32 and
-   bf16, at the ViT slice's shapes and at edge shapes (K2: the slice, a
-   20×33 grid, D = 40 padded to 48, and a 128×128 grid at BH = 2 whose
-   plain version runs head by head; K2 returns (out, lse) and both are
-   checked); times of the kernel, its plain version and one PyTorch library
-   call computing the same function where there is one, each a run of
-   back-to-back calls between one pair of CUDA events over their count
-   (K2's and K5's record rows also with torch.profiler's device time); the
-   bound of each (section BOUNDS).
+   bf16, at the ViT slice's shapes and at edge shapes (K1: the slice, with
+   controls that scale its output by 0.9 and must fail, N = 25 with D = 48,
+   a full 64-token tile, D = 40 padded to 48, and N = 100 on the CUDA-core
+   body in bf16 too;
+   K2: the slice, a 20×33 grid, D = 40 padded to 48, and a 128×128 grid at
+   BH = 2 whose plain version runs head by head; K2 returns (out, lse) and
+   both are checked); times of the kernel, its plain version and one
+   PyTorch library call computing the same function where there is one,
+   each a run of back-to-back calls between one pair of CUDA events over
+   their count (the bf16 rows of K1's slice case and of every K2 case also
+   as device time, kernel and library call alike: the calls captured in a
+   CUDA graph and replayed); the bound of each (section BOUNDS).
 3b. backward kernels: K4, K5 and K6 likewise, at the train step's shapes
-   (K5 at K2's four cases, given out and lse from the plain fp32 forward,
-   and two launches on the same inputs bitwise equal).
+   (K4 at K1's five cases, K5 at K2's four, given out and lse from the plain
+   fp32 forward; K4 and K5 two launches on the same inputs bitwise equal).
 3c. K8: K3 and K6 at P = 9, gc = 16, at InternImage-XL's stage 0 and stage
    3 shapes at batch 8, with init-like integer coordinates and with random
    offsets.
@@ -46,7 +50,8 @@ Phases; any failure raises, so the exit code is non-zero:
    each output's bits, so that two 18.3 GB dbias never coexist); at the
    path's shape, controls that the check must reject: each output of both
    kernels scaled by 0.9, and K7's dbias zeroed from element 2^31 on; and
-   called directly at phases 3 and 3b's N = 49, where K1 and K4 run.
+   called directly at phases 3 and 3b's N = 49, where K1 and K4 run, with
+   K1 and K4 timed beside them on the same inputs (`[fork]` lines).
    Every output of phases 3-3d is held elementwise (TOL) and as a whole,
    ‖kernel − plain‖ / ‖plain‖ (REL_TOL).
 4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
@@ -91,7 +96,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path as FilePath
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -348,21 +353,54 @@ def loop_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiler_ms(fn, reps: int = 10) -> Optional[float]:
-    """Device time per call of fn from torch.profiler: the CUDA events of
-    `reps` calls, summed, over `reps`; None when the profiler saw no device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
+_CAPTURE: List[torch.cuda.Stream] = []
 
-    fn()
+
+def capture_stream() -> torch.cuda.Stream:
+    """The side stream `graph_ms` captures on.  A library call whose
+    autograd backward it times runs its forward here (`on_capture_stream`):
+    autograd launches each backward op on its forward op's stream, and a
+    capture records only its own stream."""
+    if not _CAPTURE:
+        _CAPTURE.append(torch.cuda.Stream())
+    return _CAPTURE[0]
+
+
+def on_capture_stream(fn):
+    """fn() on `capture_stream`, after the work queued so far on the current
+    stream and before whatever is queued on it next."""
+    side, current = capture_stream(), torch.cuda.current_stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        result = fn()
+    current.wait_stream(side)
+    return result
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call of fn: `reps` calls captured in one CUDA graph
+    on `capture_stream` (their outputs from the graph's own memory pool),
+    replayed between one pair of CUDA events, over `reps`.  Unlike
+    `loop_ms` it leaves out the host's work per call, which for K1 and K4
+    at RVSA's 49-token windows takes longer than the kernel; unlike
+    torch.profiler, which missed launches at that size, it counts every
+    launch.  Kernels and library calls alike are timed by it."""
+    on_capture_stream(fn)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture_stream()):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    total = sum(e.device_time_total for e in prof.events() if e.device_type == cuda)
-    return total / 1e3 / reps if total > 0 else None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
 
 
 # ------------------------------------------------------------ phase 1 + 2 --
@@ -401,10 +439,11 @@ def sass_tensor_core_counts() -> Dict[str, int]:
 
 
 # the bf16 tensor-core kernels at the main path's head dim (ViT-B and
-# ViT-L: 64): K2, K5's two passes, K1L, K7's two passes
+# ViT-L: 64): K2, K5's two passes, K1L, K7's two passes, K1, K4
 TC_MAIN = ("flash_fwd_tc_kernel<64>", "flash_bwd_dq_tc_kernel<64>",
            "flash_bwd_dkv_tc_kernel<64>", "window_attn_fwd_large_tc_kernel<64>",
-           "window_bwd_dq_tc_kernel<64>", "window_bwd_dkv_tc_kernel<64>")
+           "window_bwd_dq_tc_kernel<64>", "window_bwd_dkv_tc_kernel<64>",
+           "window_attn_fwd_tc_kernel<64>", "window_attn_bwd_tc_kernel<64>")
 
 
 def phase_build() -> None:
@@ -446,7 +485,8 @@ class Case:
     dtypes: Tuple[torch.dtype, ...] = (torch.float32, torch.bfloat16)
     reps: int = 20  # timed calls of each of kernel, plain and library
     deterministic: bool = False  # two launches on the same inputs must agree bit for bit
-    profile: bool = False  # the record's device time from torch.profiler too
+    device_time: bool = False  # bf16 rows: the kernel's and the library call's
+                               # device time (`graph_ms`) too
     controls: bool = False  # `check_controls` must reject altered outputs
 
 
@@ -462,7 +502,8 @@ def _sdpa_library(q, k, v, bias, scale, dout=None):
     """F.scaled_dot_product_attention on these inputs, the bias cast to q's
     dtype (SDPA takes no other) outside the timed call; with dout the
     autograd.grad of that call w.r.t. q, k, v and the bias, its forward run
-    once outside the timed call.  The backend is the first of flash,
+    once outside the timed call, on `capture_stream` so that `graph_ms` can
+    capture the backward.  The backend is the first of flash,
     efficient, cuDNN and math that takes the call."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -479,8 +520,8 @@ def _sdpa_library(q, k, v, bias, scale, dout=None):
                         q, k, v, attn_mask=bias, scale=scale)
                 else:
                     leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
-                    out = F.scaled_dot_product_attention(
-                        *leaves[:3], attn_mask=leaves[3], scale=scale)
+                    out = on_capture_stream(lambda: F.scaled_dot_product_attention(
+                        *leaves[:3], attn_mask=leaves[3], scale=scale))
                     call = lambda: torch.autograd.grad(out, leaves, dout,
                                                        retain_graph=True)
                 call()
@@ -557,20 +598,39 @@ def _window_inputs(W, nH, N, D, seed) -> tuple:
     return q, k, v, dout, _randn((W, nH, N, N), g, 0.5)
 
 
-def window_case(W, nH, N, D, seed, bwd=False) -> Case:
-    """K1 (or K4 with bwd): QKᵀ and PV, 4·N²·D FLOPs per (window, head); the
-    backward recomputes S and forms dV, dP, dQ, dK: 10·N²·D."""
+def window_case(W, nH, N, D, seed, bwd=False, controls=False,
+                device_time=False) -> Case:
+    """K1 (or K4 with bwd, which must give the same bits twice): QKᵀ and PV,
+    4·N²·D FLOPs per (window, head); the backward recomputes S and forms
+    dV, dP, dQ, dK: 10·N²·D."""
     q, k, v, dout, bias = _window_inputs(W, nH, N, D, seed)
     scale = D ** -0.5
     flops = lambda a: (10 if bwd else 4) * W * nH * N * N * D
+    extra = dict(controls=controls, device_time=device_time)
     if bwd:
         return Case(fused_attn.fused_window_attention_bwd,
                     fused_attn.fused_window_attention_bwd_ref,
                     lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, dout.to(dt), scale),
-                    flops, lambda a: _sdpa_library(a[0], a[1], a[2], a[3], a[5], a[4]))
-    return Case(fused_attn.fused_window_attention, fused_attn.fused_window_attention_ref,
+                    flops, lambda a: _sdpa_library(a[0], a[1], a[2], a[3], a[5], a[4]),
+                    deterministic=True, **extra)
+    return Case(fused_attn._window_fwd, fused_attn.fused_window_attention_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, scale), flops,
-                lambda a: _sdpa_library(*a))
+                lambda a: _sdpa_library(*a), **extra)
+
+
+def window_cases(W, seed, bwd=False) -> list:
+    """K1 / K4 at the slice shape (W windows × 16 heads of RVSA's 49
+    tokens, D = 64; controls; also timed as device time, `graph_ms`: a call
+    of the wrapper at N = 49 takes longer on the host than the kernel on
+    the card), a ragged edge (N = 25, D = 48), a full 64-token tile with
+    nothing masked, D = 40 (the tensor-core wrapper pads it to 48), and
+    N = 100, which runs the CUDA-core body in bf16 too."""
+    return [("slice", window_case(W, 16, 49, 64, seed, bwd, controls=True,
+                                  device_time=True)),
+            ("edge N=25 W=7", window_case(7, 3, 25, 48, seed + 1, bwd)),
+            ("full N=64", window_case(16, 16, 64, 64, seed + 2, bwd)),
+            ("D=40 padded", window_case(16, 16, 49, 40, seed + 3, bwd)),
+            ("N=100 cores", window_case(8, 16, 100, 64, seed + 4, bwd))]
 
 
 def large_window_case(W, nH, N, D, seed, bwd=False, path_inputs=None,
@@ -638,12 +698,12 @@ def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False) -> Case:
                     wrap(fused_attn.flash_full_attention_bwd_ref), args, flops,
                     lambda a: _sdpa_library(a[0], a[1], a[2], _expand_rel(a[3], a[4]),
                                             a[9], a[7]),
-                    deterministic=True, profile=True, **extra)
+                    deterministic=True, device_time=True, **extra)
     return Case(fused_attn._flash_fwd, fwd_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, grid_hw, scale),
                 flops, lambda a: _sdpa_library(a[0], a[1], a[2],
                                                _expand_rel(a[3], a[4]), a[6]),
-                profile=True, **extra)
+                device_time=True, **extra)
 
 
 def flash_cases(BH, seed, bwd=False) -> list:
@@ -858,16 +918,19 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                 timed = lambda fn: loop_ms(fn, reps=case.reps,
                                            warmup=min(3, case.reps // 4))
                 recorded = label == record_label and dtype == torch.bfloat16
+                device = case.device_time and dtype == torch.bfloat16
+                graph_note = lambda fn: (f" (CUDA graph: {graph_ms(fn, case.reps):.4f} ms "
+                                         f"of device time a call)") if device else ""
                 with torch.no_grad():
                     ms = timed(lambda: case.kernel(*args))
                     plain_ms = timed(lambda: case.plain(*args))
-                    prof_ms = profiler_ms(lambda: case.kernel(*args)) \
-                        if recorded and case.profile else None
-                library_ms, what = None, "none"
+                    prof = graph_note(lambda: case.kernel(*args))
+                library_ms, what, lib_prof = None, "none", ""
                 if case.library is not None:
                     free()
                     call, what = case.library(args)
                     library_ms = timed(call)
+                    lib_prof = graph_note(call)
                     del call
                     free()
                 flops = case.flops(args)
@@ -875,10 +938,7 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                 t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
                 bound_ms = max(t_ops, t_bytes) * 1e3
                 bound_by = "operations" if t_ops > t_bytes else "bytes"
-                lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
-                prof = "" if not (recorded and case.profile) else (
-                    f" (torch.profiler: {prof_ms:.4f} ms of device time a call)"
-                    if prof_ms is not None else " (torch.profiler: no device time seen)")
+                lib = "—" if library_ms is None else f"{library_ms:.4f} ms{lib_prof}"
                 log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                     f"shape {tuple(args[0].shape)} max_abs_err "
                     f"{' '.join(f'{e:.3e}' for e in errs)} of max |ref| "
@@ -900,8 +960,7 @@ def phase_kernels() -> dict:
     return check_kernels({
         # slice shapes at bs4 384²: 64 windows × 16 heads of 49 tokens, D=64;
         # 4 × 16 heads over the 24×24 grid; K/V sampling of 64 maps of 28²
-        "window": [("slice", window_case(64, 16, 49, 64, 1)),
-                   ("edge N=25 W=7", window_case(7, 3, 25, 48, 2))],
+        "window": window_cases(64, 1),
         "flash": flash_cases(64, 3),
         "bilinear_sample": [
             ("slice", sample_case(64, 28, 28, 64, 784, 1, 5, edge=False)),
@@ -914,8 +973,7 @@ def phase_backward_kernels() -> dict:
     (batch 8 of 384²: 128 windows × 16 heads, 8 × 16 heads over the 24×24
     grid, K/V sampling of 128 maps of 28²) and at edge shapes."""
     return check_kernels({
-        "window_bwd": [("slice", window_case(128, 16, 49, 64, 11, bwd=True)),
-                       ("edge N=25 W=7", window_case(7, 3, 25, 48, 12, bwd=True))],
+        "window_bwd": window_cases(128, 11, bwd=True),
         "flash_bwd": flash_cases(128, 13, bwd=True),
         "bilinear_sample_bwd": [
             ("slice", sample_case(128, 28, 28, 64, 784, 1, 15, edge=False, bwd=True)),
@@ -946,7 +1004,31 @@ def phase_large_window_kernels() -> dict:
     record = check_kernels(cases, record_label="path 130x130")
     del cases
     free()
+    time_fork()
     return record
+
+
+def time_fork() -> None:
+    """The routing's fork at RVSA's windows, in bf16: K1 against K1L at
+    W = 64 and K4 against K7 at W = 128 (16 heads, N = 49, D = 64; the
+    inputs of phases 3/3b's slice rows and of phase 3d's "W=… N=49" rows),
+    each kernel timed twice in the order large, small, small, large, as
+    back-to-back calls of its wrapper and as device time (`graph_ms`: a
+    wrapper call at N = 49 takes longer on the host than the kernel)."""
+    for W, seed, bwd, small, large in ((64, 1, False, "K1", "K1L"),
+                                       (128, 11, True, "K4", "K7")):
+        a = window_case(W, 16, 49, 64, seed, bwd)
+        b = large_window_case(W, 16, 49, 64, seed, bwd, library=False)
+        a_args, b_args = a.args(torch.bfloat16), b.args(torch.bfloat16)
+        with torch.no_grad():
+            run_a, run_b = (lambda: a.kernel(*a_args)), (lambda: b.kernel(*b_args))
+            for what, timer in (("back-to-back calls", loop_ms),
+                                ("CUDA-graph device time", graph_ms)):
+                tb0, ta0, ta1, tb1 = (timer(f) for f in (run_b, run_a, run_a, run_b))
+                ta, tb = (ta0 + ta1) / 2, (tb0 + tb1) / 2
+                log(f"[fork] W={W} N=49 bf16, {what}: {small} {ta:.4f} ms ({ta0:.4f}, "
+                    f"{ta1:.4f}), {large} {tb:.4f} ms ({tb0:.4f}, {tb1:.4f}): "
+                    f"{large} / {small} {tb / ta:.2f}")
 
 
 def phase_dcnv3_kernels() -> dict:

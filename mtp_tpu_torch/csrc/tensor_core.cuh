@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy primitives of the bf16 attention
 // kernels (K2 csrc/flash_attn_fwd.cu, K5 csrc/flash_attn_bwd.cu, K1L
-// csrc/window_attn_fwd_large.cu, K7 csrc/window_attn_bwd_qblk.cu):
+// csrc/window_attn_fwd_large.cu, K7 csrc/window_attn_bwd_qblk.cu, and K1
+// and K4 through csrc/window_tile.cuh):
 // `cp.async` copies from device to shared memory (bf16 rows, fp32 bias
 // tiles), `ldmatrix` loads of 8×8 bf16 tiles into the operand fragments of
 // `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators).
@@ -103,9 +104,15 @@ __device__ __forceinline__ int b_frag_offset_nk(int lane, int n0, int k0, int ld
   return (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8;
 }
 // the same from a tile stored (k, n) — row k holds row k of B (P·V-style
-// operands), loaded with ldmatrix_x4_trans.
+// operands), loaded with ldmatrix_x4_trans;
 __device__ __forceinline__ int b_frag_offset_kn(int lane, int k0, int n0, int ld) {
   return (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
+}
+// the A fragment of rows m0..m0+15, columns k0..k0+15 of the transpose of a
+// row-major tile (row k holds column k of A: Pᵀ·dO-style operands), loaded
+// with ldmatrix_x4_trans.
+__device__ __forceinline__ int a_frag_offset_trans(int lane, int m0, int k0, int ld) {
+  return (k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 + ((lane >> 3) & 1) * 8;
 }
 
 // Rows [r0, r0 + ROWS) of a row-major (·, D) bf16 tensor into a shared

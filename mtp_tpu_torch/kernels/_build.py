@@ -189,7 +189,8 @@ def check_launchable(**tensors: torch.Tensor) -> None:
 
 def check_aligned(**tensors: torch.Tensor) -> None:
     """Kernels that copy rows with 16-byte `cp.async` (the flash kernels,
-    K1L and K7) take only 16-byte-aligned storage."""
+    K1L and K7, and K1's and K4's tensor-core bodies) take only
+    16-byte-aligned storage."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the CUDA kernel "

@@ -19,13 +19,19 @@ Window attention routes by shape alone (`window_fwd_route`,
   (`csrc/window_attn_bwd.cu`) everywhere else.
 - forward: K1L (`csrc/window_attn_fwd_large.cu`, q-blocks streaming key
   tiles) wherever the backward is K7, since K7 takes the output and the
-  per-row log-sum-exp that K1L writes; K1 (`csrc/window_attn_fwd.cu`, one
-  block per window and head) only where its block fits shared memory and
-  K4 is the backward (K4's block is the larger, so that is wherever K4 is
-  the backward).  Both replace `_fused_forward`'s pallas_call at pack 1
-  or 2.
+  per-row log-sum-exp that K1L writes; K1 (`csrc/window_attn_fwd.cu`) only
+  where its CUDA-core block fits shared memory and K4 is the backward
+  (K4's block is the larger, so that is wherever K4 is the backward).
+  Both replace `_fused_forward`'s pallas_call at pack 1 or 2.
 So every window size JAX accepts runs on the card, up to head dim 128, and
 `_WindowAttention` saves out and lse only for the K1L/K7 pair.
+
+K1 and K4 each have two bodies in one source, under one launch counter,
+chosen by `window_body` from dtype and shape: bf16 windows of at most 64
+tokens (RVSA's 7×7) run a tensor-core body, one 64-row tile a window,
+several windows a block through a cp.async ring, at the head dim
+`flash_head_dim` gives; fp32, larger windows and head dims over 128 run
+the CUDA-core body (one block per window and head, fp32 in shared memory).
 """
 
 from __future__ import annotations
@@ -55,17 +61,36 @@ FLASH_MAX_D = 128
 LARGE_MAX_D = 128
 # JAX's `_WIN_BWD_ONE_SHOT_MAX`: above this padded N its backward is K7
 WIN_BWD_ONE_SHOT_MAX = 512
+# K1/K4's tensor-core tile: one window of at most this many tokens (queries
+# and keys), head dims up to FLASH_MAX_D
+WINDOW_TILE = 64
 
 
 def window_smem_bytes(N: int, D: int) -> int:
-    """Shared memory of one K1 block: fp32 q, k, v rows of D+1, N×N scores."""
+    """Shared memory of one block of K1's CUDA-core body: fp32 q, k, v rows
+    of D+1, N×N scores.  (Its tensor-core body, `window_body` "mma", needs
+    less wherever it runs.)"""
     return (3 * N * (D + 1) + N * N) * 4
 
 
 def window_bwd_smem_bytes(N: int, D: int) -> int:
-    """Shared memory of one K4 block: fp32 q, k, v, dO rows of D+1, the N×N
-    probabilities and dP/dS."""
+    """Shared memory of one block of K4's CUDA-core body: fp32 q, k, v, dO
+    rows of D+1, the N×N probabilities and dP/dS."""
     return (4 * N * (D + 1) + 2 * N * N) * 4
+
+
+def window_body(N: int, D: int, dtype: torch.dtype) -> str:
+    """The body K1 and K4 run for (N, D) windows of `dtype`: "mma" (the
+    tensor cores, at the head dim `flash_head_dim` gives) for bf16 windows
+    of at most WINDOW_TILE tokens and head dims up to FLASH_MAX_D, else
+    "simt" (the CUDA cores: fp32, larger windows, wider heads).  The
+    kernels' C entry points apply the same rule (`win::body` in
+    csrc/window_tile.cuh, over kRows = WINDOW_TILE and kMaxD = FLASH_MAX_D)
+    and refuse a tensor-core window whose head dim was not padded, so the
+    two cannot pick different bodies without a launch error."""
+    if dtype == torch.bfloat16 and N <= WINDOW_TILE and D <= FLASH_MAX_D:
+        return "mma"
+    return "simt"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -290,19 +315,25 @@ def _check_window_saved(q, out, lse):
 
 
 def _window_fwd(q, k, v, bias, scale):
-    """K1.  CPU tensors run `fused_window_attention_ref`."""
+    """K1.  CPU tensors run `fused_window_attention_ref`; CUDA tensors
+    launch the kernel, whose body `window_body` names: "mma" at the head dim
+    `flash_head_dim` gives (q, k, v zero-padded up to it, out cut back)."""
     _check_window(q, k, v, bias)
     if not _build.use_kernel(q, k, v, bias):
         return fused_window_attention_ref(q, k, v, bias, scale)
     W, nH, N, D = q.shape
-    _smem_guard(f"window attention (K1) with N={N}, D={D}", window_smem_bytes(N, D))
+    if window_body(N, D, q.dtype) == "mma":
+        q, k, v = (_pad_head(t, flash_head_dim(D)) for t in (q, k, v))
+        _build.check_aligned(q=q, k=k, v=v)
+    else:
+        _smem_guard(f"window attention (K1) with N={N}, D={D}", window_smem_bytes(N, D))
     _build.check_launchable(q=q, k=k, v=v, bias=bias)
     out = torch.empty_like(q)
     _build.launch("mtp_window_attn_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), W * nH, N, D,
-                  float(scale), _build.dtype_code(q))
+                  v.data_ptr(), bias.data_ptr(), out.data_ptr(), W * nH, N,
+                  q.shape[-1], float(scale), _build.dtype_code(q))
     LAUNCHES["window"] += 1
-    return out
+    return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
 def _window_large_fwd(q, k, v, bias, scale):
@@ -335,22 +366,30 @@ def fused_window_attention_bwd(q: torch.Tensor, k: torch.Tensor,
     which recomputes the probabilities.
 
     CPU tensors run `fused_window_attention_bwd_ref`; CUDA tensors launch
-    K4, and raise where its block does not fit shared memory (there the
-    backward is K7, `fused_window_attention_large_bwd`)."""
+    K4, whose body `window_body` names ("mma" at the head dim
+    `flash_head_dim` gives: q, k, v, dout zero-padded, dq, dk, dv cut back),
+    and raise where the CUDA-core block does not fit shared memory (there
+    the backward is K7, `fused_window_attention_large_bwd`)."""
     _check_window(q, k, v, bias)
     _check_dout(q, dout)
     if not _build.use_kernel(q, k, v, bias, dout):
         return fused_window_attention_bwd_ref(q, k, v, bias, dout, scale)
     W, nH, N, D = q.shape
-    _smem_guard(f"the window attention backward (K4) with N={N}, D={D}",
-                window_bwd_smem_bytes(N, D))
+    if window_body(N, D, q.dtype) == "mma":
+        q, k, v, dout = (_pad_head(t, flash_head_dim(D)) for t in (q, k, v, dout))
+        _build.check_aligned(q=q, k=k, v=v, dout=dout)
+    else:
+        _smem_guard(f"the window attention backward (K4) with N={N}, D={D}",
+                    window_bwd_smem_bytes(N, D))
     _build.check_launchable(q=q, k=k, v=v, bias=bias, dout=dout)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     _build.launch("mtp_window_attn_bwd", *(t.data_ptr() for t in (
-        q, k, v, bias, dout, dq, dk, dv, dbias)), W * nH, N, D, float(scale),
-        _build.dtype_code(q))
+        q, k, v, bias, dout, dq, dk, dv, dbias)), W * nH, N, q.shape[-1],
+        float(scale), _build.dtype_code(q))
     LAUNCHES["window_bwd"] += 1
+    if q.shape[-1] != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv, dbias
 
 

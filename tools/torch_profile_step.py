@@ -48,7 +48,8 @@ GROUPS = [
     ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_(tc_)?kernel"),
     ("K5 flash_attn_bwd (both passes)", r"flash_bwd_"),
     ("K2 flash_attn_fwd", r"flash_(attn_)?fwd"),
-    ("K1/K4 window attention", r"window_attn"),
+    ("K1 window_attn_fwd", r"window_attn_fwd_(tc_)?kernel"),
+    ("K4 window_attn_bwd", r"window_attn_bwd_(tc_)?kernel"),
     ("AdamW (foreach)", r"multi_tensor_apply|foreach|adam"),
     ("cuDNN convolutions", r"conv|cudnn|dgrad|wgrad|implicit_gemm|winograd|fft"),
     ("cuBLAS GEMMs", r"gemm|sm90_xmma|cutlass|ampere_|sm80_|gemv|splitK|nvjet"),
