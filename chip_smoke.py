@@ -29,18 +29,27 @@ Phases; any failure raises, so the exit code is non-zero:
    body in bf16 too;
    K2: the slice, a 20×33 grid, D = 40 padded to 48, and a 128×128 grid at
    BH = 2 whose plain version runs head by head; K2 returns (out, lse) and
-   both are checked); times of the kernel, its plain version and one
-   PyTorch library call computing the same function where there is one,
-   each a run of back-to-back calls between one pair of CUDA events over
-   their count (the bf16 rows of K1's slice case and of every K2 case also
-   as device time, kernel and library call alike: the calls captured in a
-   CUDA graph and replayed); the bound of each (section BOUNDS).
+   both are checked; K3: the slice (its vector body), with controls that
+   scale its output by 0.9 and must fail, P = 9 off the map's grid, P = 9
+   on a 13×37 map's own grid, and C = 12 (the scalar body), the edge cases
+   with coordinates exactly at −1, 0, H − 1 and H; a `[halo]` line before
+   each case names the body the wrapper picks and, for K6's tiled body,
+   the share of its image-gradient adds past a block's region); times of
+   the kernel, its plain version and one PyTorch library call computing
+   the same function where there is one, each a run of back-to-back calls
+   between one pair of CUDA events over their count (the bf16 rows of K1's
+   and K3's slice cases and of every K2 case also as device time, kernel
+   and library call alike: the calls captured in a CUDA graph and
+   replayed); the bound of each (section BOUNDS).
 3b. backward kernels: K4, K5 and K6 likewise, at the train step's shapes
    (K4 at K1's five cases, K5 at K2's four, given out and lse from the plain
-   fp32 forward; K4 and K5 two launches on the same inputs bitwise equal).
+   fp32 forward; K4 and K5 two launches on the same inputs bitwise equal;
+   K6 at K3's four, the P = 9 map-grid case on its tiled body).
 3c. K8: K3 and K6 at P = 9, gc = 16, at InternImage-XL's stage 0 and stage
    3 shapes at batch 8, with init-like integer coordinates and with random
-   offsets.
+   offsets, and at stage 0 with large offsets (N(0, 8²) pixels before the
+   scale: a share of K6's adds past its blocks' regions); every row also as
+   device time, and controls at the stage-0 random record shape.
 3d. K1L and K7, window attention over one window too large for K1 and K4,
    at 129×3, 130×7 and 130×32 grids (16 heads, D = 64) and at the 2080²
    path's shape (16 heads over N = 16,900: a bias of 4.57e9 fp32 elements,
@@ -488,6 +497,7 @@ class Case:
     device_time: bool = False  # bf16 rows: the kernel's and the library call's
                                # device time (`graph_ms`) too
     controls: bool = False  # `check_controls` must reject altered outputs
+    describe: Optional[Callable[[tuple], str]] = None  # logged before the checks
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -543,7 +553,8 @@ def _grid_sample_library(img, py, px, H, W, g=None):
     """F.grid_sample (bilinear, zeros, align_corners=True) of the NCHW map
     at the one-tap coordinates, converted to the normalised grid in img's
     dtype outside the timed call; with g the autograd.grad w.r.t. the map
-    and the grid."""
+    and the grid, its forward run once outside the timed call, on
+    `capture_stream` so that `graph_ms` can capture the backward."""
     BG, _, C = img.shape
     nchw = img.reshape(BG, H, W, C).permute(0, 3, 1, 2).contiguous()
     grid = torch.stack([px[..., 0] / (W - 1) * 2 - 1, py[..., 0] / (H - 1) * 2 - 1],
@@ -553,7 +564,7 @@ def _grid_sample_library(img, py, px, H, W, g=None):
     if g is None:
         return (lambda: run(nchw, grid)), "grid_sample"
     leaves = [nchw.requires_grad_(), grid.requires_grad_()]
-    out = run(*leaves)
+    out = on_capture_stream(lambda: run(*leaves))
     cot = g.permute(0, 2, 1)[:, :, None].contiguous()
     return (lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True),
             "grad of grid_sample")
@@ -729,58 +740,106 @@ def in_map_corners(py, px, H, W) -> int:
     return n
 
 
-def _sample(img, py, px, m, cot, H, W, bwd, library) -> Case:
+def _sample_describe(bwd: bool) -> Callable[[tuple], str]:
+    """The body the wrapper picks for a K3 (K6) case's inputs and, for the
+    tiled body, the share of its image-gradient adds that fall outside the
+    region a block owns (`dcn.out_of_halo_share`)."""
+    def describe(a):
+        img, py, px, m, H, W = *a[:4], *a[-2:]
+        storage = (img, a[4]) if bwd else (img,)
+        body = dcn.sample_body(img.shape[-1], py.shape[-1], img.dtype,
+                               all(t.data_ptr() % dcn.VEC_BYTES == 0 for t in storage),
+                               bwd=bwd, same_grid=py.shape[1] == H * W)
+        if body != "tiled":
+            share = "none: no owned region, every add goes to device memory" if bwd else "—"
+        else:
+            share = f"{dcn.out_of_halo_share(py, px, m, H, W):.4f}"
+        return f"{'K6' if bwd else 'K3'} body {body}, out-of-halo share {share}"
+    return describe
+
+
+def _sample(img, py, px, m, cot, H, W, bwd, library, **extra) -> Case:
     """K3 (or K6 with bwd): a multiply-add per channel for each in-map
     corner (2·C FLOPs; the backward's dot product and scatter, 4·C)."""
     C = img.shape[-1]
     flops = lambda a: (4 if bwd else 2) * C * in_map_corners(a[1], a[2], H, W)
+    extra = dict(describe=_sample_describe(bwd), **extra)
     if bwd:
         lib = lambda a: _grid_sample_library(*a[:3], H, W, a[4])
         return Case(dcn.dcnv3_sample_bwd, dcn.dcnv3_sample_bwd_ref,
                     lambda dt: (img.to(dt), py, px, m, cot.to(dt), H, W), flops,
-                    lib if library else None)
+                    lib if library else None, **extra)
     lib = lambda a: _grid_sample_library(*a[:3], H, W)
     return Case(dcn.dcnv3_sample, dcn.dcnv3_sample_ref,
                 lambda dt: (img.to(dt), py, px, m, H, W), flops,
-                lib if library else None)
+                lib if library else None, **extra)
 
 
 def sample_case(BG, H, W, C, HWo, P, seed, edge, bwd=False) -> Case:
     """K3 / K6 as RVSA samples K and V (P = 1, a unit mask: one grid_sample
-    call computes it), or an edge case (P = 9, a signed mask, coordinates
-    off every side, a quarter of them exact integers)."""
+    call computes it; controls, and device time by `graph_ms`), or an edge
+    case (a signed mask, coordinates off every side, a quarter of them
+    exact integers, and on a quarter of the pixels coordinates exactly at
+    −1, 0, H − 1 and H (−1, 0, W − 1, W), one value a tap)."""
     g = _gen(seed)
     img = _randn((BG, H * W, C), g)
     cot = _randn((BG, HWo, C), g)
     lo, hi = (-2.5, 1.5) if edge else (-1.0, 0.0)  # edge: off every side
-    py = (torch.rand((BG, HWo, P), generator=g) * (H - lo + hi) + lo).cuda()
-    px = (torch.rand((BG, HWo, P), generator=g) * (W - lo + hi) + lo).cuda()
-    if edge:  # a quarter exact integers, a random signed mask
+    py = torch.rand((BG, HWo, P), generator=g) * (H - lo + hi) + lo
+    px = torch.rand((BG, HWo, P), generator=g) * (W - lo + hi) + lo
+    if edge:  # a quarter exact integers, a quarter at the map's edges, a signed mask
         py[:, ::4] = py[:, ::4].round()
         px[:, ::4] = px[:, ::4].round()
-        m = (torch.rand((BG, HWo, P), generator=g) * 2 - 1).cuda()
+        t = torch.arange(P)
+        rim = lambda n: torch.tensor([-1.0, 0.0, n - 1.0, float(n)])
+        py[:, 2::4], px[:, 3::4] = rim(H)[t % 4], rim(W)[t % 4]
+        py[:, 3::4] = rim(H)[t // 4 % 4]
+        m = torch.rand((BG, HWo, P), generator=g) * 2 - 1
     else:
-        m = torch.ones((BG, HWo, P)).cuda()
-    return _sample(img, py, px, m, cot, H, W, bwd, library=not edge and P == 1)
+        m = torch.ones((BG, HWo, P))
+    return _sample(img, py.cuda(), px.cuda(), m.cuda(), cot, H, W, bwd,
+                   library=not edge and P == 1, controls=not edge,
+                   device_time=not edge)
 
 
-def dcnv3_case(batch, hw, groups, gc, seed, zero_offsets, bwd=False) -> Case:
+def sample_cases(BG, seed, bwd=False) -> list:
+    """K3 / K6 at the slice shape (BG maps of RVSA's 28² K/V grid, C = 64,
+    P = 1: the vector body), at P = 9 off the map's grid (the vector body
+    at P = 9; the tiled one backward needs HWo = H·W), at P = 9 on a 13×37
+    map's own grid (tiles cut by both edges: the tiled body backward), and
+    at C = 12 (24 bf16 bytes, not whole 16-byte runs: the scalar body)."""
+    return [("slice", sample_case(BG, 28, 28, 64, 784, 1, seed, edge=False, bwd=bwd)),
+            ("edge P=9", sample_case(6, 13, 17, 32, 200, 9, seed + 1, edge=True, bwd=bwd)),
+            ("edge P=9 tiled", sample_case(6, 13, 37, 16, 481, 9, seed + 2, edge=True,
+                                           bwd=bwd)),
+            ("edge C=12", sample_case(6, 13, 17, 12, 221, 9, seed + 3, edge=True,
+                                      bwd=bwd))]
+
+
+# K8's offsets before the scale: zero (every tap on an integer, as at
+# init), N(0, 1) pixels, and N(0, 8²) pixels, which sends a share of the
+# tiled backward's adds past its blocks' regions
+OFFSETS = {"init": 0.0, "random": 1.0, "large": 8.0}
+
+
+def dcnv3_case(batch, hw, groups, gc, seed, offsets, bwd=False, record=False) -> Case:
     """K8: the sampling of one XL DCNv3 layer at batch `batch` on an hw²
     map, its inputs made as the layer makes them (`sampling_points`,
-    kernel 3, offset_scale 2): zero offsets put every tap on an integer,
-    the border taps partly or wholly off the map (−1, −2), as at init;
-    random offsets are N(0, 1) pixels before the scale.  A softmaxed mask.
-    No single PyTorch call computes a 9-tap masked bilinear sum."""
+    kernel 3, offset_scale 2) at the OFFSETS kind `offsets`: zero offsets
+    put every tap on an integer, the border taps partly or wholly off the
+    map (−1, −2).  A softmaxed mask.  Device time by `graph_ms`; the record
+    case has controls.  No single PyTorch call computes a 9-tap masked
+    bilinear sum."""
     g = _gen(seed)
     G, P = groups, 9
-    offset = torch.zeros(batch, hw, hw, G * P * 2) if zero_offsets else \
-        torch.randn((batch, hw, hw, G * P * 2), generator=g)
+    offset = torch.randn((batch, hw, hw, G * P * 2), generator=g) * OFFSETS[offsets]
     mask = torch.softmax(torch.randn((batch, hw, hw, G, P), generator=g), -1)
     py, px, m = sampling_points(offset.cuda(), mask.reshape(batch, hw, hw, G * P).cuda(),
                                 group=G, offset_scale=2.0)
     img = _randn((batch * G, hw * hw, gc), g)
     cot = _randn((batch * G, hw * hw, gc), g)
-    return _sample(img, py, px, m, cot, hw, hw, bwd, library=False)
+    return _sample(img, py, px, m, cot, hw, hw, bwd, library=False, controls=record,
+                   device_time=True)
 
 
 def _nbytes(tensors) -> int:
@@ -881,6 +940,8 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
         for label, case in kcases:
             for dtype in case.dtypes:
                 args = case.args(dtype)
+                if case.describe is not None:
+                    log(f"[halo] {kname} {label} {dtype}: {case.describe(args)}")
                 before = counters()
                 with torch.no_grad():
                     got = case.kernel(*args)
@@ -962,9 +1023,7 @@ def phase_kernels() -> dict:
         # 4 × 16 heads over the 24×24 grid; K/V sampling of 64 maps of 28²
         "window": window_cases(64, 1),
         "flash": flash_cases(64, 3),
-        "bilinear_sample": [
-            ("slice", sample_case(64, 28, 28, 64, 784, 1, 5, edge=False)),
-            ("edge P=9", sample_case(6, 13, 17, 32, 200, 9, 6, edge=True))],
+        "bilinear_sample": sample_cases(64, 5),
     })
 
 
@@ -975,9 +1034,7 @@ def phase_backward_kernels() -> dict:
     return check_kernels({
         "window_bwd": window_cases(128, 11, bwd=True),
         "flash_bwd": flash_cases(128, 13, bwd=True),
-        "bilinear_sample_bwd": [
-            ("slice", sample_case(128, 28, 28, 64, 784, 1, 15, edge=False, bwd=True)),
-            ("edge P=9", sample_case(6, 13, 17, 32, 200, 9, 16, edge=True, bwd=True))],
+        "bilinear_sample_bwd": sample_cases(128, 15, bwd=True),
     })
 
 
@@ -1035,14 +1092,17 @@ def phase_dcnv3_kernels() -> dict:
     """Phase 3c: K8, K3 and K6 at P = 9 and gc = 16 as InternImage-XL's
     train step at batch 8 of 512² runs them: stage 0 (12 groups → BG 96,
     128² maps) and stage 3 (96 groups → BG 768, 16² maps), each at
-    init-like integer coordinates and at random offsets; the record is
+    init-like integer coordinates and at random offsets, and stage 0 at
+    large offsets (past the tiled backward's regions); the record is
     stage 0 at random offsets, where a trained model samples."""
     cases = {}
     for key, bwd in (("dcnv3_fwd", False), ("dcnv3_bwd", True)):
         cases[key] = [
-            (f"stage{s} {kind}", dcnv3_case(8, hw, G, 16, 30 + s + zero, zero, bwd))
+            (f"stage{s} {kind}", dcnv3_case(8, hw, G, 16, 30 + s + (kind == "init"), kind,
+                                            bwd, record=(s, kind) == (0, "random")))
             for s, hw, G in ((0, 128, 12), (3, 16, 96))
-            for kind, zero in (("init", True), ("random", False))]
+            for kind in ("init", "random")]
+        cases[key].append(("stage0 large", dcnv3_case(8, 128, 12, 16, 33, "large", bwd)))
     return check_kernels(cases, record_label="stage0 random")
 
 

@@ -38,8 +38,8 @@ SIGNATURES = {
     "mtp_window_attn_fwd_large": [_P] * 6 + [_I, _I, _I, _F],
     # q, k, v, rel_h, rel_w, out, lse, BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_fwd": [_P] * 7 + [_I] * 5 + [_F],
-    # img, py, px, m, out, BG, H, W, C, HWo, P
-    "mtp_bilinear_sample_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    # img, py, px, m, out, BG, H, W, C, HWo, P, body
+    "mtp_bilinear_sample_fwd": [_P] * 5 + [_I] * 7,
     # q, k, v, bias, dout, dq, dk, dv, dbias, W·nH, N, D, scale
     "mtp_window_attn_bwd": [_P] * 9 + [_I, _I, _I, _F],
     # q, k, v, bias, out, lse, dout, dq, dk, dv, dbias, delta, W·nH, N, D,
@@ -48,8 +48,8 @@ SIGNATURES = {
     # q, k, v, rel_h, rel_w, out, lse, dout, dq, dk, dv, drel_h, drel_w,
     # delta, BH, N, D, Hk, Wk, scale
     "mtp_flash_attn_bwd": [_P] * 14 + [_I] * 5 + [_F],
-    # img, py, px, m, g, dimg (fp32), dpy, dpx, dm, BG, H, W, C, HWo, P
-    "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 6,
+    # img, py, px, m, g, dimg (fp32), dpy, dpx, dm, BG, H, W, C, HWo, P, body
+    "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 7,
 }
 
 # storage types the kernels are instantiated for (csrc/common.cuh DType)
@@ -130,14 +130,30 @@ def build(force: bool = False) -> Path:
 
 
 def kernel_label(mangled: str) -> str:
-    """`name<arg>` of a mangled one-argument kernel template of csrc/, e.g.
+    """`name<args>` of a mangled kernel template of csrc/, e.g.
     flash_fwd_tc_kernel<64>, flash_attn_fwd_kernel<f> (float),
-    window_attn_fwd_kernel<nv_bfloat16>; the mangled name if it is none."""
-    entry = re.search(r"\d+([a-z_]+_kernel)I(?:\d+)?(\w+?)E", mangled)
+    window_attn_fwd_kernel<nv_bfloat16>,
+    bilinear_sample_bwd_vec_kernel<nv_bfloat16, 9, true>; the mangled name
+    if it is none."""
+    entry = re.search(r"\d+([a-z_]+_kernel)I", mangled)
     if not entry:
         return mangled
-    arg = re.sub(r"^Li(\d+)$", r"\1", entry[2].strip("_"))  # an int argument
-    return f"{entry[1]}<{arg}>"
+    rest, args = mangled[entry.end():], []
+    while rest and rest[0] != "E":
+        literal = re.match(r"L([a-z])(\d+)E", rest)   # an int or bool argument
+        named = re.match(r"(\d+)", rest)               # a named type
+        if literal:
+            value = literal[2]
+            args.append({"0": "false", "1": "true"}[value] if literal[1] == "b" else value)
+            rest = rest[literal.end():]
+        elif named:
+            end = named.end() + int(named[1])
+            args.append(rest[named.end():end].strip("_"))
+            rest = rest[end:]
+        else:                                          # a builtin type: f
+            args.append(rest[0])
+            rest = rest[1:]
+    return f"{entry[1]}<{', '.join(args)}>"
 
 
 def _ptxas_summary(text: str) -> list[str]:

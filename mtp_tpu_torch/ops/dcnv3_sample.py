@@ -6,7 +6,8 @@ output pixel) the sum over P taps of mask × bilinear sample of the map at
 absolute pixel coordinates, corners off the map contributing zero.  On the
 TPU this was a one-hot matrix product built in VMEM; here it is one gather
 kernel (`csrc/bilinear_sample_fwd.cu`) and one scatter/reduce kernel for the
-gradients (`csrc/bilinear_sample_bwd.cu`).  `dcnv3_sample` is a
+gradients (`csrc/bilinear_sample_bwd.cu`), each with the bodies that
+`sample_body` picks between (`csrc/sample_body.cuh`).  `dcnv3_sample` is a
 `torch.autograd.Function`, differentiable in img, py, px and m, with the
 JAX package's subgradient at integer coordinates (`_coord_grads`).  The
 plain versions also take float64 and compute in it (`ops/precision.py`).
@@ -20,6 +21,111 @@ from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.ops.precision import at_least_fp32, plain_float64
 
 LAUNCHES = {"bilinear_sample": 0, "bilinear_sample_bwd": 0}
+
+# The limits of the kernels' bodies, those of csrc/sample_body.cuh (a CPU
+# test holds them equal): a vector thread owns VEC_BYTES of one pixel's
+# channels, a pixel at most MAX_RUN_THREADS such threads (a power of two),
+# a vector body at most MAX_TAPS taps; FWD_THREADS / BWD_THREADS threads a
+# vector block, TILED_THREADS a tiled backward's image-gradient block; the tiled backward's TILE² output pixels, whose block owns the
+# image gradient of the map pixels within HALO of them, within SMEM_LIMIT
+# bytes of shared memory.
+VEC_BYTES = 16
+MAX_RUN_THREADS = 32
+MAX_TAPS = 32
+FWD_THREADS = 128
+BWD_THREADS = 256
+TILED_THREADS = 512
+TILE = 16
+HALO = 8
+SMEM_LIMIT = 232448
+# the C entry points' body codes (csrc/sample_body.cuh Body)
+BODIES = {"scalar": 0, "vector": 1, "tiled": 2}
+# tap counts the vector bodies unroll (others loop)
+UNROLLED_TAPS = (1, 9)
+
+
+def run_threads(C: int, dtype: torch.dtype) -> int:
+    """Threads per pixel of the vector bodies, each one VEC_BYTES run of the
+    pixel's channels (8 bf16 or 4 fp32); 0 unless C·itemsize is VEC_BYTES
+    times a power of two up to MAX_RUN_THREADS."""
+    nbytes = C * (2 if dtype == torch.bfloat16 else 4)
+    if C <= 0 or nbytes % VEC_BYTES:
+        return 0
+    runs = nbytes // VEC_BYTES
+    return runs if runs & (runs - 1) == 0 and runs <= MAX_RUN_THREADS else 0
+
+
+def sample_smem_bytes(body: str, C: int, P: int, dtype: torch.dtype,
+                      bwd: bool) -> int:
+    """Shared memory of a block of `body`.  Vector: the staged py, px, m
+    (and, in the backward, dpy, dpx, dm) of its pixels, fp32.  Tiled (P =
+    9): those of its TILE² pixels, g's rows as fp32, its lists (an fp32
+    weight and a 2-byte pixel per tap corner), and the list offsets and
+    cursors of its (TILE + 2·HALO)² region pixels and the scan's warp
+    totals (int32)."""
+    runs = run_threads(C, dtype)
+    if body == "scalar" or not runs:
+        return 0
+    if body == "tiled":
+        pixels, cells = TILE * TILE, (TILE + 2 * HALO) ** 2
+        return (4 * (pixels * 9 * 3 + pixels * C + pixels * 9 * 4)
+                + 4 * (2 * cells + 1 + TILED_THREADS // 32) + 2 * pixels * 9 * 4)
+    threads = BWD_THREADS if bwd else FWD_THREADS
+    return threads // runs * P * (6 if bwd else 3) * 4
+
+
+def sample_body(C: int, P: int, dtype: torch.dtype, aligned: bool, *,
+                bwd: bool = False, same_grid: bool = False) -> str:
+    """The body K3 (or K6, with bwd) runs for C channels of `dtype`, P taps
+    and storage `aligned` to 16 bytes, where `same_grid` says that the
+    output pixels are the map's (HWo = H·W):
+    - "scalar" unless the storage is aligned, C is whole 16-byte runs of a
+      power-of-two count (`run_threads`) and P <= MAX_TAPS;
+    - "tiled" for the backward at P = 9 on the map's own grid (every DCNv3
+      layer) when its block fits SMEM_LIMIT;
+    - "vector" otherwise.
+    The C entry points apply the same rule (`smp::body`) and run the body
+    the wrapper names only if it is this one or "scalar"."""
+    if not aligned or not run_threads(C, dtype) or not 1 <= P <= MAX_TAPS:
+        return "scalar"
+    if (bwd and P == 9 and same_grid
+            and sample_smem_bytes("tiled", C, P, dtype, True) <= SMEM_LIMIT):
+        return "tiled"
+    return "vector"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
+
+
+def out_of_halo_share(py: torch.Tensor, px: torch.Tensor, m: torch.Tensor,
+                      H: int, W: int) -> float:
+    """The share of K6's image-gradient adds that the tiled body sends to
+    device memory directly, on these inputs (output grid = the H×W map):
+    of the corners it adds (a counted tap's in-map corners of nonzero
+    weight m·wy·wx), those outside the region of their output pixel's
+    TILE² tile, the map pixels within HALO of it."""
+    HWo = py.shape[1]
+    if HWo != H * W:
+        raise ValueError(f"the tiled body takes the map's own grid, got HWo "
+                         f"{HWo} for a {H}×{W} map")
+    pix = torch.arange(HWo, device=py.device)[None, :, None]
+    ty0 = pix // W // TILE * TILE - HALO
+    tx0 = pix % W // TILE * TILE - HALO
+    tap = (py >= -1) & (py < H) & (px >= -1) & (px < W)
+    y0, x0 = torch.floor(py), torch.floor(px)
+    fy, fx = py - y0, px - x0
+    added = outside = 0
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            yy, xx = y0 + dy, x0 + dx
+            adds = (tap & (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+                    & (m * wy * wx != 0))
+            inside = ((yy - ty0 >= 0) & (yy - ty0 < TILE + 2 * HALO)
+                      & (xx - tx0 >= 0) & (xx - tx0 < TILE + 2 * HALO))
+            added += int(adds.sum())
+            outside += int((adds & ~inside).sum())
+    return outside / added if added else 0.0
 
 
 def _check(img, py, px, m, H, W):
@@ -112,9 +218,10 @@ def _sample_fwd(img, py, px, m, H, W):
     BG, _, C = img.shape
     _, HWo, P = py.shape
     out = torch.empty(BG, HWo, C, dtype=img.dtype, device=img.device)
+    body = sample_body(C, P, img.dtype, _aligned(img, out))
     _build.launch("mtp_bilinear_sample_fwd", img.data_ptr(), py.data_ptr(),
                   px.data_ptr(), m.data_ptr(), out.data_ptr(), BG, H, W, C,
-                  HWo, P, _build.dtype_code(img))
+                  HWo, P, BODIES[body], _build.dtype_code(img))
     LAUNCHES["bilinear_sample"] += 1
     return out
 
@@ -125,8 +232,11 @@ def dcnv3_sample_bwd(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     in img's dtype → (dimg in img's dtype, dpy, dpx, dm fp32).
 
     CPU tensors run `dcnv3_sample_bwd_ref`; CUDA tensors launch the K6
-    kernel, which adds into dimg with fp32 atomics (order-dependent in the
-    last bits of fp32, then rounded to img's dtype)."""
+    kernel in the body `sample_body` picks.  K6 adds the image gradient
+    with fp32 atomics (into shared memory, then device memory, in the tiled
+    body), so the wrapper zeroes an fp32 dimg buffer for it and casts the
+    sums to img's dtype after (for bf16 a second pass over dimg); the sums
+    depend on the order the adds land in, in the last bits of fp32."""
     _check(img, py, px, m, H, W)
     BG, HW, C = img.shape
     _, HWo, P = py.shape
@@ -138,10 +248,12 @@ def dcnv3_sample_bwd(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     _build.check_launchable(img=img, py=py, px=px, m=m, g=g)
     dimg = torch.zeros(BG, HW, C, dtype=torch.float32, device=img.device)
     dpy, dpx, dm = (torch.empty_like(py) for _ in range(3))
+    body = sample_body(C, P, img.dtype, _aligned(img, g, dimg), bwd=True,
+                       same_grid=HWo == H * W)
     _build.launch("mtp_bilinear_sample_bwd", img.data_ptr(), py.data_ptr(),
                   px.data_ptr(), m.data_ptr(), g.data_ptr(), dimg.data_ptr(),
                   dpy.data_ptr(), dpx.data_ptr(), dm.data_ptr(), BG, H, W, C,
-                  HWo, P, _build.dtype_code(img))
+                  HWo, P, BODIES[body], _build.dtype_code(img))
     LAUNCHES["bilinear_sample_bwd"] += 1
     return dimg.to(img.dtype), dpy, dpx, dm
 

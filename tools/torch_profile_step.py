@@ -42,8 +42,8 @@ from mtp_tpu_torch.tasks.segmentation import SegmentationTask  # noqa: E402
 
 # kernel name → group, first match wins
 GROUPS = [
-    ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_kernel"),
-    ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_kernel"),
+    ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_(vec_)?kernel"),
+    ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_(vec_|tiled_)?kernel"),
     ("K1L window_attn_fwd_large", r"window_attn_fwd_large_(tc_)?kernel"),
     ("K7 window_bwd (both passes)", r"window_bwd_(dq|dkv)_(tc_)?kernel"),
     ("K5 flash_attn_bwd (both passes)", r"flash_bwd_"),
@@ -165,18 +165,21 @@ def main() -> None:
         print(f"[profile {args.recipe}]   top kernel {ms:8.2f} ms {n // args.steps:5d}x "
               f"{name[:110]}")
 
-    k6 = sorted((e for e in kernels if "bilinear_sample_bwd_kernel" in e.name),
+    k6 = sorted((e for e in kernels if group_of(e.name) == "K6 bilinear_sample_bwd"),
                 key=lambda e: e.time_range.start)
     depths = list(reversed(chip_smoke.internimage_config(recipe.backbone).depths)) \
         if args.recipe == "xl" else []
-    if depths and len(k6) == sum(depths) * args.steps:
+    # kernels per K6 launch: 1, or 2 for the tiled body (coordinates, image)
+    per_launch = len(k6) // (sum(depths) * args.steps) if depths else 0
+    if per_launch and len(k6) == sum(depths) * args.steps * per_launch:
         # the backward runs the stages last to first
-        per_step = k6[:sum(depths)]
+        per_step = k6[:sum(depths) * per_launch]
         i, out = 0, []
         for s, d in zip(range(len(depths) - 1, -1, -1), depths):
-            out.append(f"stage {s} {sum(e.device_time_total for e in per_step[i:i + d]) / 1e3:.2f} ms "
+            n = d * per_launch
+            out.append(f"stage {s} {sum(e.device_time_total for e in per_step[i:i + n]) / 1e3:.2f} ms "
                        f"({d} launches)")
-            i += d
+            i += n
         print(f"[profile {args.recipe}] K6 by stage, first profiled step: "
               + ", ".join(reversed(out)) + f" | card {hw}")
     core_dev = sum(e.device_time_total for e in prof.events()
