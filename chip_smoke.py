@@ -48,8 +48,10 @@ Phases; any failure raises, so the exit code is non-zero:
 3c. K8: K3 and K6 at P = 9, gc = 16, at InternImage-XL's stage 0 and stage
    3 shapes at batch 8, with init-like integer coordinates and with random
    offsets, and at stage 0 with large offsets (N(0, 8²) pixels before the
-   scale: a share of K6's adds past its blocks' regions); every row also as
-   device time, and controls at the stage-0 random record shape.
+   scale: a share of K6's adds past its blocks' regions), and at stage 3
+   of the 224² and 256² paths (7×7 and 8×8 maps, smaller than one 16×16
+   tile of K6's tiled body); every row also as device time, and controls
+   at the stage-0 random record shape and at 7×7.
 3d. K1L and K7, window attention over one window too large for K1 and K4,
    at 129×3, 130×7 and 130×32 grids (16 heads, D = 64) and at the 2080²
    path's shape (16 heads over N = 16,900: a bias of 4.57e9 fp32 elements,
@@ -88,6 +90,24 @@ Phases; any failure raises, so the exit code is non-zero:
    for both runs) card vs CPU at a 2080×112 strip (grid 130×7, N = 910:
    K1L and K7 on the card); serving one 2080² tile (one crop); the train
    step, batch 1 of 2080², bf16 autocast, 1 warm-up and 3 timed steps.
+16. Classification, ViT-L and InternImage-XL at 224²: fp32 logits of 2
+   images card vs CPU; the recipe's train step (batch 8, bf16, drop-path,
+   XL with remat) through `ClassificationTask.init_state` → `fit` →
+   `evaluate` (top1, top5): launches, ms/step, images/s, data_time, peak
+   memory, and a fixed-batch run whose loss must fall.
+17. Change detection, ViT-L and InternImage-XL → UNet at 256²: fp32
+   change logits of one pair card vs CPU, and the bf16 logits' distance
+   from them (the whole model, and the UNet alone on fp32 features); for
+   the ViT, fp32 gradients card vs CPU at one pair with the TF32 control;
+   the train step at 4 pairs through `ChangeDetectionTask` (one backbone
+   pass over the 8 stacked images), `predict_fn` and `evaluate`
+   (F1_change), as phase 16.
+18. Checkpointing on the XL classifier: `fit` 3 steps with a
+   `CheckpointStore` (ckpt_every 2) and the encoder export; step 2 restored
+   into a fresh task bit for bit; the next step from it against one from
+   an in-process copy of step 2 (by their updates, RESUME_RTOL), with a
+   control whose Adam moments are zeroed; the ViT-L classifier's encoder
+   (224²) loaded into the 256² change detector and run.
 The last lines are the kernels' JSON record, the card, and the result line.
 """
 
@@ -101,21 +121,29 @@ import json
 import math
 import re
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path as FilePath
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mtp_tpu_torch.ckpt.from_jax import init_weights
+from mtp_tpu_torch.ckpt.store import CheckpointStore, load_encoder, save_encoder
+from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
 from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
+                                  intern_xl_224_eurosat,
+                                  intern_xl_unet_256_levir,
                                   intern_xl_upernet_512_loveda,
                                   internimage_config, is_internimage,
-                                  rvsa_l_upernet_384_spacenetv1)
+                                  rvsa_l_unet_256_levir,
+                                  rvsa_l_upernet_384_spacenetv1,
+                                  vit_rvsa_l_224_eurosat)
 from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.models.internimage import internimage_flops
@@ -124,6 +152,8 @@ from mtp_tpu_torch.models.vit_rvsa import backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
+from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
+from mtp_tpu_torch.tasks.classification import ClassificationTask
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 SEED = 0
@@ -178,9 +208,29 @@ GRAD_RTOL = {"backbone": 1e-3, "convs": 1e-2}
 # The TF32 control's smallest backbone reading is 3.2e-2 (median 5.6e-2).
 # 5e-3 is 2.3× the sound run's largest and 1/6 of the control's smallest.
 GRAD_RTOL_STOCHASTIC = {"backbone": 5e-3, "convs": 1e-2}
+# phase 17, the ViT-L change detector at one pair: the backbone is held as
+# the convolutions behind train-mode BatchNorm are, rtol 1e-2.  Its only
+# gradient is the UNet's input gradient, through the backward of the
+# decoder's train-mode BatchNorms, which see one pair's statistics (1,024
+# values a channel at the first block).  Against a float64 run of the same
+# model (tools/strip_gradient_witness.py --path cd_vit, NVIDIA H100 80GB
+# HBM3, 700.00 W) both fp32 runs are that far off: the backbone's
+# ‖g − g64‖/‖g64‖ median 2.3e-3 on the card and 2.9e-3 on the CPU, up to
+# 5.6e-3 in the RVSA sampling regressors, the card the nearer on 473 of 479
+# parameters.  Card vs CPU: median 3.1e-3, largest 5.08e-3 (a regressor);
+# the TF32 control: smallest 1.82e-2, median 4.53e-2.
+GRAD_RTOL_CD = {"backbone": 1e-2, "convs": 1e-2}
 
 # steps of the fixed-batch sanity run that follows each recipe's train step
 SANITY_STEPS = 6
+# phases 16-17: steps after the counted one, then the timed steps
+TASK_WARM_STEPS, TASK_TRAIN_STEPS = 2, 8
+# phase 18: a step from a restored checkpoint against one from an in-process
+# copy of the same state, by their parameter updates u: ‖Δu‖ <= RESUME_RTOL·‖u‖.
+# Not bitwise: K6 adds its image gradient with fp32 atomics, whose order
+# varies between launches (phase 3b's digests cover the deterministic
+# kernels only).
+RESUME_RTOL = 1e-3
 
 # BOUNDS: the least time the card could take for a kernel's work, the
 # larger of its bytes over the memory rate (each input read once, each
@@ -220,6 +270,10 @@ class Path:
     warm_steps: int                      # phases 7 / 11 / 15: after the counted step
     train_steps: int                     # timed steps
     eval_tiles: Tuple[int, int]          # (count, size) for `evaluate`
+
+    @property
+    def grad_rtol(self) -> Dict[str, float]:
+        return GRAD_RTOL_STOCHASTIC if self.grad_stochastic else GRAD_RTOL
 
 
 RVSA = rvsa_l_upernet_384_spacenetv1()
@@ -827,9 +881,9 @@ def dcnv3_case(batch, hw, groups, gc, seed, offsets, bwd=False, record=False) ->
     map, its inputs made as the layer makes them (`sampling_points`,
     kernel 3, offset_scale 2) at the OFFSETS kind `offsets`: zero offsets
     put every tap on an integer, the border taps partly or wholly off the
-    map (−1, −2).  A softmaxed mask.  Device time by `graph_ms`; the record
-    case has controls.  No single PyTorch call computes a 9-tap masked
-    bilinear sum."""
+    map (−1, −2).  A softmaxed mask.  Device time by `graph_ms`; a case
+    with `record` has controls.  No single PyTorch call computes a 9-tap
+    masked bilinear sum."""
     g = _gen(seed)
     G, P = groups, 9
     offset = torch.randn((batch, hw, hw, G * P * 2), generator=g) * OFFSETS[offsets]
@@ -1094,7 +1148,11 @@ def phase_dcnv3_kernels() -> dict:
     128² maps) and stage 3 (96 groups → BG 768, 16² maps), each at
     init-like integer coordinates and at random offsets, and stage 0 at
     large offsets (past the tiled backward's regions); the record is
-    stage 0 at random offsets, where a trained model samples."""
+    stage 0 at random offsets, where a trained model samples.  And stage 3
+    of the classification (224²: 7×7 maps) and change-detection (256²: 8×8)
+    paths at batch 8, random offsets: maps smaller than one 16×16 tile of
+    K6's tiled body, every region cut by the map's edges; controls at
+    7×7."""
     cases = {}
     for key, bwd in (("dcnv3_fwd", False), ("dcnv3_bwd", True)):
         cases[key] = [
@@ -1103,6 +1161,10 @@ def phase_dcnv3_kernels() -> dict:
             for s, hw, G in ((0, 128, 12), (3, 16, 96))
             for kind in ("init", "random")]
         cases[key].append(("stage0 large", dcnv3_case(8, 128, 12, 16, 33, "large", bwd)))
+        cases[key] += [(f"stage3 {hw}x{hw} random", dcnv3_case(8, hw, 96, 16, 34 + hw,
+                                                               "random", bwd,
+                                                               record=hw == 7))
+                       for hw in (7, 8)]
     return check_kernels(cases, record_label="stage0 random")
 
 
@@ -1232,12 +1294,13 @@ def synthetic_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int) ->
     return {"image": image, "label": label}
 
 
-def _loss_and_grads(cfg: TaskConfig, model: Segmentor, batch: dict, device: str,
-                    stochastic: bool) -> Tuple[float, Dict[str, torch.Tensor]]:
+def _loss_and_grads(cfg: TaskConfig, model, batch: dict, device: str,
+                    stochastic: bool, task_cls=SegmentationTask
+                    ) -> Tuple[float, Dict[str, torch.Tensor]]:
     """One loss.backward() of the task's loss on `device`: the loss and every
     parameter's gradient (on the CPU).  `stochastic` turns dropout and
     drop-path on, the masks drawn on the CPU from one seed for every run."""
-    task = SegmentationTask(cfg, model=model, device=device)
+    task = task_cls(cfg, model=model, device=device)
     masks = _gen(SEED + 4) if stochastic else None
     loss, _ = task.loss_fn(model, {k: v.to(device) for k, v in batch.items()},
                            masks, deterministic=not stochastic)
@@ -1251,15 +1314,18 @@ def _grad_verdict(path: Path, ref: tuple, got: tuple) -> Tuple[bool, str]:
     """(within the tolerance, summary) of a run's (loss, gradients) against
     the CPU's, by the rule above GRAD_RTOL."""
     (loss_ref, g_ref), (loss, g) = ref, got
-    rtol = GRAD_RTOL_STOCHASTIC if path.grad_stochastic else GRAD_RTOL
+    rtol = path.grad_rtol
     group = lambda n: "convs" if n.startswith(path.head_prefixes) else "backbone"
     g_all = math.sqrt(sum(float(x.square().sum()) for x in g_ref.values()))
     ratios = {k: [] for k in rtol}
+    above = []  # the ratios of the gradients above the absolute floor
     bad = []
     for name, r in g_ref.items():
         grp = group(name)
         diff, norm = float((g[name] - r).norm()), float(r.norm())
         ratios[grp].append((diff / max(norm, 1e-30), name))
+        if norm > GRAD_ATOL * g_all:
+            above.append((diff / norm, grp, name))
         if not diff <= rtol[grp] * norm + GRAD_ATOL * g_all:
             bad.append((name, diff, norm))
     loss_rel = abs(loss - loss_ref) / abs(loss_ref)
@@ -1272,6 +1338,8 @@ def _grad_verdict(path: Path, ref: tuple, got: tuple) -> Tuple[bool, str]:
         f"min / median / max: " + ", ".join(
             f"{grp} {min(x)[0]:.3e} / {statistics.median(r for r, _ in x):.3e} / "
             f"{max(x)[0]:.3e} at {max(x)[1]}" for grp, x in ratios.items())
+        + "; largest where ‖g‖ > the floor: " + ", ".join(
+            f"{grp} {r:.3e} at {n}" for r, grp, n in sorted(above, reverse=True)[:3])
         + f"; {len(bad)} of {len(g_ref)} parameters outside rtol·‖g‖ + "
         f"{GRAD_ATOL}·‖g_all‖, rtol {rtol} (convs: {path.head_prefixes})"
         + (f", e.g. {[(n, f'{d:.3e}', f'{m:.3e}') for n, d, m in bad[:4]]}" if bad else ""))
@@ -1310,16 +1378,25 @@ def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
             for name, p in model_cpu.named_parameters():
                 if ".attn.sampling_" in name:
                     p.zero_()
-    model_gpu = copy.deepcopy(model_cpu).cuda()
-    tag = f"[grads {path.name}]"
     what = (f"fp32 batch {path.grad_batch} of {path.cpu_hw[0]}×{path.cpu_hw[1]}"
             + (", dropout + drop-path on, identity sampling" if path.grad_stochastic
                else ""))
+    check_gradients(path, cfg, model_cpu, batch, SegmentationTask, what)
+
+
+def check_gradients(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
+                    what: str) -> None:
+    """The card-vs-CPU gradient check of `phase_gradients` for any task
+    (`path` gives name, per_step, grad_stochastic and head_prefixes), and
+    its TF32 control."""
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    tag = f"[grads {path.name}]"
     runs = {}
     for device, model in (("cpu", model_cpu), ("cuda", model_gpu)):
         reset_counters()
         t0 = time.perf_counter()
-        runs[device] = _loss_and_grads(cfg, model, batch, device, path.grad_stochastic)
+        runs[device] = _loss_and_grads(cfg, model, batch, device, path.grad_stochastic,
+                                       task_cls)
         if device == "cuda":
             torch.cuda.synchronize()
             launched = counters()
@@ -1331,7 +1408,8 @@ def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
     log(f"{tag} {what}, card vs CPU: {summary}; launches {launched}")
     _tf32(True)
     try:
-        control = _loss_and_grads(cfg, model_gpu, batch, "cuda", path.grad_stochastic)
+        control = _loss_and_grads(cfg, model_gpu, batch, "cuda", path.grad_stochastic,
+                                  task_cls)
     finally:
         _tf32(False)
     control_ok, control_summary = _grad_verdict(path, runs["cpu"], control)
@@ -1434,6 +1512,368 @@ def phase_train(path: Path, card: str) -> dict:
     return launched
 
 
+# ------------------------------------------------------- phases 16-18 --
+
+@dataclasses.dataclass(frozen=True)
+class TaskPath:
+    """A classification or change-detection recipe's model at full width
+    and depth, and what phases 16-17 drive it at.  `batch` counts images
+    (classification) or pairs (change detection); a pair's forward runs
+    the backbone once over both epochs, so the launches per forward are
+    those of one backbone pass whatever the batch."""
+
+    name: str
+    recipe: TaskConfig
+    task: type                           # ClassificationTask / ChangeDetectionTask
+    flops: Callable[[int], float]        # backbone forward FLOPs of one image
+    per_forward: Dict[str, int]
+    per_step: Dict[str, int]
+    batch: int                           # the train step's
+    grad_rtol: Dict[str, float] = dataclasses.field(default_factory=lambda: GRAD_RTOL)
+    # what `check_gradients` reads, as it reads a `Path`'s
+    head_prefixes: ClassVar[Tuple[str, ...]] = ("decode_head.",)  # the "convs" group
+    grad_stochastic: ClassVar[bool] = False
+
+    @property
+    def crop(self) -> int:
+        return self.recipe.backbone.img_size
+
+    @property
+    def cd(self) -> bool:
+        return self.task is ChangeDetectionTask
+
+
+VIT_FWD = launches(window=20, flash=4, bilinear_sample=40)
+VIT_STEP = launches(window=20, flash=4, bilinear_sample=40, window_bwd=20, flash_bwd=4,
+                    bilinear_sample_bwd=40)
+XL_FWD = launches(bilinear_sample=39)
+XL_STEP = launches(bilinear_sample=78, bilinear_sample_bwd=39)  # remat: K3 twice
+CLS_VIT, CLS_XL = vit_rvsa_l_224_eurosat(), intern_xl_224_eurosat()
+CD_VIT, CD_XL = rvsa_l_unet_256_levir(), intern_xl_unet_256_levir()
+# batch 8 of 224²: the recipes' 8 a GPU × 8 ranks, on one rank (BASELINE.md's
+# ViT-L datum is at this batch); batch 4 pairs of 256²: the recipes' 4 a GPU
+# × 8 ranks, on one rank (data parallel is not ported)
+TASK_PATHS = {
+    "cls_vit": TaskPath("cls_vit", CLS_VIT, ClassificationTask,
+                        lambda crop: backbone_flops(CLS_VIT.backbone, (crop, crop)),
+                        VIT_FWD, VIT_STEP, batch=8),
+    "cls_xl": TaskPath("cls_xl", CLS_XL, ClassificationTask,
+                       lambda crop: internimage_flops(internimage_config(CLS_XL.backbone),
+                                                      crop),
+                       XL_FWD, XL_STEP, batch=8),
+    "cd_vit": TaskPath("cd_vit", CD_VIT, ChangeDetectionTask,
+                       lambda crop: backbone_flops(CD_VIT.backbone, (crop, crop)),
+                       VIT_FWD, VIT_STEP, batch=4, grad_rtol=GRAD_RTOL_CD),
+    "cd_xl": TaskPath("cd_xl", CD_XL, ChangeDetectionTask,
+                      lambda crop: internimage_flops(internimage_config(CD_XL.backbone), crop),
+                      XL_FWD, XL_STEP, batch=4),
+}
+
+
+def task_batch(path: TaskPath, n: int, seed: int) -> dict:
+    """n seeded images (classification: labels from the image's mean of
+    channel 0, cut into the recipe's equally likely classes) or n seeded
+    pairs (change detection: change where epoch b's channel 0 exceeds
+    epoch a's over 16×16 blocks, a band of ignored pixels), something to
+    learn for the sanity runs."""
+    rng = np.random.default_rng(seed)
+    H = path.crop
+    if not path.cd:
+        image = rng.standard_normal((n, H, H, 3)).astype(np.float32)
+        K = path.recipe.num_classes
+        bins = [statistics.NormalDist(0.0, 1 / H).inv_cdf(i / K) for i in range(1, K)]
+        return {"image": image, "label": np.digitize(image[..., 0].mean((1, 2)), bins)}
+    a, b = (rng.standard_normal((n, H, H, 3)).astype(np.float32) for _ in range(2))
+    d = (b[..., 0] - a[..., 0]).reshape(n, H // 16, 16, H // 16, 16).mean((2, 4))
+    label = np.repeat(np.repeat((d > 0).astype(np.int64), 16, 1), 16, 2)
+    label[:, :, :16] = 255
+    return {"image_a": a, "image_b": b, "label": label}
+
+
+def _forward(model, batch: dict, device: str):
+    """The eval-mode forward of a task's model on a batch: logits."""
+    t = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "label"}
+    return model(t["image_a"], t["image_b"]) if "image_a" in t else model(t["image"])
+
+
+def build_task_model(path: TaskPath):
+    """The recipe's full-width model, seeded random weights, on the CPU."""
+    return init_weights(path.task(path.recipe, device="cpu").model, _gen(SEED)).eval()
+
+
+@torch.no_grad()
+def phase_task_logits(path: TaskPath, model_cpu) -> None:
+    """fp32 logits of 2 images (one pair) on the card against the CPU,
+    and for change detection the bf16 logits' distance from the fp32 ones,
+    of the whole model under autocast and of the UNet alone under autocast
+    on the fp32 backbone's features (the head-precision reading)."""
+    batch = task_batch(path, 1 if path.cd else 2, SEED + 1)
+    t0 = time.perf_counter()
+    ref = _forward(model_cpu, batch, "cpu")
+    t_cpu = time.perf_counter() - t0
+    model = copy.deepcopy(model_cpu).cuda()
+    reset_counters()
+    got = _forward(model, batch, "cuda").cpu()
+    launched = counters()
+    if launched != path.per_forward:
+        raise AssertionError(f"launch counts {launched} != {path.per_forward}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits on the card")
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"[logits {path.name}] fp32 logits {tuple(got.shape)} card vs CPU: max_abs_err "
+        f"{err:.3e}, max |logit| {scale:.3e}, normalised {err / scale:.3e} (tol "
+        f"{SLICE_TOL}); CPU forward {t_cpu:.1f} s; launches {launched}")
+    if not err / scale <= SLICE_TOL:
+        raise AssertionError(f"card logits disagree with the CPU: {err / scale:.3e}")
+    if not path.cd:
+        return
+    a, b = (torch.as_tensor(batch[k]).cuda() for k in ("image_a", "image_b"))
+    bf16 = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+    with bf16():
+        whole16 = model(a, b).float()
+    fused = [model._fuse(f[:1], f[1:]) for f in model.backbone(torch.cat([a, b]))]
+    head32 = model.decode_head(fused)
+    with bf16():
+        head16 = model.decode_head(fused).float()
+    for what, x, ref32 in (("whole model", whole16, got.cuda()),
+                           ("UNet alone on the fp32 features", head16, head32)):
+        gap = ((x - ref32).abs().max() / ref32.abs().max()).item()
+        rel = ((x - ref32).norm() / ref32.norm()).item()
+        agree = (x.argmax(-1) == ref32.argmax(-1)).float().mean().item()
+        log(f"[logits {path.name}] bf16 autocast vs fp32, {what}: normalised max diff "
+            f"{gap:.3e}, ‖Δ‖/‖fp32‖ {rel:.3e}, argmax agreement {agree:.6f}")
+
+
+def phase_cd_gradients(path: TaskPath, model_cpu) -> None:
+    """Phase 17's fp32 gradients, card vs CPU, of the change detector at one
+    pair (train-mode BatchNorm, no dropout or drop-path), phase 6's rule,
+    and its TF32 control."""
+    cfg = dataclasses.replace(path.recipe, backbone=dataclasses.replace(
+        path.recipe.backbone, dtype="float32"))
+    batch = {k: torch.from_numpy(v) for k, v in task_batch(path, 1, SEED + 3).items()}
+    check_gradients(path, cfg, model_cpu, batch, ChangeDetectionTask,
+                    f"fp32 1 pair of {path.crop}²")
+
+
+def phase_task_train(path: TaskPath, card: str):
+    """The recipe's train step through the task's entry points: launches,
+    ms/step, throughput, data_time and peak memory; evaluate on 2 batches;
+    a fixed-batch sanity run whose loss must fall.  Returns the model (its
+    weights the sanity run's)."""
+    recipe, tag = path.recipe, f"[train {path.name}]"
+    unit = "pairs" if path.cd else "images"
+    task = path.task(recipe)
+    t0 = time.perf_counter()
+    state = task.init_state(_gen(SEED))
+    opt = recipe.train.optimizer
+    log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} layer "
+        f"decay {opt.layer_decay}, {recipe.train.schedule.total_steps} steps "
+        f"({recipe.train.schedule.warmup_steps} warm-up), remat {recipe.backbone.remat}, "
+        f"drop-path {recipe.backbone.drop_path_rate}")
+    batches = [task_batch(path, path.batch, SEED + 10 + i) for i in range(4)]
+    logs = []
+    log_fn = lambda i, m: logs.append(m)
+    torch.cuda.synchronize()
+    reset_counters()
+    state, m = task.fit(state, cycle(batches), 1, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launched = counters()
+    log(f"{tag} launches in one train step: {launched}, expected {path.per_step}; "
+        f"metrics {m}")
+    if launched != path.per_step:
+        raise AssertionError(f"launch counts {launched} != {path.per_step}")
+    state, _ = task.fit(state, cycle(batches), TASK_WARM_STEPS, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs.clear()
+    state, _ = task.fit(state, cycle(batches), TASK_TRAIN_STEPS, log_every=1,
+                        log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    for m in logs:
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"non-finite train metrics {m}")
+    step_ms = [m["step_time"] * 1e3 for m in logs]
+    per = statistics.median(step_ms)
+    data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
+    images = path.batch * (2 if path.cd else 1)
+    log(f"{tag} recipe train step, batch {path.batch} {unit} of {path.crop}², bf16 "
+        f"autocast, drop-path on: median {per:.2f} ms/step over {len(step_ms)} (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {path.batch / per * 1e3:.3f} "
+        f"{unit}/s, data_time median {data_ms:.3f} ms, backbone "
+        f"~{3 * path.flops(path.crop) * images / per / 1e9:.2f} TFLOP/s (3× forward), "
+        f"peak memory {peak / 2 ** 30:.3f} GiB; loss {logs[0]['loss']:.4f} → "
+        f"{logs[-1]['loss']:.4f}, grad_norm {logs[-1]['grad_norm']:.4f}, step "
+        f"{state.step} | card {card}")
+
+    evals = [task_batch(path, 1 if path.cd else path.batch, SEED + 20 + i)
+             for i in range(2)]
+    metrics = task.evaluate(state, iter(evals))
+    if path.cd:
+        pred = task.predict_fn()(*(torch.as_tensor(evals[0][k]).cuda()
+                                   for k in ("image_a", "image_b")))
+        if pred.shape != (1, path.crop, path.crop) or not ((pred >= 0) & (pred < 2)).all():
+            raise AssertionError(f"bad change map {tuple(pred.shape)}")
+        shown = ("F1_change", "mIoU", "aAcc")
+    else:
+        shown = ("top1", "top5")
+    log(f"{tag} evaluate ({len(evals)} batches): "
+        + " ".join(f"{k} {metrics[k]:.3f}" for k in shown))
+    if not all(0.0 <= metrics[k] <= 100.0 for k in shown):
+        raise AssertionError(f"bad evaluate metrics {metrics}")
+
+    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
+        schedule=ScheduleConfig(kind="constant")))
+    sane = path.task(sanity, model=task.model)
+    logs.clear()
+    sane.fit(sane.init_state(_gen(SEED)), cycle(batches[:1]), SANITY_STEPS, log_every=1,
+             log_fn=log_fn)
+    losses = [m["loss"] for m in logs]
+    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, "
+        f"{SANITY_STEPS} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
+    if not min(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    return task.model
+
+
+def run_task_path(path: TaskPath, card: str):
+    """Phase 16 (classification) or 17 (change detection) for one recipe;
+    returns the trained model."""
+    free()
+    with phase_time(f"{path.name} models"):
+        model_cpu = build_task_model(path)
+    with phase_time(f"{path.name} logits"):
+        phase_task_logits(path, model_cpu)
+    if path.name == "cd_vit":
+        free()
+        with phase_time(f"{path.name} gradients"):
+            phase_cd_gradients(path, model_cpu)
+    del model_cpu
+    free()
+    with phase_time(f"{path.name} train"):
+        model = phase_task_train(path, card)
+    return model
+
+
+def _state_snapshot(state) -> dict:
+    """Everything a checkpoint holds, copied to the host."""
+    return {"step": state.step, "count": state.optimizer.count,
+            "model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "moments": {n: tuple(t.detach().cpu().clone() for t in mv)
+                        for n, mv in state.optimizer.moments().items()},
+            "generator": state.generator.get_state().clone()}
+
+
+def _load_snapshot(state, snap: dict, zero_moments: bool = False) -> None:
+    state.model.load_state_dict(snap["model"])
+    moments = snap["moments"]
+    if zero_moments:
+        moments = {n: tuple(torch.zeros_like(t) for t in mv) for n, mv in moments.items()}
+    state.optimizer.load_moments(snap["count"], moments)
+    state.generator.set_state(snap["generator"])
+    state.step = snap["step"]
+
+
+def _update(task, state, batch: dict) -> torch.Tensor:
+    """One train step; its parameter update (after − before), flattened."""
+    before = torch.cat([p.detach().reshape(-1).clone() for p in state.model.parameters()])
+    state, _ = task.fit(state, iter([batch]), 1)
+    after = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+    return after - before
+
+
+def phase_checkpoint(vit_cls_backbone, card: str) -> None:
+    """Phase 18 on the XL classification path, whose step runs K6's fp32
+    atomics: `fit` 3 steps with a CheckpointStore (ckpt_every 2) and an
+    encoder path; step 2 restored into a fresh task equals, bit for bit,
+    the state the run held at step 2 (the model's parameters and buffers,
+    the Adam moments, count, step and generator); one step from the
+    restored state against one from a second in-process copy of the step-2
+    state, by their parameter updates (K6 is not deterministic in its last
+    bits, so not bitwise); the control, the copy's moments zeroed, must
+    fail.  Then the ViT-L classifier's encoder (224², phase 16) is exported
+    and loaded into the 256² change detector (`load_encoder`,
+    `backbone_state_dict`) and one change-detection forward runs."""
+    path, tag = TASK_PATHS["cls_xl"], "[ckpt]"
+    batches = [task_batch(path, path.batch, SEED + 30 + i) for i in range(4)]
+    with tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_") as tmp:
+        store = CheckpointStore(os.path.join(tmp, "ckpt"))
+        task = ClassificationTask(path.recipe)
+        state = task.init_state(_gen(SEED))
+        snap = {}
+        keep = lambda i, m: snap.setdefault("s", _state_snapshot(state)) if i == 1 else None
+        t0 = time.perf_counter()
+        state, _ = task.fit(state, cycle(batches), 3, log_every=1, log_fn=keep, ckpt=store,
+                            ckpt_every=2, encoder_path=os.path.join(tmp, "encoder.pth"))
+        steps = store.steps()
+        log(f"{tag} fit 3 steps with saves at {steps} and the encoder artifact "
+            f"({os.path.getsize(os.path.join(tmp, 'encoder.pth')) / 2 ** 20:.1f} MiB): "
+            f"{time.perf_counter() - t0:.1f} s")
+        if steps != [2, 3]:
+            raise AssertionError(f"checkpoints at {steps}, expected [2, 3]")
+        snap = snap["s"]
+        del task, state
+        free()
+        fresh = ClassificationTask(path.recipe)
+        t0 = time.perf_counter()
+        restored = store.restore(fresh.init_state(_gen(SEED + 99)), step=2)
+        got = _state_snapshot(restored)
+        bad = [k for k in snap["model"] if not torch.equal(got["model"][k], snap["model"][k])]
+        bad += [n for n in snap["moments"] if not all(
+            torch.equal(a, b) for a, b in zip(got["moments"][n], snap["moments"][n]))]
+        same_gen = torch.equal(got["generator"], snap["generator"])
+        log(f"{tag} restore of step 2 into a fresh task {time.perf_counter() - t0:.1f} s: "
+            f"{len(snap['model'])} model tensors and {len(snap['moments'])} parameters' "
+            f"moments, {len(bad)} differ; step {got['step']}, count {got['count']}, "
+            f"generator state equal {same_gen}")
+        if bad or not same_gen or (got["step"], got["count"]) != (2, 2):
+            raise AssertionError(f"restored state differs: {bad[:4]}, step {got['step']}, "
+                                 f"count {got['count']}, generator {same_gen}")
+        batch = batches[2]
+        u_restored = _update(fresh, restored, batch)
+        _load_snapshot(restored, snap)
+        u_copy = _update(fresh, restored, batch)
+        rel = ((u_restored - u_copy).norm() / u_copy.norm()).item()
+        bitwise = torch.equal(u_restored, u_copy)
+        _load_snapshot(restored, snap, zero_moments=True)
+        u_ctrl = _update(fresh, restored, batch)
+        ctrl = ((u_ctrl - u_copy).norm() / u_copy.norm()).item()
+        log(f"{tag} step 3 from the restored state vs from an in-process copy of step "
+            f"2: ‖Δu‖/‖u‖ {rel:.3e} (tol {RESUME_RTOL}; bitwise {bitwise}); control, "
+            f"the copy's Adam moments zeroed: {ctrl:.3e} (must exceed the tol)")
+        if not rel <= RESUME_RTOL:
+            raise AssertionError(f"the resumed step differs: {rel:.3e}")
+        if ctrl <= RESUME_RTOL:
+            raise AssertionError(f"the zeroed-moments control passed: {ctrl:.3e}")
+        store.close()
+        del fresh, restored, u_restored, u_copy, u_ctrl
+        free()
+
+        enc = os.path.join(tmp, "vit_l_224_encoder.pth")
+        save_encoder(enc, vit_cls_backbone)
+        sd = backbone_state_dict(load_encoder(enc, CLS_VIT.backbone), CD_VIT.backbone,
+                                 features_only=True)
+        cd = ChangeDetectionTask(CD_VIT)
+        cd_state = cd.init_state(_gen(SEED), pretrained_backbone=sd)
+        src = vit_cls_backbone.state_dict()
+        same = torch.equal(cd_state.model.backbone.blocks[5].attn.qkv.weight.cpu(),
+                           src["blocks.5.attn.qkv.weight"])
+        pair = task_batch(TASK_PATHS["cd_vit"], 1, SEED + 40)
+        with torch.no_grad(), cd.autocast():
+            out = _forward(cd_state.model.eval(), pair, "cuda").float()
+        grids = [cfg.backbone.img_size // 16 for cfg in (CLS_VIT, CD_VIT)]
+        log(f"{tag} ViT-L classifier encoder (grid {grids[0]}) → rvsa-l-unet-256 "
+            f"(grid {grids[1]}): "
+            f"pos_embed {tuple(sd['pos_embed'].shape)}, full-block rel-pos "
+            f"{tuple(sd['blocks.5.attn.full_attn_rel_pos_h'].shape)}, window tables "
+            f"{tuple(sd['blocks.0.attn.rel_pos_h'].shape)}, {len(sd)} tensors (FPN "
+            f"dropped); loaded weights equal {same}; one CD forward {tuple(out.shape)} "
+            f"finite {bool(torch.isfinite(out).all())}")
+        side = 2 * CD_VIT.backbone.img_size  # the UNet ends at twice the input
+        if not same or out.shape != (1, side, side, 2) or not torch.isfinite(out).all():
+            raise AssertionError("the exported encoder did not load into the detector")
+
+
 @contextlib.contextmanager
 def phase_time(what: str):
     """Logs the wall time the block took."""
@@ -1485,6 +1925,13 @@ def main() -> None:
         with phase_time(f"kernels {name}"):
             record.update(phase())
     runs = {name: run_path(path, card) for name, path in PATHS.items()}
+    for name, path in TASK_PATHS.items():
+        trained = run_task_path(path, card)
+        if name == "cls_vit":  # phase 18 exports its encoder
+            vit_cls_backbone = trained.backbone.cpu()
+        del trained
+    with phase_time("checkpoint"):
+        phase_checkpoint(vit_cls_backbone, card)
     kernels = []
     for key, meta in KERNELS.items():
         path, kind, counter = LAUNCHED_IN[key]

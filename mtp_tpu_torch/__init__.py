@@ -13,8 +13,11 @@ use the reference torch parameter names, so `mtp_tpu.ckpt` converters read a
 port `state_dict()` unchanged.
 
 Ported so far: semantic segmentation with UperNet on ViT-B/L+RVSA or
-InternImage (DCNv3), sliding-window inference and the finetune step.
-Nothing here imports jax or flax.
+InternImage (DCNv3), sliding-window inference and the finetune step; scene
+classification and Siamese change detection (UNet) on the same backbones;
+checkpoints (save, resume, the encoder export) and released-style `.pth`
+or JAX `.npz` encoders loaded at another grid.  Nothing here imports jax
+or flax.
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,10 @@
 
 Pure numpy: the inverse of `mtp_tpu/ckpt/torch_convert.py` `convert_backbone`
 and `convert_internimage` and of `mtp_tpu/ckpt/full_convert.py`
-`convert_upernet_head` (which import jax, so they cannot run where the port
-does).  The backbone family follows the config (`backbone_from_jax`: a
-BackboneConfig by its name, or an InternImageConfig).  Layout maps (flax →
-torch):
+`convert_upernet_head`, `convert_unet_head` and `convert_linear_head`
+(which import jax, so they cannot run where the port does).  The backbone
+family follows the config (`backbone_from_jax`: a BackboneConfig by its
+name, or an InternImageConfig).  Layout maps (flax → torch):
 - Dense kernel (in, out)            → Linear weight (out, in)
 - Conv kernel (kh, kw, in/groups, out) → Conv2d weight (out, in/groups, kh, kw)
 - ConvTranspose kernel (kh, kw, in, out) → ConvTranspose2d weight
@@ -199,20 +199,25 @@ def backbone_from_jax(params: dict, cfg: BackboneConfig) -> StateDict:
         full = (i + 1) % cfg.interval == 0
         for k, v in block_from_jax(p[f"blocks_{i}"], full).items():
             sd[f"blocks.{i}.{k}"] = v
-    fpn = p["fpn"]
-    _deconv(sd, "fpn1.0", fpn["fpn1_deconv1"])
-    _norm(sd, "fpn1.1.ln", fpn["fpn1_norm"]["ln"])
-    _deconv(sd, "fpn1.3", fpn["fpn1_deconv2"])
-    _deconv(sd, "fpn2.0", fpn["fpn2_deconv1"])
+    if "fpn" in p:  # a ViT applied `features_only` has none
+        fpn = p["fpn"]
+        _deconv(sd, "fpn1.0", fpn["fpn1_deconv1"])
+        _norm(sd, "fpn1.1.ln", fpn["fpn1_norm"]["ln"])
+        _deconv(sd, "fpn1.3", fpn["fpn1_deconv2"])
+        _deconv(sd, "fpn2.0", fpn["fpn2_deconv1"])
     return sd
+
+
+def _batchnorm(sd: dict, dst: str, p: dict, s: dict) -> None:
+    _norm(sd, dst, p)
+    sd[dst + ".running_mean"] = _tensor(s["mean"])
+    sd[dst + ".running_var"] = _tensor(s["var"])
+    sd[dst + ".num_batches_tracked"] = torch.tensor(0)
 
 
 def _convmodule(sd: dict, dst: str, p: dict, s: dict) -> None:
     _conv(sd, dst + ".conv", p["conv"])
-    _norm(sd, dst + ".bn", p["bn"])
-    sd[dst + ".bn.running_mean"] = _tensor(s["bn"]["mean"])
-    sd[dst + ".bn.running_var"] = _tensor(s["bn"]["var"])
-    sd[dst + ".bn.num_batches_tracked"] = torch.tensor(0)
+    _batchnorm(sd, dst + ".bn", p["bn"], s["bn"])
 
 
 def upernet_from_jax(params: dict, batch_stats: dict) -> StateDict:
@@ -245,6 +250,49 @@ def segmentor_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
     sd = {"backbone." + k: v
           for k, v in backbone_from_jax(params["backbone"], cfg).items()}
     sd.update({"decode_head." + k: v for k, v in upernet_from_jax(
+        params["decode_head"], stats["decode_head"]).items()})
+    return sd
+
+
+def linear_head_from_jax(params: dict) -> StateDict:
+    """`LinearClsHead` params → the port's `LinearClsHead` state_dict."""
+    sd: StateDict = {}
+    _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def classifier_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
+    """JAX `ImageClassifier` variables {"params"} → the port's
+    `ImageClassifier` state_dict."""
+    params = variables["params"]
+    sd = {"backbone." + k: v
+          for k, v in backbone_from_jax(params["backbone"], cfg).items()}
+    sd.update({"head." + k: v for k, v in linear_head_from_jax(params["head"]).items()})
+    return sd
+
+
+def unet_from_jax(params: dict, batch_stats: dict) -> StateDict:
+    """`UNetHead` params + batch_stats → the port's `UNetHead` state_dict
+    (open-cd names, no prefix)."""
+    sd: StateDict = {}
+    i = 0
+    while f"block_{i}" in params:
+        for c in ("conv1", "conv2"):
+            p, s = params[f"block_{i}"][c], batch_stats[f"block_{i}"][c]
+            _conv(sd, f"blocks.{i}.{c}.0", p["conv"])
+            _batchnorm(sd, f"blocks.{i}.{c}.1", p["bn"], s["bn"])
+        i += 1
+    _conv(sd, "conv_seg", params["conv_seg"])
+    return sd
+
+
+def change_detector_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
+    """JAX `SiamChangeDetector` variables {"params", "batch_stats"} → the
+    port's `SiamChangeDetector` state_dict."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = {"backbone." + k: v
+          for k, v in backbone_from_jax(params["backbone"], cfg).items()}
+    sd.update({"decode_head." + k: v for k, v in unet_from_jax(
         params["decode_head"], stats["decode_head"]).items()})
     return sd
 

@@ -202,6 +202,18 @@ def check_single_device(mesh: MeshConfig) -> None:
                 f"device (DDP is not ported yet)")
 
 
+def _vit_l(img_size: int) -> BackboneConfig:
+    """`mtp_tpu.configs._bb("rvsa_l", img_size)`."""
+    return vit_l_rvsa(img_size, drop_path_rate=0.3, scan=True,
+                      out_indices=(7, 11, 15, 23))
+
+
+def _intern_xl(img_size: int) -> BackboneConfig:
+    """`mtp_tpu.configs._internimage_xl(img_size)`: remat and scan on."""
+    return internimage_backbone_config("internimage_xl", img_size, remat=True,
+                                       scan=True)
+
+
 def rvsa_l_upernet_384_spacenetv1() -> TaskConfig:
     """The recipe `rvsa-l-upernet-384-mae-mtp-spacenetv1` (and its `-mae-`
     twin, which differs only in the checkpoint it loads): ViT-L+RVSA at
@@ -212,8 +224,7 @@ def rvsa_l_upernet_384_spacenetv1() -> TaskConfig:
     batch 8, slide eval stride 256)."""
     return TaskConfig(
         task="segmentation", num_classes=2,
-        backbone=vit_l_rvsa(384, drop_path_rate=0.3, scan=True,
-                            out_indices=(7, 11, 15, 23)),
+        backbone=_vit_l(384),
         train=TrainConfig(
             batch_size=8,
             optimizer=OptimizerConfig(lr=6e-5, weight_decay=0.05,
@@ -232,8 +243,7 @@ def intern_xl_upernet_512_loveda() -> TaskConfig:
     batch 8, slide eval with 512² crops at stride 256."""
     return TaskConfig(
         task="segmentation", num_classes=7,
-        backbone=internimage_backbone_config("internimage_xl", 512, remat=True,
-                                             scan=True),
+        backbone=_intern_xl(512),
         train=TrainConfig(
             batch_size=8,
             optimizer=OptimizerConfig(lr=2e-5, weight_decay=0.05,
@@ -241,3 +251,61 @@ def intern_xl_upernet_512_loveda() -> TaskConfig:
             schedule=ScheduleConfig(kind="cosine", total_steps=80000,
                                     warmup_steps=1500)),
         slide=SlideConfig(crop=512, stride=256))
+
+
+def _cls_recipe(backbone: BackboneConfig, lr: float = 6e-5,
+                layer_decay: float = 0.9) -> TaskConfig:
+    """The EuroSAT scene-classification recipe shape (`mtp_tpu.configs._cls`;
+    reference mmpretrain eurosat/vit-rvsa-l-224-mae-mtp_eurosat.py:61-65):
+    10 classes, global batch 8×8 ranks = 64, AdamW, no clipping, 10k steps
+    of cosine after 500 of warm-up."""
+    return TaskConfig(
+        task="classification", num_classes=10, backbone=backbone,
+        train=TrainConfig(
+            batch_size=64,
+            optimizer=OptimizerConfig(lr=lr, weight_decay=0.05,
+                                      layer_decay=layer_decay, clip_norm=0.0),
+            schedule=ScheduleConfig(kind="cosine", total_steps=10000,
+                                    warmup_steps=500)))
+
+
+def _cd_recipe(backbone: BackboneConfig, lr: float = 6e-5,
+               layer_decay: float = 0.9) -> TaskConfig:
+    """The LEVIR change-detection recipe shape (`mtp_tpu.configs._cd`;
+    reference open-cd levir/rvsa-l-unet-256-...py:107-137): 2 classes,
+    batch 4/GPU × 8 ranks = 32, AdamW, no clipping, 40k steps of cosine
+    after 40000 // 30 of warm-up."""
+    return TaskConfig(
+        task="change_detection", num_classes=2, backbone=backbone,
+        train=TrainConfig(
+            batch_size=32,
+            optimizer=OptimizerConfig(lr=lr, weight_decay=0.05,
+                                      layer_decay=layer_decay, clip_norm=0.0),
+            schedule=ScheduleConfig(kind="cosine", total_steps=40000,
+                                    warmup_steps=40000 // 30)))
+
+
+def vit_rvsa_l_224_eurosat() -> TaskConfig:
+    """The recipe `vit-rvsa-l-224-mae-mtp_eurosat` (and its `-mae_` twin):
+    ViT-L+RVSA at 224², drop-path 0.3 → linear head, AdamW 6e-5, layer decay
+    0.9."""
+    return _cls_recipe(_vit_l(224))
+
+
+def intern_xl_224_eurosat() -> TaskConfig:
+    """The recipe `intern-xl-224-imp-mtp_eurosat` (and its `-imp_` twin):
+    InternImage-XL at 224² → linear head, with `_ii_opt`'s AdamW 2e-5 and
+    layer decay 0.94."""
+    return _cls_recipe(_intern_xl(224), lr=2e-5, layer_decay=0.94)
+
+
+def rvsa_l_unet_256_levir() -> TaskConfig:
+    """The recipe `rvsa-l-unet-256-mae-mtp_levir` (and its `-mae_` twin):
+    ViT-L+RVSA at 256² (raw stride-16 maps, no FPN) → Siamese UNet."""
+    return _cd_recipe(_vit_l(256))
+
+
+def intern_xl_unet_256_levir() -> TaskConfig:
+    """The recipe `intern-xl-unet-256-imp-mtp_levir` (and its `-imp_` twin):
+    InternImage-XL at 256² → Siamese UNet, AdamW 2e-5, layer decay 0.94."""
+    return _cd_recipe(_intern_xl(256), lr=2e-5, layer_decay=0.94)

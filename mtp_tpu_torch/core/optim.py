@@ -175,10 +175,18 @@ def wd_mask(named_params: NamedParams) -> Dict[str, bool]:
 # ---------------------------------------------------------------------------
 
 
+def _norm(t: torch.Tensor) -> torch.Tensor:
+    """‖t‖ in fp32.  The card reduces in a tree; the CPU's fp32
+    `vector_norm` accumulates sequentially (7e-5 relative error on a 2.4M-
+    element gradient, a UNet conv's), so there the squares are summed by
+    `torch.sum`, which sums in a cascade."""
+    t = t.float()
+    return torch.linalg.vector_norm(t) if t.is_cuda else t.square().sum().sqrt()
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt(Σ ‖t‖²) in fp32, on the tensors' device (no host sync)."""
-    norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return torch.linalg.vector_norm(torch.stack([_norm(t) for t in tensors]))
 
 
 class LayerDecayAdamW:
@@ -213,8 +221,14 @@ class LayerDecayAdamW:
 
     def step(self) -> torch.Tensor:
         """One update from the parameters' `.grad`; returns the global norm
-        of the raw gradients (before clipping) as a device scalar."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        of the raw gradients (before clipping) as a device scalar.  A
+        parameter the loss did not reach (no `.grad`: the ViT classifier's
+        unused FPN levels) is updated with a zero gradient, as optax updates
+        every leaf: its moments decay and weight decay applies."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if self.cfg.clip_norm > 0:
             coef = torch.clamp(self.cfg.clip_norm / norm, max=1.0)
@@ -226,12 +240,28 @@ class LayerDecayAdamW:
         self.count += 1
         return norm
 
+    def moments(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """Each parameter's Adam moments (exp_avg, exp_avg_sq) by name
+        (empty before the first update), the inverse of `load_moments`:
+        every parameter takes every update, so torch's per-parameter `step`
+        is `count` throughout."""
+        return {self.names[p]: (st["exp_avg"], st["exp_avg_sq"])
+                for p, st in self.adamw.state.items()}
+
     def load_moments(self, count: int,
                      moments: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
         """Set the update count and each parameter's Adam moments
-        (exp_avg, exp_avg_sq) by name, e.g. from `ckpt.from_jax.opt_state_from_jax`."""
+        (exp_avg, exp_avg_sq) by name, e.g. from `ckpt.from_jax.opt_state_from_jax`
+        or a checkpoint (`ckpt.store`); after no update, no moments."""
+        unknown = set(moments) - set(self.names.values())
+        if unknown or (count and len(moments) != len(self.names)):
+            raise KeyError(f"moments for {len(moments)} parameters of "
+                           f"{len(self.names)}; unknown {sorted(unknown)[:4]}")
         self.count = count
+        self.adamw.state.clear()
         for p, name in self.names.items():
+            if name not in moments:
+                continue
             mu, nu = moments[name]
             self.adamw.state[p] = {
                 "step": torch.tensor(float(count)),

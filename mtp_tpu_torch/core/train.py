@@ -4,7 +4,7 @@ PyTorch runs eagerly, so there is no jit: the step is a function that runs
 the loss, its backward and the optimizer update, mutating the state's model
 and optimizer in place (JAX returns a new state).  The port runs on one
 device; `shard_state` and `opt_state_shardings` are mesh-only and are not
-ported (data-parallel training is ROADMAP queue 1 item 12).
+ported (data-parallel training is ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations

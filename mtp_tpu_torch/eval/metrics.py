@@ -1,14 +1,26 @@
-"""Segmentation metrics: per-class intersect-and-union and the mIoU / mAcc /
-aAcc / mFscore / mDice accumulator (port of the segmentation half of
-`mtp_tpu/eval/metrics.py`; reference `MTP_SS_Metric`,
-Multi-Task_Pretrain/semantic_segmentation/metric.py:19-285)."""
+"""Evaluation metrics (port of `mtp_tpu/eval/metrics.py`): top-k accuracy
+(mmpretrain `Accuracy`), per-class intersect-and-union and the mIoU / mAcc /
+aAcc / mFscore / mDice accumulator (reference `MTP_SS_Metric`,
+Multi-Task_Pretrain/semantic_segmentation/metric.py:19-285), and the
+change class's F1 (open-cd)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  ks: Tuple[int, ...] = (1, 5)) -> Dict[str, torch.Tensor]:
+    """{"top{k}": % of rows whose label is among the k largest logits}, as
+    device scalars.  Classes ordered by descending logit; where logits tie,
+    the order among them may differ from JAX's (`argsort(...)[:, ::-1]`)."""
+    order = torch.argsort(logits, dim=-1, descending=True)
+    labels = labels.to(order.device).long()[:, None]
+    return {f"top{k}": (order[:, :k] == labels).any(1).float().mean() * 100.0
+            for k in ks}
 
 
 def intersect_and_union(pred: torch.Tensor, label: torch.Tensor,
@@ -67,3 +79,12 @@ class SegAccumulator:
             "IoU": (iou * 100).tolist(),
             "Fscore": (f1 * 100).tolist(),
         }
+
+
+def binary_change_f1(area_intersect: np.ndarray, pred_area: np.ndarray,
+                     label_area: np.ndarray) -> float:
+    """F1 (%) of the change class (index 1), open-cd's LEVIR/WHU headline."""
+    tp = area_intersect[1]
+    precision = tp / max(pred_area[1], 1e-12)
+    recall = tp / max(label_area[1], 1e-12)
+    return float(2 * precision * recall / max(precision + recall, 1e-12) * 100)

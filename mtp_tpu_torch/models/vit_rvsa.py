@@ -297,11 +297,17 @@ class ViTRVSA(nn.Module):
     `input_hw` fixes the token grid that sizes `pos_embed` and the full
     blocks' rel-pos tables (default `cfg.img_size` square), as the JAX
     module's parameters are sized by its init input.  forward takes
-    (B, H, W, in_chans) and returns 4 NHWC levels (strides 4/8/16/32)."""
+    (B, H, W, in_chans) and returns 4 NHWC levels (strides 4/8/16/32).
+
+    `features_only` builds no FPN: forward returns the raw stride-16 maps
+    at `out_indices` (the JAX call's `features_only=True`, whose parameter
+    tree has no `fpn`; the change-detection backbone)."""
 
     def __init__(self, cfg: BackboneConfig,
-                 input_hw: Optional[Tuple[int, int]] = None):
+                 input_hw: Optional[Tuple[int, int]] = None,
+                 features_only: bool = False):
         super().__init__()
+        self.features_only = features_only
         if cfg.patch_size != 16:
             raise NotImplementedError(
                 "the patch-8 simple-FPN variant is not ported yet")
@@ -319,6 +325,8 @@ class ViTRVSA(nn.Module):
                   window_size=cfg.window_size, qkv_bias=cfg.qkv_bias,
                   init_values=cfg.init_values, drop_path_rate=float(dpr[i]))
             for i in range(cfg.depth))
+        if features_only:
+            return
         # the simple feature pyramid (ViTDet-style, reference fpn1..fpn4):
         # strides 4, 8, 16, 32 from the stride-16 grid, all D channels
         up = lambda: nn.ConvTranspose2d(D, D, 2, stride=2)
@@ -331,8 +339,9 @@ class ViTRVSA(nn.Module):
     def out_channels(self) -> Tuple[int, ...]:
         return (self.cfg.embed_dim,) * len(self.cfg.out_indices)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+    def taps(self, x: torch.Tensor, deterministic: bool = True,
+             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        """The raw stride-16 maps (B, Hp, Wp, D) at `out_indices`."""
         remat = self.cfg.remat and torch.is_grad_enabled()
         x = self.patch_embed(x)  # (B, Hp, Wp, D)
         B, Hp, Wp, D = x.shape
@@ -351,9 +360,20 @@ class ViTRVSA(nn.Module):
                 x = blk(x, *keep)
             if i in self.cfg.out_indices:
                 taps[i] = x
+        return tuple(taps[i] for i in self.cfg.out_indices)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        taps = self.taps(x, deterministic, generator)
+        if self.features_only:
+            return taps
         ops = (self.fpn1, self.fpn2, self.fpn3, self.fpn4)
-        return tuple(_nhwc(op(_nchw(taps[i])))
-                     for op, i in zip(ops, self.cfg.out_indices))
+        return tuple(_nhwc(op(_nchw(t))) for op, t in zip(ops, taps))
+
+    def last_level(self, x: torch.Tensor, deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`forward(...)[-1]` without running fpn1-fpn3."""
+        return _nhwc(self.fpn4(_nchw(self.taps(x, deterministic, generator)[-1])))
 
 
 def backbone_flops(cfg: BackboneConfig,

@@ -1,21 +1,39 @@
-"""The training loop of the task drivers (port of `mtp_tpu/tasks/_fit.py`
-`fit_loop`).  Periodic checkpoints and the encoder export wait for the port
-of `ckpt/store.py` (ROADMAP queue 1 item 12)."""
+"""What the task drivers share (port of `mtp_tpu/tasks/_fit.py` and of the
+drivers' common `init_state`): the training loop `fit_loop`, with periodic
+checkpoints and the encoder export, and `Task`, the base of the
+segmentation, classification and change-detection drivers."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from mtp_tpu_torch.core.train import TrainState
+from mtp_tpu_torch.ckpt.from_jax import init_weights
+from mtp_tpu_torch.ckpt.store import save_encoder
+from mtp_tpu_torch.config import TaskConfig, check_single_device
+from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
+from mtp_tpu_torch.core.train import TrainState, create_state
 
 
 def _to_device(v, device) -> torch.Tensor:
     t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     return t.to(device, non_blocking=True)
+
+
+def _save(ckpt, state: TrainState, encoder_path: Optional[str],
+          wait: bool = False) -> None:
+    """A checkpoint of the state and, with `encoder_path`, the encoder
+    artifact: the model's `encoder` if it has one, else its `backbone`."""
+    ckpt.save(state.step, state, wait=wait)
+    if encoder_path:
+        encoder = getattr(state.model, "encoder", None)
+        save_encoder(encoder_path,
+                     state.model.backbone if encoder is None else encoder)
 
 
 def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
@@ -31,10 +49,12 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
     seconds per step spent taking the batch and starting its copy to the
     device) and `step_time` (wall seconds per step), both averaged over the
     steps since the last log.  Reading the metrics waits for the device, so
-    the loop synchronises only at log steps."""
-    if ckpt is not None or encoder_path is not None:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP queue 1 item 12)")
+    the loop synchronises only at log steps.
+
+    With a `ckpt.store.CheckpointStore`, the state is saved every
+    `ckpt_every` steps except after the last, and once at the end, waiting
+    for the write; each save also writes the encoder artifact to
+    `encoder_path` when given (reference main_pretrain.py:821-829)."""
     step_fn = task.train_step_fn()
     metrics: dict = {}
     t_data = 0.0
@@ -55,4 +75,75 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
             t_data = 0.0
             n_since = 0
             t_mark = time.perf_counter()
+        if ckpt is not None and (i + 1) % ckpt_every == 0 and i != steps - 1:
+            _save(ckpt, state, encoder_path)
+    if ckpt is not None:
+        _save(ckpt, state, encoder_path, wait=True)
     return state, {k: float(v) for k, v in metrics.items()}
+
+
+class Task:
+    """A task driver on one device (`device`, the card unless the caller
+    asks for another) for `model`, whose backbone is `model.backbone`.
+
+    Compute precision follows the backbone config's `dtype`, as the JAX
+    package's does: "bfloat16" runs the train step and evaluation under
+    bf16 autocast (parameters, optimizer state, BatchNorm statistics and
+    the loss stay fp32), "float32" runs them in fp32."""
+
+    def __init__(self, cfg: TaskConfig, model: nn.Module, device="cuda"):
+        check_single_device(cfg.train.mesh)
+        self.cfg = cfg
+        self.model = model
+        self.device = torch.device(device)
+        self.num_classes = cfg.num_classes
+
+    def autocast(self):
+        """bf16 autocast when the backbone config computes in bfloat16."""
+        if self.cfg.backbone.dtype == "bfloat16":
+            return torch.autocast(self.device.type, dtype=torch.bfloat16)
+        return contextlib.nullcontext()
+
+    def _init_state(self, generator: torch.Generator,
+                    pretrained_backbone: Optional[dict] = None,
+                    frozen_backbone: bool = False) -> TrainState:
+        """Random weights from `generator` (a CPU generator: the weights are
+        drawn on the CPU, then the model moves to the task's device), an
+        optional backbone state_dict on top (`ckpt.torch_convert.
+        backbone_state_dict` makes one from a checkpoint), the optimizer
+        (layer decay by the backbone's layer ids; `frozen_backbone`: no
+        update of any `backbone.*` parameter), and the state's own
+        generator on the device, seeded from `generator`."""
+        cfg = self.cfg
+        model = init_weights(self.model.cpu(), generator)
+        if pretrained_backbone is not None:
+            model.backbone.load_state_dict(pretrained_backbone)
+        model.to(self.device)
+        frozen = None
+        if frozen_backbone:
+            frozen = {n: n.startswith("backbone.") for n, _ in model.named_parameters()}
+        tx = make_optimizer(cfg.train.optimizer,
+                            make_schedule(cfg.train.schedule, cfg.train.optimizer.lr),
+                            model.named_parameters(), cfg.backbone.depth,
+                            layer_id_fn=layer_id_fn_for(cfg.backbone, root="backbone."),
+                            frozen_mask=frozen)
+        seed = int(torch.randint(2 ** 62, (), generator=generator))
+        rng = torch.Generator(device=self.device).manual_seed(seed)
+        return create_state(model, tx, rng)
+
+    def init_state(self, generator: torch.Generator,
+                   pretrained_backbone: Optional[dict] = None) -> TrainState:
+        return self._init_state(generator, pretrained_backbone)
+
+    def fit(self, state: TrainState, data: Iterator[Dict[str, np.ndarray]],
+            steps: int, log_every: int = 50,
+            log_fn: Callable[[int, dict], None] = None,
+            **ckpt_kw) -> Tuple[TrainState, dict]:
+        """`fit_loop` over this task's train step; `ckpt_kw`: `ckpt`,
+        `ckpt_every`, `encoder_path`."""
+        return fit_loop(self, state, data, steps, log_every=log_every,
+                        log_fn=log_fn, **ckpt_kw)
+
+    def _check_state(self, state: TrainState) -> None:
+        if state.model is not self.model:
+            raise ValueError("the state does not hold this task's model")

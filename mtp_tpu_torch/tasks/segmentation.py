@@ -3,35 +3,30 @@ Segmentor (ViT+RVSA or InternImage → UperNet), pixel cross entropy with
 ignore_index, AdamW with layer decay (the backbone's layer-id map and
 depth), sliding-window evaluation with mIoU.
 
-The task runs on one device (`device`).  Compute precision follows the
-backbone config's `dtype`, as the JAX package's does: "bfloat16" runs the
-train step and `evaluate` under bf16 autocast (parameters, optimizer state,
-BatchNorm statistics and the loss stay fp32), "float32" runs them in fp32.
-`predict_fn`/`slide_logits` run in the caller's precision.
+One device and the backbone's compute precision, as every task driver
+(`tasks._fit.Task`); `predict_fn`/`slide_logits` run in the caller's
+precision.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from mtp_tpu_torch.ckpt.from_jax import init_weights
-from mtp_tpu_torch.config import SlideConfig, TaskConfig, check_single_device
-from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
-from mtp_tpu_torch.core.train import (TrainState, create_state, make_train_step,
-                                      seg_xent)
+from mtp_tpu_torch.config import SlideConfig, TaskConfig
+from mtp_tpu_torch.core.train import TrainState, make_train_step, seg_xent
 from mtp_tpu_torch.eval.metrics import SegAccumulator
 from mtp_tpu_torch.eval.slide import slide_inference
 from mtp_tpu_torch.heads.upernet import resize_bilinear
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.tasks._fit import Task
 
 
-class SegmentationTask:
+class SegmentationTask(Task):
     """`model` defaults to the config's Segmentor (512 channels), sized for
     `cfg.backbone.img_size` crops and built on the CPU; `init_state` draws its
     weights and moves it to `device`, the card unless the caller asks for
@@ -39,41 +34,11 @@ class SegmentationTask:
 
     def __init__(self, cfg: TaskConfig, model: Optional[nn.Module] = None,
                  device="cuda"):
-        check_single_device(cfg.train.mesh)
-        self.cfg = cfg
-        self.device = torch.device(device)
         size = cfg.backbone.img_size
-        self.model = model if model is not None else Segmentor(
-            cfg.backbone, cfg.num_classes, input_hw=(size, size))
-        self.num_classes = cfg.num_classes
-
-    def autocast(self):
-        """bf16 autocast when the backbone config computes in bfloat16."""
-        if self.cfg.backbone.dtype == "bfloat16":
-            return torch.autocast(self.device.type, dtype=torch.bfloat16)
-        return contextlib.nullcontext()
+        super().__init__(cfg, model if model is not None else Segmentor(
+            cfg.backbone, cfg.num_classes, input_hw=(size, size)), device)
 
     # -- training -----------------------------------------------------------
-    def init_state(self, generator: torch.Generator,
-                   pretrained_backbone: Optional[dict] = None) -> TrainState:
-        """Random weights from `generator` (a CPU generator: the weights are
-        drawn on the CPU, then the model moves to the task's device), an
-        optional backbone state_dict on top, the optimizer, and the state's
-        own generator on the device, seeded from `generator`."""
-        cfg = self.cfg
-        model = init_weights(self.model.cpu(), generator)
-        if pretrained_backbone is not None:
-            model.backbone.load_state_dict(pretrained_backbone)
-        model.to(self.device)
-        schedule = make_schedule(cfg.train.schedule, cfg.train.optimizer.lr)
-        layer_id = layer_id_fn_for(cfg.backbone, root="backbone.")
-        tx = make_optimizer(cfg.train.optimizer, schedule,
-                            model.named_parameters(), cfg.backbone.depth,
-                            layer_id_fn=layer_id)
-        seed = int(torch.randint(2 ** 62, (), generator=generator))
-        rng = torch.Generator(device=self.device).manual_seed(seed)
-        return create_state(model, tx, rng)
-
     def loss_fn(self, model: nn.Module, batch: Dict[str, torch.Tensor],
                 generator: torch.Generator, deterministic: bool = False):
         """The train step's loss: BatchNorm on batch statistics, dropout and
@@ -98,14 +63,6 @@ class SegmentationTask:
         return make_train_step(
             lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
 
-    def fit(self, state: TrainState, data: Iterator[Dict[str, np.ndarray]],
-            steps: int, log_every: int = 50,
-            log_fn: Callable[[int, dict], None] = None,
-            **ckpt_kw) -> Tuple[TrainState, dict]:
-        from mtp_tpu_torch.tasks._fit import fit_loop
-        return fit_loop(self, state, data, steps, log_every=log_every,
-                        log_fn=log_fn, **ckpt_kw)
-
     # -- inference ----------------------------------------------------------
     @torch.no_grad()
     def slide_logits(self, images: torch.Tensor,
@@ -128,8 +85,7 @@ class SegmentationTask:
                  slide: Optional[SlideConfig] = None) -> Dict[str, float]:
         """mIoU/mAcc/aAcc/... (%) of the state's model over `data`, with the
         recipe's slide geometry (or `slide`)."""
-        if state.model is not self.model:
-            raise ValueError("the state does not hold this task's model")
+        self._check_state(state)
         predict = self.predict_fn(slide)
         acc = SegAccumulator(self.cfg.num_classes, self.cfg.ignore_index)
         for batch in data:

@@ -40,7 +40,16 @@ SLICE_MODULES = [
     "mtp_tpu_torch.core.train",
     "mtp_tpu_torch.tasks._fit",
     "mtp_tpu_torch.tasks.segmentation",
+    "mtp_tpu_torch.tasks.classification",
+    "mtp_tpu_torch.tasks.change_detection",
+    "mtp_tpu_torch.models.classifier",
+    "mtp_tpu_torch.models.change_detection",
+    "mtp_tpu_torch.heads.linear_cls",
+    "mtp_tpu_torch.heads.unet",
+    "mtp_tpu_torch.heads.fpn",
     "mtp_tpu_torch.ckpt.from_jax",
+    "mtp_tpu_torch.ckpt.torch_convert",
+    "mtp_tpu_torch.ckpt.store",
     "chip_smoke",
 ]
 
@@ -98,6 +107,18 @@ def test_config_copies_match_the_jax_package():
                  "rvsa-l-upernet-384-mae-spacenetv1"):
         assert dataclasses.asdict(recipe) == \
             dataclasses.asdict(jrecipes.get(name).task), name
+    for factory, names in (
+            (pc.vit_rvsa_l_224_eurosat, ("vit-rvsa-l-224-mae-mtp_eurosat",
+                                         "vit-rvsa-l-224-mae_eurosat")),
+            (pc.intern_xl_224_eurosat, ("intern-xl-224-imp-mtp_eurosat",
+                                        "intern-xl-224-imp_eurosat")),
+            (pc.rvsa_l_unet_256_levir, ("rvsa-l-unet-256-mae-mtp_levir",
+                                        "rvsa-l-unet-256-mae_levir")),
+            (pc.intern_xl_unet_256_levir, ("intern-xl-unet-256-imp-mtp_levir",
+                                           "intern-xl-unet-256-imp_levir"))):
+        for name in names:
+            assert dataclasses.asdict(factory()) == \
+                dataclasses.asdict(jrecipes.get(name).task), name
     with pytest.raises(NotImplementedError, match="one device"):
         pc.check_single_device(pc.MeshConfig(data=4))
     pc.check_single_device(pc.MeshConfig(data=1, model=-1))

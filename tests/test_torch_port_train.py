@@ -438,10 +438,11 @@ def test_model_train_mode_is_stochastic_and_repeatable():
     assert not torch.allclose(a, d)
 
 
-def test_fit_and_evaluate():
+def test_fit_and_evaluate(tmp_path):
     """`fit` logs at step 0, every log_every-th and the last step with
-    data_time and step_time; `evaluate` returns the mIoU family; the
-    checkpoint arguments raise until checkpointing is ported."""
+    data_time and step_time; `evaluate` returns the mIoU family; with a
+    CheckpointStore `fit` saves the state at the end and exports the
+    encoder (tests/test_torch_port_ckpt.py holds what they hold)."""
     cfg = TaskConfig(task="segmentation", num_classes=K,
                      backbone=dataclasses.replace(CFG, drop_path_rate=0.2),
                      train=TrainConfig(optimizer=OPT, schedule=SCHED),
@@ -460,8 +461,13 @@ def test_fit_and_evaluate():
     labels = np.random.default_rng(9).integers(0, K, (2, 96, 80))
     metrics = task.evaluate(state, iter([{"image": images, "label": labels}]))
     assert 0.0 <= metrics["mIoU"] <= 100.0 and len(metrics["IoU"]) == K
-    with pytest.raises(NotImplementedError):
-        task.fit(state, iter([_batch(0)]), 1, ckpt=object())
+    from mtp_tpu_torch.ckpt.store import CheckpointStore
+    ckpt = CheckpointStore(str(tmp_path / "ckpt"))
+    state, _ = task.fit(state, iter([_batch(0)]), 1, ckpt=ckpt,
+                        encoder_path=str(tmp_path / "encoder.pth"))
+    assert ckpt.latest_step() == state.step == 4
+    assert (tmp_path / "encoder.pth").is_file()
+    ckpt.close()
 
 
 def test_remat_and_meshes_are_refused():

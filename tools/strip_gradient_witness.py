@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Which of the card and the CPU is nearer the exact fp32 gradients of
-`chip_smoke.py` phase 14: the ViT recipe at a 2080×112 strip, batch 2,
-dropout and drop-path on, identity RVSA sampling.
+`chip_smoke.py` phase 14 (the ViT recipe at a 2080×112 strip, batch 2,
+dropout and drop-path on, identity RVSA sampling) or of phase 17 (the ViT-L
+change detector, one pair of 256², train-mode BatchNorm).
 
-    python3 tools/strip_gradient_witness.py      # one card, ~2 min
+    python3 tools/strip_gradient_witness.py [--path rvsa_hr|cd_vit]  # one card, ~2 min
 
-Runs phase 14's loss.backward() three times on the same weights, batch and
+Runs the phase's loss.backward() three times on the same weights, batch and
 masks: fp32 on the card (the kernels), fp32 on the CPU (the plain
 versions), and a float64 copy of the model on the CPU, which evaluates the
 same function in float64 (`mtp_tpu_torch/ops/precision.py`; `NoDowncast`
@@ -17,6 +18,7 @@ parameters the card is the nearer.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -59,38 +61,51 @@ def _groups(d: dict) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("rvsa_hr", "cd_vit"), default="rvsa_hr")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    chip_smoke._tf32(False)  # fp32 matmuls and convolutions, as phase 14
-    path = chip_smoke.PATHS["rvsa_hr"]
+    chip_smoke._tf32(False)  # fp32 matmuls and convolutions, as the phases
+    if args.path == "cd_vit":
+        path = chip_smoke.TASK_PATHS["cd_vit"]
+        task_cls = chip_smoke.ChangeDetectionTask
+        batch = {k: torch.from_numpy(v) for k, v in chip_smoke.task_batch(
+            path, 1, chip_smoke.SEED + 3).items()}
+        model = chip_smoke.build_task_model(path)
+    else:
+        path = chip_smoke.PATHS["rvsa_hr"]
+        task_cls = chip_smoke.SegmentationTask
+        batch = {k: torch.from_numpy(v) for k, v in chip_smoke.synthetic_batch(
+            path.grad_batch, path.cpu_hw, path.recipe.num_classes,
+            chip_smoke.SEED + 3).items()}
+        model = chip_smoke.build_model(path, path.cpu_hw)
+        with torch.no_grad():  # identity sampling, as phase 14
+            for name, p in model.named_parameters():
+                if SAMPLING in name:
+                    p.zero_()
     recipe = path.recipe
     cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(
         recipe.backbone, dtype="float32"))
-    batch = {k: torch.from_numpy(v) for k, v in chip_smoke.synthetic_batch(
-        path.grad_batch, path.cpu_hw, recipe.num_classes, chip_smoke.SEED + 3).items()}
-    model = chip_smoke.build_model(path, path.cpu_hw)
-    with torch.no_grad():  # identity sampling, as phase 14
-        for name, p in model.named_parameters():
-            if SAMPLING in name:
-                p.zero_()
     model64 = copy.deepcopy(model).double()
     model_gpu = copy.deepcopy(model).cuda()
+    batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
     runs = {}
     for what, m, b, device in (
             ("card", model_gpu, batch, "cuda"), ("cpu", model, batch, "cpu"),
-            ("float64", model64, dict(batch, image=batch["image"].double()), "cpu")):
+            ("float64", model64, batch64, "cpu")):
         t0 = time.perf_counter()
         mode = NoDowncast() if what == "float64" else None
         with mode if mode is not None else contextlib.nullcontext():
             runs[what] = chip_smoke._loss_and_grads(cfg, m, b, device,
-                                                    path.grad_stochastic)
+                                                    path.grad_stochastic, task_cls)
         print(f"[witness] {what}: loss {runs[what][0]:.9f} forward+backward "
               f"{time.perf_counter() - t0:.1f} s"
               + (f", {mode.calls} torch calls, none rounded float64" if mode else ""))
     if any(g.dtype != torch.float64 for g in runs["float64"][1].values()):
         raise AssertionError("the float64 run produced gradients of another dtype")
     _, summary = chip_smoke._grad_verdict(path, runs["cpu"], runs["card"])
-    print(f"[witness] card vs CPU (phase 14's reading): {summary}")
+    print(f"[witness] {args.path}: card vs CPU (the phase's reading): {summary}")
     g64 = runs["float64"][1]
     card, cpu = (_distances(path, runs[w][1], g64) for w in ("card", "cpu"))
     loss64 = runs["float64"][0]

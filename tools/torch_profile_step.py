@@ -2,12 +2,14 @@
 """Device-time breakdown of one recipe train step of the PyTorch port on
 one NVIDIA GPU.
 
-    python3 tools/torch_profile_step.py [--recipe xl|rvsa|rvsa_hr] [--steps 2]
+    python3 tools/torch_profile_step.py [--recipe xl|rvsa|rvsa_hr|cls_vit|cls_xl|cd_vit|cd_xl]
+                                        [--steps 2]
 
-Runs the recipe's train step (`chip_smoke.PATHS`: batch, crop, bf16
-autocast, remat and drop-path as the recipe sets them) through
-`SegmentationTask`, with seeded random weights and synthetic batches, and
-prints
+Runs the recipe's train step (`chip_smoke.PATHS`: the segmentation recipes
+through `SegmentationTask`; `chip_smoke.TASK_PATHS`: the classification
+and change-detection recipes through their tasks; batch, crop, bf16
+autocast, remat and drop-path as the recipe sets them), with seeded random
+weights and synthetic batches, and prints
 - a CUDA-event split of the step, median of 5 steps: forward + loss,
   backward, optimizer, and the whole step on the host clock;
 - a `torch.profiler` trace of `--steps` steps: device time per step by
@@ -77,19 +79,26 @@ def card() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--recipe", choices=sorted(chip_smoke.PATHS), default="xl")
+    ap.add_argument("--recipe", choices=sorted({**chip_smoke.PATHS, **chip_smoke.TASK_PATHS}),
+                    default="xl")
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/torch_profile_step.py: no CUDA device")
     hw = card()
-    path = chip_smoke.PATHS[args.recipe]
+    if args.recipe in chip_smoke.TASK_PATHS:
+        path = chip_smoke.TASK_PATHS[args.recipe]
+        task, n = path.task(path.recipe), path.batch
+        host_batch = chip_smoke.task_batch(path, n, 10)
+    else:
+        path = chip_smoke.PATHS[args.recipe]
+        task, n = SegmentationTask(path.recipe), path.recipe.train.batch_size
+        crop = path.recipe.backbone.img_size
+        host_batch = chip_smoke.synthetic_batch(n, (crop, crop), path.recipe.num_classes, 10)
     recipe = path.recipe
-    task = SegmentationTask(recipe)
-    state = task.init_state(torch.Generator().manual_seed(0))
     crop = recipe.backbone.img_size
-    batch = {k: _to_device(v, task.device) for k, v in chip_smoke.synthetic_batch(
-        recipe.train.batch_size, (crop, crop), recipe.num_classes, 10).items()}
+    state = task.init_state(torch.Generator().manual_seed(0))
+    batch = {k: _to_device(v, task.device) for k, v in host_batch.items()}
     step = task.train_step_fn()
     for _ in range(3):
         state, m = step(state, batch)
@@ -114,7 +123,7 @@ def main() -> None:
                            ("optimizer", 2, 3), ("device step", 0, 3)):
             parts[name].append(ev[a].elapsed_time(ev[b]))
     print(f"[profile {args.recipe}] CUDA-event split, median of 5 steps, batch "
-          f"{recipe.train.batch_size} of {crop}²: " + ", ".join(
+          f"{n} of {crop}²: " + ", ".join(
               f"{k} {statistics.median(v):.2f} ms" for k, v in parts.items())
           + f" | card {hw}", flush=True)
 
@@ -168,7 +177,7 @@ def main() -> None:
     k6 = sorted((e for e in kernels if group_of(e.name) == "K6 bilinear_sample_bwd"),
                 key=lambda e: e.time_range.start)
     depths = list(reversed(chip_smoke.internimage_config(recipe.backbone).depths)) \
-        if args.recipe == "xl" else []
+        if chip_smoke.is_internimage(recipe.backbone) else []
     # kernels per K6 launch: 1, or 2 for the tiled body (coordinates, image)
     per_launch = len(k6) // (sum(depths) * args.steps) if depths else 0
     if per_launch and len(k6) == sum(depths) * args.steps * per_launch:
