@@ -12,7 +12,9 @@ intern-xl-upernet-512-imp-mtp-loveda (InternImage-XL → UperNet; kernel K8,
 which is the K3/K6 sampling at P = 9 taps), and the ViT recipe at 2080²
 crops with remat (its four full-attention blocks over the 130² token grid
 run the window-attention function over one window of 16,900 tokens: K1L
-forward, K7 backward).
+forward, K7 backward); then the classification, change-detection and
+checkpoint phases, and the two Faster R-CNN recipes at 800² (K1-K6 or K8,
+and N1, the port's greedy-NMS kernel).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
@@ -65,6 +67,20 @@ Phases; any failure raises, so the exit code is non-zero:
    K1 and K4 timed beside them on the same inputs (`[fork]` lines).
    Every output of phases 3-3d is held elementwise (TOL) and as a whole,
    ‖kernel − plain‖ / ‖plain‖ (REL_TOL).
+3e. N1, greedy NMS: the keep indices and scores of `nms_batched` (or
+   `batched_nms`) on the card must equal those of the plain version
+   `nms_ref`, on the card and on the CPU, exactly, at the RPN's shape at
+   800² (B = 2, N = 8,382 → 1,000 at IoU 0.7, the record) and the
+   predict's (B = 2, N = 1,000 → 100 at 0.5, 20 classes), each with a
+   control (the kernel at thr − 0.01 must give other keep sets), and at N
+   = 130, every box invalid, equal scores, and a pair at IoU exactly 0.7
+   (kept at 0.7, suppressed at 0.69); the pairs whose IoU lies within one
+   fp32 ulp of the threshold are counted and named; the kernel timed back
+   to back and as device time, beside its plain version and its bound.
+3f. K1-K6 and K8 at the 800² detection paths' shapes (batch 2: K1/K4 over
+   128 windows of 49 tokens, K2/K5 over 32 heads of the 50×50 grid,
+   K3/K6 over 32 maps of 56², K8 at XL's 200² stage 0 and 25² stage 3),
+   held and timed as phase 3's rows.
 4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
    card (kernels) against the same model on the CPU (plain versions).
 5. ViT serving, bench geometry: 4 tiles of 512², 384² crops at stride 256,
@@ -108,7 +124,22 @@ Phases; any failure raises, so the exit code is non-zero:
    an in-process copy of step 2 (by their updates, RESUME_RTOL), with a
    control whose Adam moments are zeroed; the ViT-L classifier's encoder
    (224²) loaded into the 256² change detector and run.
-The last lines are the kernels' JSON record, the card, and the result line.
+19. Detection, for faster_rcnn_rvsa_l_800_mae_mtp_dior (ViT-L+RVSA, the
+   last block tapped 4 times) and faster_rcnn_intern_xl_800_imp_mtp_dior
+   (InternImage-XL, remat) in turn: fp32 FPN levels, RPN scores and deltas
+   of 2 images of an 800×128 strip card vs CPU, and the box head's
+   outputs on the CPU's proposals (SLICE_TOL); fp32 gradients at the strip
+   card vs CPU with the TF32 control (phase 6's rule, XL's backbone at
+   rtol 5e-3; both sides take the CPU's proposals, its max-pool picks and
+   one CPU generator's sampler draws); the train step
+   at batch 2 of 800² (the recipe's 16 over 8 GPUs) through
+   `DetectionTask.init_state` → `fit`: launches (N1 once), ms/step,
+   images/s, data_time, peak memory, the busy share and device time by
+   kernel group (torch.profiler); `predict_fn` on 2 images (N1 twice),
+   ms/image; `evaluate`'s VOC AP50 on seeded synthetic boxes (finite); a
+   fixed-batch sanity run whose loss must fall.
+The last lines are the total time, the kernels' JSON record, the card, and
+the result line.
 """
 
 from __future__ import annotations
@@ -127,6 +158,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path as FilePath
+from unittest import mock
 from typing import Callable, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -137,6 +169,8 @@ from mtp_tpu_torch.ckpt.from_jax import init_weights
 from mtp_tpu_torch.ckpt.store import CheckpointStore, load_encoder, save_encoder
 from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
 from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
+                                  faster_rcnn_intern_xl_800_dior,
+                                  faster_rcnn_rvsa_l_800_dior,
                                   intern_xl_224_eurosat,
                                   intern_xl_unet_256_levir,
                                   intern_xl_upernet_512_loveda,
@@ -145,15 +179,21 @@ from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
                                   rvsa_l_upernet_384_spacenetv1,
                                   vit_rvsa_l_224_eurosat)
 from mtp_tpu_torch.eval.slide import slide_origins
+from mtp_tpu_torch.heads.rpn import gen_proposals
 from mtp_tpu_torch.kernels import _build
+from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector
 from mtp_tpu_torch.models.internimage import internimage_flops
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.models.vit_rvsa import backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
+from mtp_tpu_torch.ops import nms as pnms
+from mtp_tpu_torch.ops.boxes import bbox_overlaps
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
+from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
+from mtp_tpu_torch.tasks.detection_task import DetectionTask
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 SEED = 0
@@ -240,7 +280,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 COUNTERS = ("window", "flash", "bilinear_sample", "window_bwd", "flash_bwd",
-            "bilinear_sample_bwd", "window_large", "window_bwd_qblk")
+            "bilinear_sample_bwd", "window_large", "window_bwd_qblk", "nms")
 
 
 def launches(**nonzero) -> Dict[str, int]:
@@ -368,6 +408,10 @@ KERNELS = {
     "window_bwd_qblk": dict(name="window_attn_bwd_qblk", route="cuda",
                             source="mtp_tpu_torch/csrc/window_attn_bwd_qblk.cu",
                             replaces="mtp_tpu/ops/pallas_attn.py:271"),
+    # N1: the port's own kernel; JAX runs greedy NMS as lax loops, no pallas_call
+    "nms": dict(name="nms", route="cuda", source="mtp_tpu_torch/csrc/nms.cu",
+                replaces="mtp_tpu/ops/nms.py:122 (no pallas_call: the lax.fori_loop "
+                         "scan of _nms_single_lane)"),
 }
 # where each kernel's `launches` is read: (path, phase kind, counter)
 LAUNCHED_IN = {
@@ -381,6 +425,7 @@ LAUNCHED_IN = {
     "dcnv3_bwd": ("xl", "train", "bilinear_sample_bwd"),
     "window_large": ("rvsa_hr", "serve", "window_large"),
     "window_bwd_qblk": ("rvsa_hr", "train", "window_bwd_qblk"),
+    "nms": ("det_vit", "train", "nms"),
 }
 
 
@@ -389,11 +434,11 @@ def log(msg: str) -> None:
 
 
 def counters() -> dict:
-    return {**fused_attn.LAUNCHES, **dcn.LAUNCHES}
+    return {**fused_attn.LAUNCHES, **dcn.LAUNCHES, **pnms.LAUNCHES}
 
 
 def reset_counters() -> None:
-    for launched in (fused_attn.LAUNCHES, dcn.LAUNCHES):
+    for launched in (fused_attn.LAUNCHES, dcn.LAUNCHES, pnms.LAUNCHES):
         launched.update(dict.fromkeys(launched, 0))
 
 
@@ -1168,6 +1213,191 @@ def phase_dcnv3_kernels() -> dict:
     return check_kernels(cases, record_label="stage0 random")
 
 
+# ------------------------------------------------------------ phase 3e --
+
+# the RPN's NMS input at 800²: min(2000, level size) anchors of each level
+RPN_N = sum(min(2000, n) for n in det_core.anchor_level_sizes((800, 800)))
+
+
+def clustered_boxes(B: int, N: int, hw: Tuple[int, int], seed: int, copies: int = 3):
+    """N boxes an image as an RPN or a box head leaves them, on the CPU: one
+    in `copies` drawn over the hw image (sides 8-512 px log-uniform, aspect
+    1/2-2), the rest jittered copies of those (centres by 10% of a side,
+    sides by 10%), all clipped to the image; uniform scores.  Returns
+    (boxes, scores, the index of each box's source box)."""
+    g = _gen(seed)
+    H, W = hw
+    n0 = max(1, N // copies)
+    rand = lambda *shape: torch.rand(shape, generator=g)
+    side = torch.exp(rand(B, n0) * math.log(64) + math.log(8))
+    ratio = torch.exp((rand(B, n0) * 2 - 1) * math.log(2))
+    w, h = side * ratio.sqrt(), side / ratio.sqrt()
+    cx, cy = rand(B, n0) * W, rand(B, n0) * H
+    src = torch.randint(0, n0, (B, N - n0), generator=g)
+    w, h, cx, cy = (torch.cat([t, t.gather(1, src)], 1) for t in (w, h, cx, cy))
+    jitter = lambda: torch.randn((B, N), generator=g) * 0.1
+    cx, cy = cx + w * jitter(), cy + h * jitter()
+    w, h = w * (1 + jitter()), h * (1 + jitter())
+    boxes = torch.stack([(cx - w / 2).clamp(0, W), (cy - h / 2).clamp(0, H),
+                         (cx + w / 2).clamp(0, W), (cy + h / 2).clamp(0, H)], -1)
+    return boxes, rand(B, N), torch.cat([torch.arange(n0).expand(B, n0), src], 1)
+
+
+def nms_near_threshold(boxes_o: torch.Tensor, thr: float) -> Tuple[int, list]:
+    """Pairs (i < j) of boxes in score order whose IoU (CPU, `bbox_overlaps`)
+    lies within one fp32 ulp of thr: where a card and a CPU that rounded
+    differently could decide otherwise.  (count, the first 3 pairs)."""
+    ulp = float(np.spacing(np.float32(thr)))
+    count, pairs = 0, []
+    b = boxes_o.cpu()
+    for img in range(b.shape[0]):
+        for r0 in range(0, b.shape[1], 512):
+            iou = bbox_overlaps(b[img, r0:r0 + 512], b[img])
+            rows = torch.arange(r0, r0 + iou.shape[0])[:, None]
+            near = ((iou - thr).abs() <= ulp) & (torch.arange(b.shape[1])[None] > rows)
+            count += int(near.sum())
+            for i, j in near.nonzero()[:3 - len(pairs)].tolist():
+                pairs.append((img, r0 + i, j, float(iou[i, j])))
+    return count, pairs
+
+
+def nms_case(label: str, boxes, scores, thr: float, max_out: int, labels=None,
+             control: bool = False, timed: bool = False) -> Optional[dict]:
+    """N1 through `nms_batched` (or `batched_nms` with labels) on the card
+    against the plain version `nms_ref` on the card and on the CPU, same
+    inputs: keep indices and scores equal.  `control`: the kernel's keep
+    mask at thr - 0.01 must differ from the plain version's at thr (the
+    top-`max_out` outputs may hide the difference when more boxes are kept
+    than `max_out`).  `timed`: the kernel (`nms_keep`, both
+    launches, on the boxes in score order) back to back and as device time,
+    its plain version `nms_keep_ref` on the card, `nms_batched` whole, and
+    the bound; returns the record."""
+    cuda = lambda t: None if t is None else t.cuda()
+    bc, sc, lc = cuda(boxes), cuda(scores), cuda(labels)
+    shift = lambda b, l: b if l is None else pnms.class_offset_boxes(b, l)
+    if labels is None:
+        run = lambda t: pnms.nms_batched(bc, sc, t, max_out)
+    else:
+        run = lambda t: pnms.batched_nms(bc, sc, lc, t, max_out)
+    before = counters()
+    idx, out = run(thr)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in counters().items() if n != before[k]}
+    if moved != {"nms": 1}:
+        raise AssertionError(f"N1 {label}: launched {moved}, expected one nms")
+    ref_card = pnms.nms_ref(shift(bc, lc), sc, thr, max_out)
+    ref_cpu = pnms.nms_ref(shift(boxes, labels), scores, thr, max_out)
+    _, boxes_o, scores_o = pnms._score_order(shift(bc, lc), sc)
+    near, pairs = nms_near_threshold(boxes_o, thr)
+    kept = int((out > pnms.NEG_INF / 2).sum())
+    same = {where: torch.equal(idx.cpu(), r[0].cpu()) and torch.equal(out.cpu(), r[1].cpu())
+            for where, r in (("card", ref_card), ("CPU", ref_cpu))}
+    log(f"[nms] {label}: B {bc.shape[0]} N {bc.shape[1]} thr {thr} max_out {max_out}: "
+        f"{kept} kept; indices and scores equal to nms_ref on the card {same['card']}, "
+        f"on the CPU {same['CPU']}; pairs within 1 ulp of thr {near} {pairs}")
+    if not all(same.values()):
+        raise AssertionError(f"N1 {label} differs from nms_ref: {same}; pairs within one "
+                             f"ulp of the threshold: {near} {pairs}")
+    boxes_o, scores_o = boxes_o.contiguous(), scores_o.contiguous()
+    valid = scores_o > pnms.NEG_INF / 2
+    keep_ref = pnms.nms_keep_ref(boxes_o, valid, thr)
+    if control:
+        keep_low = pnms.nms_keep(boxes_o, scores_o, thr - 0.01)
+        if torch.equal(keep_low, keep_ref):
+            raise AssertionError(f"N1 {label}: the control at thr {thr - 0.01} passed")
+        log(f"[nms] control {label}, the kernel at thr {thr - 0.01:.2f} -> rejected "
+            f"({int(keep_low.sum())} kept against {int(keep_ref.sum())} at {thr})")
+    if not timed:
+        return None
+    keep = pnms.nms_keep(boxes_o, scores_o, thr)
+    if not torch.equal(keep, keep_ref):
+        raise AssertionError(f"N1 {label}: the keep mask differs from nms_keep_ref")
+    ms = loop_ms(lambda: pnms.nms_keep(boxes_o, scores_o, thr))
+    dev = graph_ms(lambda: pnms.nms_keep(boxes_o, scores_o, thr))
+    plain_ms = loop_ms(lambda: pnms.nms_keep_ref(boxes_o, valid, thr), reps=3, warmup=1)
+    whole = loop_ms(lambda: run(thr))
+    B, N = scores_o.shape
+    pos = torch.arange(N, device=keep.device)
+    pairs_needed = int(((N - 1 - pos) * keep).sum())  # (kept i, every later j)
+    flops = 14 * pairs_needed
+    nbytes = B * N * (16 + 4) + B * N
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops > t_bytes else "bytes"
+    log(f"[kernel] nms {label}: kernel {ms:.4f} ms (CUDA graph: {dev:.4f} ms of device "
+        f"time a call; mask {B * N * ((N + 63) // 64) * 8 / 1e6:.1f} MB)  plain "
+        f"(nms_keep_ref on the card) {plain_ms:.4f} ms  library none (torchvision is "
+        f"absent)  bound {bound_ms:.4f} ms by {bound_by} ({pairs_needed} pairs with a "
+        f"kept first box, {flops / 1e9:.4f} GFLOP fp32, {nbytes / 1e6:.3f} MB); "
+        f"{'batched_nms' if labels is not None else 'nms_batched'} whole (sort, N1, "
+        f"top {max_out}) {whole:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_nms_kernel() -> dict:
+    """Phase 3e: N1 at the RPN's shape (B = 2, N = 8,382 → 1,000 at 0.7, the
+    record) and the predict's (B = 2, N = 1,000 → 100 at 0.5, 20 classes
+    through `batched_nms`), both with controls; N = 130 (not a multiple of
+    the 64-box tile), every box invalid, equal scores, and a pair at IoU
+    exactly 0.7."""
+    B = 2
+    boxes, scores, _ = clustered_boxes(B, RPN_N, (800, 800), 70)
+    record = nms_case(f"rpn {B}x{RPN_N}", boxes, scores, 0.7, 1000, control=True,
+                      timed=True)
+    # the box head's candidates: ~10 boxes an object, each object's class
+    boxes, scores, src = clustered_boxes(B, 1000, (800, 800), 71, copies=10)
+    labels = torch.randint(0, 20, (B, 1000), generator=_gen(72)).gather(1, src)
+    nms_case(f"predict {B}x1000 20 classes", boxes, scores, 0.5, 100, labels,
+             control=True, timed=True)
+    boxes, scores, _ = clustered_boxes(B, 130, (200, 200), 73)
+    nms_case("N=130", boxes, scores, 0.7, 50)
+    boxes, _, _ = clustered_boxes(B, 200, (200, 200), 74)
+    nms_case("all invalid", boxes, torch.full((B, 200), pnms.NEG_INF), 0.7, 20)
+    boxes, scores, _ = clustered_boxes(B, 500, (300, 300), 75)
+    nms_case("equal scores", boxes, (scores * 8).round() / 8, 0.5, 100)
+    boxes, scores, _ = clustered_boxes(B, 70, (300, 300), 76)
+    boxes[:, :2] = torch.tensor([[0.0, 0.0, 10.0, 10.0], [0.0, 0.0, 10.0, 7.0]])
+    scores[:, :2] = torch.tensor([2.0, 1.5])
+    if float(bbox_overlaps(boxes[0, :1], boxes[0, 1:2])) != np.float32(0.7):
+        raise AssertionError("the pair is not at IoU 0.7 in fp32")
+    for thr, both in ((0.7, True), (0.69, False)):
+        idx, _ = pnms.nms_batched(boxes.cuda(), scores.cuda(), thr, 20)
+        if (1 in idx[:, :2].tolist()[0]) != both:
+            raise AssertionError(f"the IoU-0.7 pair at thr {thr}: kept {idx[:, :2].tolist()}")
+        nms_case(f"IoU 0.7 pair thr {thr}", boxes, scores, thr, 20)
+    return {"nms": record}
+
+
+# ------------------------------------------------------------ phase 3f --
+
+def phase_800_kernels() -> None:
+    """Phase 3f: K1-K6 and K8 at the 800² detection paths' shapes, batch 2,
+    each against its plain version (TOL and REL_TOL) and timed; nothing
+    recorded (the JSON line keeps phases 3-3d's rows).  The ViT's 50² token
+    grid: K1/K4 over 128 windows (64 an image: the grid padded to 56²) of
+    16 heads × 49 tokens; K2/K5 over 32 heads of the 50×50 grid (N =
+    2,500); K3/K6 sampling 32 maps of 56² (C = 64).  XL: K8 at stage 0
+    (200², 12 groups) and stage 3 (25², 96 groups), gc 16, random
+    offsets."""
+    check_kernels({
+        "window": [("800² W=128", window_case(128, 16, 49, 64, 61, device_time=True))],
+        "window_bwd": [("800² W=128", window_case(128, 16, 49, 64, 62, bwd=True,
+                                                  device_time=True))],
+        "flash": [("800² 50x50", flash_case(32, (50, 50), 64, 63))],
+        "flash_bwd": [("800² 50x50", flash_case(32, (50, 50), 64, 64, bwd=True))],
+        "bilinear_sample": [("800² 56x56", sample_case(32, 56, 56, 64, 56 * 56, 1, 65,
+                                                       edge=False))],
+        "bilinear_sample_bwd": [("800² 56x56", sample_case(32, 56, 56, 64, 56 * 56, 1,
+                                                           66, edge=False, bwd=True))],
+        "dcnv3_fwd": [(f"800² stage{s} {hw}²", dcnv3_case(2, hw, G, 16, 67 + s, "random"))
+                      for s, hw, G in ((0, 200, 12), (3, 25, 96))],
+        "dcnv3_bwd": [(f"800² stage{s} {hw}²", dcnv3_case(2, hw, G, 16, 69 + s, "random",
+                                                          bwd=True))
+                      for s, hw, G in ((0, 200, 12), (3, 25, 96))],
+    }, record_label=None)
+
+
 # ----------------------------------------------------------- phase 4 / 8 --
 
 def build_model(path: Path, hw: Tuple[int, int]) -> Segmentor:
@@ -1299,9 +1529,11 @@ def _loss_and_grads(cfg: TaskConfig, model, batch: dict, device: str,
                     ) -> Tuple[float, Dict[str, torch.Tensor]]:
     """One loss.backward() of the task's loss on `device`: the loss and every
     parameter's gradient (on the CPU).  `stochastic` turns dropout and
-    drop-path on, the masks drawn on the CPU from one seed for every run."""
+    drop-path on.  The task's random draws (those masks, and detection's
+    samplers) come from a CPU generator of one seed for every run, so that
+    the card's run draws what the CPU's does."""
     task = task_cls(cfg, model=model, device=device)
-    masks = _gen(SEED + 4) if stochastic else None
+    masks = _gen(SEED + 4)
     loss, _ = task.loss_fn(model, {k: v.to(device) for k, v in batch.items()},
                            masks, deterministic=not stochastic)
     loss.backward()
@@ -1874,6 +2106,404 @@ def phase_checkpoint(vit_cls_backbone, card: str) -> None:
             raise AssertionError("the exported encoder did not load into the detector")
 
 
+# ------------------------------------------------------------- phase 19 --
+
+DET_BATCH = 2          # the recipes' 2 a GPU × 8, on one card
+DET_STRIP = (800, 128)  # card vs CPU: a 50×8 token grid (both FPNs need even grids)
+DET_MAX_GTS = 100
+# kernel launches and where detection spends device time by kernel group
+# (first match wins), read from torch.profiler in phase 19
+KERNEL_GROUPS = [
+    ("N1 mask", r"nms_mask_kernel"),
+    ("N1 scan", r"nms_scan_kernel"),
+    ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_(vec_)?kernel"),
+    ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_(vec_|tiled_)?kernel"),
+    ("K5 flash_attn_bwd", r"flash_bwd_"),
+    ("K2 flash_attn_fwd", r"flash_(attn_)?fwd"),
+    ("K1 window_attn_fwd", r"window_attn_fwd_(tc_)?kernel"),
+    ("K4 window_attn_bwd", r"window_attn_bwd_(tc_)?kernel"),
+    ("AdamW (foreach)", r"multi_tensor_apply|foreach|adam"),
+    ("sort", r"sort|Sort|radix"),
+    ("cuDNN convolutions", r"conv|cudnn|dgrad|wgrad|implicit_gemm|winograd|fft"),
+    ("cuBLAS GEMMs", r"gemm|sm90_xmma|cutlass|ampere_|sm80_|gemv|splitK|nvjet"),
+    ("gather/scatter, index", r"gather|scatter|index|Index"),
+    ("LayerNorm", r"layer_norm|LayerNorm"),
+    ("reductions", r"reduce|Reduce|norm_kernel"),
+    ("softmax", r"softmax"),
+    ("copies, casts, cat", r"copy|Copy|cat|transpose|permute|contiguous"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
+]
+
+
+def kernel_group(name: str) -> str:
+    for group, rx in KERNEL_GROUPS:
+        if re.search(rx, name):
+            return group
+    return "other"
+
+
+@dataclasses.dataclass(frozen=True)
+class DetPath:
+    """A Faster R-CNN recipe's detector at full width and depth, and what
+    phase 19 drives it at."""
+
+    name: str
+    recipe: TaskConfig
+    flops: Callable[[int], float]        # backbone forward FLOPs of one image
+    per_forward: Dict[str, int]          # launches of one backbone forward
+    per_step: Dict[str, int]             # of one train step
+    per_predict: Dict[str, int]          # of one predict
+    train_steps: int                     # timed steps
+    # what `check_gradients` reads, as it reads a `Path`'s: the FPN, RPN and
+    # box head are the "convs" group
+    head_prefixes: ClassVar[Tuple[str, ...]] = ("neck.", "rpn_head.", "roi_head.")
+    grad_stochastic: ClassVar[bool] = False
+    grad_rtol: Dict[str, float] = dataclasses.field(  # `phase_det_gradients`
+        default_factory=lambda: GRAD_RTOL)
+
+
+DET_VIT, DET_XL = faster_rcnn_rvsa_l_800_dior(), faster_rcnn_intern_xl_800_dior()
+DET_PATHS = {
+    # ViT-L+RVSA at 800², the last block tapped 4 times → simple FPN → FPN →
+    # Faster R-CNN, 20 classes; no remat: K1-K6 as the segmentation ViT, N1
+    # once a step (the RPN's proposals) and twice a predict (+ the per-class
+    # NMS of the detections)
+    "det_vit": DetPath("det_vit", DET_VIT,
+                       lambda crop: backbone_flops(DET_VIT.backbone, (crop, crop)),
+                       VIT_FWD, {**VIT_STEP, "nms": 1}, {**VIT_FWD, "nms": 2},
+                       train_steps=8),
+    # InternImage-XL at 800² with remat: K8 on maps of 200², 100², 50², 25²
+    "det_xl": DetPath("det_xl", DET_XL,
+                      lambda crop: internimage_flops(internimage_config(DET_XL.backbone),
+                                                     crop),
+                      XL_FWD, {**XL_STEP, "nms": 1}, {**XL_FWD, "nms": 2},
+                      train_steps=6, grad_rtol=GRAD_RTOL_STOCHASTIC),
+}
+
+
+def det_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int) -> dict:
+    """n seeded images of hw, each with 4-15 gt boxes (sides 24-200 px,
+    within the image) padded to DET_MAX_GTS with gt_valid; each box painted
+    with a brightness its label sets ((c + 0.5) / num_classes · 4 − 2 over
+    noise of std 0.5), so the sanity run has something to learn."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    image = (rng.standard_normal((n, H, W, 3)) * 0.5).astype(np.float32)
+    boxes = np.zeros((n, DET_MAX_GTS, 4), np.float32)
+    labels = np.zeros((n, DET_MAX_GTS), np.int64)
+    valid = np.zeros((n, DET_MAX_GTS), bool)
+    for i in range(n):
+        for j in range(rng.integers(4, 16)):
+            bw, bh = rng.uniform(24, min(200, W)), rng.uniform(24, min(200, H))
+            x1, y1 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
+            c = rng.integers(num_classes)
+            boxes[i, j], labels[i, j], valid[i, j] = (x1, y1, x1 + bw, y1 + bh), c, True
+            image[i, int(y1):int(y1 + bh), int(x1):int(x1 + bw)] += \
+                (c + 0.5) / num_classes * 4 - 2
+    return {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+
+
+def build_det_model(path: DetPath, hw: Tuple[int, int]) -> TwoStageDetector:
+    """The recipe's full-width detector for hw images, seeded random weights,
+    on the CPU."""
+    det = DetConfig(num_classes=path.recipe.num_classes)
+    model = TwoStageDetector(path.recipe.backbone, det, input_hw=hw)
+    return init_weights(model, _gen(SEED)).eval()
+
+
+def _det_heads(model, images: torch.Tensor, props: Optional[torch.Tensor], task):
+    """fp32 FPN levels, RPN scores and deltas, and, on `props` (B, P, 4) (the
+    model's own proposals if None), the box head's logits and deltas."""
+    hw = tuple(images.shape[1:3])
+    feats = model.features(images)
+    rpn = model.rpn(feats)
+    if props is None:
+        props, _ = gen_proposals(rpn, task.anchors_on(hw, images.device), hw,
+                                 task.det.nms_pre, task.det.max_proposals,
+                                 task.det.rpn_nms_iou,
+                                 level_sizes=det_core.anchor_level_sizes(hw))
+    B, P = props.shape[:2]
+    bidx = torch.arange(B, device=images.device).repeat_interleave(P)
+    cls, reg = model.box_head(feats, props.reshape(B * P, 4), bidx)
+    return list(feats) + [rpn.cls_scores, rpn.deltas, cls, reg], props
+
+
+@torch.no_grad()
+def phase_det_forward(path: DetPath, model_cpu) -> None:
+    """fp32 FPN levels, RPN scores and deltas of 2 images of the strip, card
+    against CPU, and the box head's logits and deltas on the proposals the
+    CPU computed, given to both: each held to SLICE_TOL of its max |ref|."""
+    batch = det_batch(DET_BATCH, DET_STRIP, path.recipe.num_classes, SEED + 1)
+    x = torch.from_numpy(batch["image"])
+    task = DetectionTask(path.recipe, model=model_cpu, device="cpu")
+    t0 = time.perf_counter()
+    ref, props = _det_heads(model_cpu, x, None, task)
+    t_cpu = time.perf_counter() - t0
+    model = copy.deepcopy(model_cpu).cuda()
+    reset_counters()
+    got, _ = _det_heads(model, x.cuda(), props.cuda(), task)
+    launched = counters()
+    if launched != path.per_forward:
+        raise AssertionError(f"launch counts {launched} != {path.per_forward}")
+    names = [f"FPN level {i}" for i in range(5)] + ["RPN scores", "RPN deltas",
+                                                    "box logits", "box deltas"]
+    worst = 0.0
+    parts = []
+    for name, g, r in zip(names, got, ref):
+        g = g.float().cpu()
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: {tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
+        rel = ((g - r).abs().max() / r.abs().max()).item()
+        worst = max(worst, rel)
+        parts.append(f"{name} {rel:.3e}")
+    log(f"[det {path.name}] fp32 {DET_BATCH} images of {DET_STRIP[0]}×{DET_STRIP[1]}, card "
+        f"vs CPU, max |Δ| / max |ref| (tol {SLICE_TOL}): " + ", ".join(parts)
+        + f"; box head on the CPU's {tuple(props.shape)} proposals; CPU forward "
+        f"{t_cpu:.1f} s; launches {launched}")
+    if not worst <= SLICE_TOL:
+        raise AssertionError(f"card detector disagrees with the CPU: {worst:.3e}")
+
+
+def det_grad_inputs(path: DetPath, model_cpu):
+    """What phase 19's gradient check runs on: the recipe in fp32, 2 seeded
+    images of the strip, the proposals the CPU's RPN gives for them, and the
+    CPU's max-pool picks (`recorded_pool_picks`)."""
+    recipe = path.recipe
+    cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(recipe.backbone,
+                                                                   dtype="float32"))
+    batch = {k: torch.from_numpy(v) for k, v in det_batch(
+        DET_BATCH, DET_STRIP, recipe.num_classes, SEED + 3).items()}
+    task = DetectionTask(cfg, model=model_cpu, device="cpu")
+    picks: Dict[tuple, torch.Tensor] = {}
+    with torch.no_grad():
+        with recorded_pool_picks(picks):
+            rpn = model_cpu.rpn(model_cpu.features(batch["image"]))
+        props = gen_proposals(rpn, task.anchors_on(DET_STRIP, "cpu"), DET_STRIP,
+                              task.det.nms_pre, task.det.max_proposals,
+                              task.det.rpn_nms_iou,
+                              level_sizes=det_core.anchor_level_sizes(DET_STRIP))
+    return cfg, batch, props, picks
+
+
+def fixed_proposals(props: Tuple[torch.Tensor, torch.Tensor]):
+    """`det_loss_core` takes `props` (boxes, scores) for its proposals, on
+    whatever device it runs, instead of generating them."""
+    fixed = lambda rpn_out, *a, **k: tuple(t.to(rpn_out.cls_scores.device) for t in props)
+    return mock.patch.object(det_core, "gen_proposals", fixed)
+
+
+def _pool_key(x: torch.Tensor, args: tuple, kwargs: dict) -> tuple:
+    return (tuple(x.shape), args, tuple(sorted(kwargs.items())))
+
+
+@contextlib.contextmanager
+def recorded_pool_picks(into: Dict[tuple, torch.Tensor]):
+    """Records, by input shape and arguments, the input element each 2-D
+    max-pool window picks (on the CPU)."""
+    pool = F.max_pool2d
+
+    def record(x, *args, **kwargs):
+        kwargs.pop("return_indices", None)
+        out, idx = pool(x, *args, return_indices=True, **kwargs)
+        key = _pool_key(x, args, kwargs)
+        if key in into:
+            raise AssertionError(f"two max-pools of one shape and arguments: {key}")
+        into[key] = idx.cpu()
+        return out
+
+    with mock.patch.object(F, "max_pool2d", record):
+        yield
+
+
+@contextlib.contextmanager
+def fixed_pool_picks(picks: Dict[tuple, torch.Tensor]):
+    """Every 2-D max-pool takes the recorded picks (`recorded_pool_picks`)
+    instead of its own: the value of the picked element, and the gradient
+    to it.  Where two inputs of a window lie within rounding of each other,
+    fp32 runs on two devices can pick either, and the gradient routed to
+    the other input is a discrete difference, not a rounding one."""
+    def take(x, *args, **kwargs):
+        kwargs.pop("return_indices", None)
+        idx = picks[_pool_key(x, args, kwargs)].to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    with mock.patch.object(F, "max_pool2d", take):
+        yield
+
+
+def phase_det_gradients(path: DetPath, model_cpu) -> None:
+    """fp32 gradients of the detection loss at 2 images of the strip, card
+    against CPU (phase 6's rule and TF32 control), the ViT with its random
+    RVSA regressors.  Both sides take what the CPU's forward decides where
+    fp32 rounding could tip a discrete choice: its proposals (NMS could keep
+    another box where an IoU lies within rounding of 0.7), its max-pool
+    picks (`fixed_pool_picks`) and its samplers' draws (one CPU generator,
+    `_loss_and_grads`).  The picks matter: in one of the ViT's 204,800
+    fpn4 windows the card picked another element than the CPU and a
+    float64 run, and the gradient routed there put the card's backbone
+    gradients up to 9.1e-3 from both (pos_embed; median 6.4e-4); with the
+    CPU's picks the card is 6.7e-7 (median) and 6.1e-6 (largest) from the
+    CPU, and the TF32 control 1.8e-3 to 4.7e-1 (`tools/strip_gradient_witness.py
+    --path det_vit [--own-picks]`, NVIDIA H100 80GB HBM3, 700.00 W).  XL's
+    backbone is held at 5e-3: 4 of the CPU's 6.5M ReLU inputs (RPN and
+    box head) lie across 0 from float64's, which puts the CPU's backbone
+    gradients 3.4e-4 (median) and up to 1.98e-3 from float64 while the
+    card's are 3.2e-7 and 3.2e-6 (`--path det_xl`); its TF32 control
+    leaves 11 parameters outside."""
+    cfg, batch, props, picks = det_grad_inputs(path, model_cpu)
+    grad_path = dataclasses.replace(path, per_step={**path.per_step, "nms": 0})
+    with fixed_proposals(props), fixed_pool_picks(picks):
+        check_gradients(grad_path, cfg, model_cpu, batch, DetectionTask,
+                        f"fp32 {DET_BATCH} images of {DET_STRIP[0]}×{DET_STRIP[1]}, "
+                        f"the CPU's proposals and max-pool picks")
+
+
+def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
+    """Device kernel ms per train step (torch.profiler over `steps` steps)
+    and the ms and launches of each kernel group."""
+    step = task.train_step_fn()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    groups: Dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False) or \
+                e.name.startswith(("Optimizer.", "ProfilerStep")):
+            continue
+        g = groups.setdefault(kernel_group(e.name), [0.0, 0])
+        g[0] += e.device_time_total / 1e3 / steps
+        g[1] += 1
+    return sum(v[0] for v in groups.values()), groups
+
+
+def phase_det_train(path: DetPath, card: str) -> dict:
+    """The recipe's train step at batch 2 of 800² through `DetectionTask`
+    (`init_state` → `fit` → `predict_fn` → `evaluate`): launches, ms/step,
+    images/s, data_time, peak memory, the device's busy share and its
+    kernel groups; a predict of 2 images; VOC AP50 on seeded synthetic
+    boxes (finite; random weights); a fixed-batch sanity run whose loss must
+    fall."""
+    recipe, tag = path.recipe, f"[train {path.name}]"
+    crop, K = recipe.backbone.img_size, recipe.num_classes
+    task = DetectionTask(recipe)
+    t0 = time.perf_counter()
+    state = task.init_state(_gen(SEED))
+    opt = recipe.train.optimizer
+    log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} layer "
+        f"decay {opt.layer_decay}, schedule {recipe.train.schedule.kind} "
+        f"({recipe.train.schedule.warmup_steps} warm-up), remat {recipe.backbone.remat}, "
+        f"drop-path {recipe.backbone.drop_path_rate}; batch {DET_BATCH} (the recipe's "
+        f"{recipe.train.batch_size} over 8 GPUs)")
+    batches = [det_batch(DET_BATCH, (crop, crop), K, SEED + 10 + i) for i in range(3)]
+    logs = []
+    log_fn = lambda i, m: logs.append(m)
+    torch.cuda.synchronize()
+    reset_counters()
+    state, m = task.fit(state, cycle(batches), 1, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launched = counters()
+    log(f"{tag} launches in one train step: {launched}, expected {path.per_step}; "
+        f"metrics {m}")
+    if launched != path.per_step:
+        raise AssertionError(f"launch counts {launched} != {path.per_step}")
+    state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs.clear()
+    state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1, log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    for m in logs:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite train metrics {m}")
+    step_ms = [m["step_time"] * 1e3 for m in logs]
+    per = statistics.median(step_ms)
+    data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    kernel_ms, groups = _busy(task, state, dev_batch)
+    log(f"{tag} recipe train step, batch {DET_BATCH} of {crop}², bf16 autocast, "
+        f"drop-path on: median {per:.2f} ms/step over {len(step_ms)} (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {DET_BATCH / per * 1e3:.3f} "
+        f"images/s, data_time median {data_ms:.3f} ms, backbone "
+        f"~{3 * path.flops(crop) * DET_BATCH / per / 1e9:.2f} TFLOP/s (3× forward), peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; busy {kernel_ms / per:.3f} ({kernel_ms:.2f} ms "
+        f"of device kernels a step, torch.profiler, 2 steps, over the median step); loss "
+        f"{logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f} "
+        f"(rpn_cls {logs[-1]['loss_rpn_cls']:.4f}, rpn_bbox {logs[-1]['loss_rpn_bbox']:.4f}, "
+        f"cls {logs[-1]['loss_cls']:.4f}, bbox {logs[-1]['loss_bbox']:.4f}), grad_norm "
+        f"{logs[-1]['grad_norm']:.4f}, step {state.step} | card {card}")
+    log(f"{tag} device ms a step by kernel group (launches): " + ", ".join(
+        f"{g} {ms:.2f} ({n // 2})" for g, (ms, n) in
+        sorted(groups.items(), key=lambda kv: -kv[1][0])))
+
+    images = torch.from_numpy(batches[1]["image"]).cuda()
+    predict = task.predict_fn()
+    with torch.no_grad(), task.autocast():
+        reset_counters()
+        dets = predict(images)
+        torch.cuda.synchronize()
+        p_launched = counters()
+        if p_launched != path.per_predict:
+            raise AssertionError(f"predict launch counts {p_launched} != {path.per_predict}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            predict(images)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    n_valid = int(dets.valid.sum())
+    ok = dets.boxes.shape == (DET_BATCH, task.det.max_per_img, 4) and \
+        torch.isfinite(dets.boxes).all() and bool((dets.scores[dets.valid] > task.det.score_thr).all())
+    log(f"[predict {path.name}] {DET_BATCH} images of {crop}², bf16: launches {p_launched}; "
+        f"median {statistics.median(times) * 1e3:.2f} ms a predict, "
+        f"{statistics.median(times) * 1e3 / DET_BATCH:.2f} ms/image (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); {n_valid} valid detections "
+        f"of {DET_BATCH * task.det.max_per_img}")
+    if not ok:
+        raise AssertionError(f"bad detections {tuple(dets.boxes.shape)}")
+    evals = [det_batch(DET_BATCH, (crop, crop), K, SEED + 20 + i) for i in range(2)]
+    res = task.evaluate(state, iter(evals))
+    log(f"[eval {path.name}] VOC AP50 on {2 * DET_BATCH} synthetic images (random "
+        f"weights after {state.step} steps): mAP {res['mAP']:.3f}")
+    if not 0.0 <= res["mAP"] <= 100.0:
+        raise AssertionError(f"bad mAP {res}")
+
+    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
+        schedule=ScheduleConfig(kind="constant")))
+    sane = DetectionTask(sanity, model=task.model)
+    logs.clear()
+    sane.fit(sane.init_state(_gen(SEED)), cycle(batches[:1]), SANITY_STEPS, log_every=1,
+             log_fn=log_fn)
+    losses = [m["loss"] for m in logs]
+    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, {SANITY_STEPS} "
+        f"steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
+    if not min(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    return {"train": launched, "predict": p_launched}
+
+
+def run_det_path(path: DetPath, card: str) -> dict:
+    """Phase 19 for one recipe: card vs CPU forward and gradients at the
+    strip, then the train step, predict and evaluate at 800²."""
+    free()
+    with phase_time(f"{path.name} models"):
+        model_cpu = build_det_model(path, DET_STRIP)
+    with phase_time(f"{path.name} logits"):
+        phase_det_forward(path, model_cpu)
+    free()
+    with phase_time(f"{path.name} gradients"):
+        phase_det_gradients(path, model_cpu)
+    del model_cpu
+    free()
+    with phase_time(f"{path.name} train"):
+        return phase_det_train(path, card)
+
+
 @contextlib.contextmanager
 def phase_time(what: str):
     """Logs the wall time the block took."""
@@ -1917,13 +2547,17 @@ def run_path(path: Path, card: str) -> dict:
 
 
 def main() -> None:
+    start = time.perf_counter()
     card = phase_device()
     phase_build()
     record = {}
     for name, phase in (("3", phase_kernels), ("3b", phase_backward_kernels),
-                        ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels)):
+                        ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels),
+                        ("3e", phase_nms_kernel)):
         with phase_time(f"kernels {name}"):
             record.update(phase())
+    with phase_time("kernels 3f"):
+        phase_800_kernels()
     runs = {name: run_path(path, card) for name, path in PATHS.items()}
     for name, path in TASK_PATHS.items():
         trained = run_task_path(path, card)
@@ -1932,10 +2566,14 @@ def main() -> None:
         del trained
     with phase_time("checkpoint"):
         phase_checkpoint(vit_cls_backbone, card)
+    del vit_cls_backbone
+    for name, path in DET_PATHS.items():
+        runs[name] = run_det_path(path, card)
     kernels = []
     for key, meta in KERNELS.items():
         path, kind, counter = LAUNCHED_IN[key]
         kernels.append(dict(meta, launches=runs[path][kind][counter], **record[key]))
+    log(f"[time] total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

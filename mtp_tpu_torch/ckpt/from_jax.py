@@ -297,6 +297,41 @@ def change_detector_from_jax(variables: dict, cfg: BackboneConfig) -> StateDict:
     return sd
 
 
+def _dense_chw(sd: dict, dst: str, p: dict, spatial: int) -> None:
+    """A Dense over HWC-flattened (s, s, C) RoI features → a Linear over
+    CHW-flattened (C, s, s) ones: the inverse of `mtp_tpu/ckpt/full_convert.py`
+    `_dense_hwc`."""
+    k = _np(p["kernel"])                       # (s·s·C, out)
+    out = k.shape[1]
+    k = k.reshape(spatial, spatial, -1, out).transpose(3, 2, 0, 1)
+    sd[dst + ".weight"] = _tensor(k.reshape(out, -1))
+    sd[dst + ".bias"] = _tensor(p["bias"])
+
+
+def detector_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
+    """JAX `TwoStageDetector` variables {"params"} → the port's
+    `TwoStageDetector` state_dict (mmdet names: `neck.lateral_convs.{i}.conv`,
+    `neck.fpn_convs.{i}.conv`, `rpn_head.*`, `roi_head.bbox_head.*`); `cfg`
+    is the backbone's config."""
+    params = variables.get("params", variables)
+    sd = {"backbone." + k: v
+          for k, v in backbone_from_jax(params["backbone"], cfg).items()}
+    neck = params["neck"]
+    i = 0
+    while f"lateral_{i}" in neck:
+        _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
+        _conv(sd, f"neck.fpn_convs.{i}.conv", neck[f"fpn_conv_{i}"])
+        i += 1
+    for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
+        _conv(sd, f"rpn_head.{name}", params["rpn_head"][name])
+    head = "roi_head.bbox_head."
+    _dense_chw(sd, head + "shared_fcs.0", params["bbox_trunk"]["fc1"], roi_size)
+    _dense(sd, head + "shared_fcs.1", params["bbox_trunk"]["fc2"])
+    _dense(sd, head + "fc_cls", params["fc_cls"])
+    _dense(sd, head + "fc_reg", params["fc_reg"])
+    return sd
+
+
 _BN_BUFFERS = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
@@ -365,7 +400,7 @@ def _init_internimage(model: InternImage, generator: torch.Generator) -> None:
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the JAX modules draw them (not the same
     numbers).  ViT+RVSA and the head: trunc-normal(0.02) on every Dense-like
-    weight, the regressors, `pos_embed` and the Swin bias table
+    weight (a detector's box head: flax's lecun-normal), the regressors, `pos_embed` and the Swin bias table
     (vit_rvsa.py:47-48); zeros on the decomposed rel-pos tables; flax's
     lecun-normal on convolutions; zero biases; unit norms; then
     `rescale_block_init` (vit_rvsa.py:490-518).  BatchNorm keeps running
@@ -377,7 +412,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, mod in model.named_modules():
         if id(mod) in inner:
             continue
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, nn.Linear) and name.startswith("roi_head."):
+            _lecun(mod.weight, mod.in_features, generator)  # flax's Dense default
+        elif isinstance(mod, nn.Linear):
             _trunc_normal(mod.weight, 0.02, generator)
         elif isinstance(mod, nn.Conv2d) and ".sampling_" in name:
             _trunc_normal(mod.weight, 0.02, generator)

@@ -309,3 +309,35 @@ def intern_xl_unet_256_levir() -> TaskConfig:
     """The recipe `intern-xl-unet-256-imp-mtp_levir` (and its `-imp_` twin):
     InternImage-XL at 256² → Siamese UNet, AdamW 2e-5, layer decay 0.94."""
     return _cd_recipe(_intern_xl(256), lr=2e-5, layer_decay=0.94)
+
+
+def _det_recipe(backbone: BackboneConfig, layer_decay: float = 0.9) -> TaskConfig:
+    """The horizontal-detection recipe shape (`mtp_tpu.configs._det`;
+    reference mmdet faster_rcnn_..._dior.py): 20 classes (DIOR), global batch
+    2/GPU × 8 = 16, AdamW 1e-4 with weight decay 0.05, no clipping, the
+    `step` schedule (LinearLR warm-up of 500 iterations, then ×0.1 at 8/12
+    and 11/12 of 90k steps)."""
+    return TaskConfig(
+        task="detection_h", num_classes=20, backbone=backbone,
+        train=TrainConfig(
+            batch_size=16,
+            optimizer=OptimizerConfig(lr=1e-4, weight_decay=0.05,
+                                      layer_decay=layer_decay, clip_norm=0.0),
+            schedule=ScheduleConfig(kind="step", total_steps=90000,
+                                    warmup_steps=500)))
+
+
+def faster_rcnn_rvsa_l_800_dior() -> TaskConfig:
+    """The recipe `faster_rcnn_rvsa_l_800_mae_mtp_dior` (and its `_mae_`
+    twin): ViT-L+RVSA at 800², drop-path 0.3, the last block tapped four
+    times (`out_indices=(23,)*4`, `mtp_tpu.configs._bb("rvsa_l", 800,
+    det_last=True)`) → FPN → Faster R-CNN, layer decay 0.9."""
+    return _det_recipe(vit_l_rvsa(800, drop_path_rate=0.3, scan=True,
+                                  out_indices=(23, 23, 23, 23)))
+
+
+def faster_rcnn_intern_xl_800_dior() -> TaskConfig:
+    """The recipe `faster_rcnn_intern_xl_800_imp_mtp_dior` (and its `_imp_`
+    twin): InternImage-XL at 800² with remat → FPN → Faster R-CNN, with
+    `_ii_opt`'s layer decay 0.94 (detection keeps lr 1e-4)."""
+    return _det_recipe(_intern_xl(800), layer_decay=0.94)

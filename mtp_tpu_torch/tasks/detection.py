@@ -1,0 +1,159 @@
+"""Fixed-shape training loss and padded prediction of horizontal two-stage
+detection (port of `mtp_tpu/tasks/detection.py` `anchors_for`,
+`anchor_level_sizes`, `Detections`, `_assign_from_ious`, `det_loss_core`
+and `det_predict_core`, for one batch; the concatenated multi-dataset form
+is decided with the multitask slice, the rotated and mask branches with
+slice 3b).
+
+batch dict: image (B, H, W, 3); gt_boxes (B, G, 4); gt_labels (B, G) int;
+gt_valid (B, G) bool.  Every list of the reference flow is a padded tensor
+with a mask, and nothing leaves the device during a step.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mtp_tpu_torch.heads.roi_heads import bbox_head_loss
+from mtp_tpu_torch.heads.rpn import RPNOut, gen_proposals, rpn_loss
+from mtp_tpu_torch.models.detector import DetConfig
+from mtp_tpu_torch.ops.anchors import AnchorGenerator
+from mtp_tpu_torch.ops.assign import (AssignResult, assign_from_ious,
+                                      max_iou_assign, random_sample)
+from mtp_tpu_torch.ops.boxes import bbox_overlaps, delta_decode, delta_encode
+from mtp_tpu_torch.ops.nms import NEG_INF, batched_nms
+from mtp_tpu_torch.ops.precision import at_least_fp32
+
+FPN_STRIDES = (4, 8, 16, 32, 64)
+# box_fn(flat_rois (R, 4), batch_idx (R,)) → (cls logits, deltas)
+BoxFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def anchors_for(det: Optional[DetConfig], img_hw: Tuple[int, int]) -> np.ndarray:
+    """The RPN's anchors on the 5-level FPN of an img_hw image (det unused,
+    as in JAX)."""
+    gen = AnchorGenerator(strides=FPN_STRIDES)
+    return gen.grid_flat([((img_hw[0] + s - 1) // s, (img_hw[1] + s - 1) // s)
+                          for s in FPN_STRIDES])
+
+
+def anchor_level_sizes(img_hw: Tuple[int, int]) -> Tuple[int, ...]:
+    """Each level's flat anchor count on the same grid."""
+    num_base = AnchorGenerator(strides=FPN_STRIDES).num_base
+    return tuple(((img_hw[0] + s - 1) // s) * ((img_hw[1] + s - 1) // s) * num_base
+                 for s in FPN_STRIDES)
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor   # (B, N, 4)
+    scores: torch.Tensor  # (B, N)
+    labels: torch.Tensor  # (B, N)
+    valid: torch.Tensor   # (B, N)
+
+
+def _assign_from_ious(ious: torch.Tensor, gt_labels: torch.Tensor, pos_thr: float,
+                      neg_thr: float, min_pos_iou: float,
+                      match_low_quality: bool) -> AssignResult:
+    """MaxIoUAssigner on a precomputed (..., G, P) IoU matrix whose invalid
+    entries are already -1."""
+    return assign_from_ious(ious, None, gt_labels, pos_thr, neg_thr, min_pos_iou,
+                            match_low_quality, neg_needs_nonneg=True)
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t (B, N, D)[b, idx[b]] → (B, K, D)."""
+    return t.gather(1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
+                  rpn_out: RPNOut, box_fn: BoxFn, batch: Dict[str, torch.Tensor],
+                  generator: torch.Generator) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The detection training loss from the RPN's outputs and the box head
+    `box_fn`: (total, {loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox,
+    acc}).  The RPN losses are per image, then averaged; proposals carry no
+    gradient; the gts join the proposals (add_gt_as_proposals); the R-CNN
+    samples min(rcnn_num, proposals + gts) RoIs an image.  `anchors`
+    (A, 4), numpy or a tensor; the samplers draw from `generator`."""
+    H, W = img_hw
+    scores = rpn_out.cls_scores
+    B, dev = scores.shape[0], scores.device
+    A = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
+    gt_boxes, gt_valid = at_least_fp32(batch["gt_boxes"]), batch["gt_valid"].bool()
+    gt_labels = batch["gt_labels"].long()
+
+    # ---------------- RPN ----------------
+    assign = max_iou_assign(A, gt_boxes, gt_valid, None, det.rpn_pos_iou,
+                            det.rpn_neg_iou, det.rpn_min_pos_iou, True)
+    sample = random_sample(assign, generator, det.rpn_num, det.rpn_pos_fraction)
+    tgt = delta_encode(A[sample.inds], _take(gt_boxes, sample.gt_inds))
+    metrics = {k: v.mean() for k, v in rpn_loss(rpn_out, sample, tgt,
+                                                det.rpn_smooth_l1_beta).items()}
+
+    # ---------------- proposals (no gradient) ----------------
+    props, prop_scores = gen_proposals(
+        RPNOut(*(t.detach() for t in rpn_out)), A, (H, W), det.nms_pre,
+        det.max_proposals, det.rpn_nms_iou, level_sizes=anchor_level_sizes((H, W)))
+    props_all = torch.cat([props, gt_boxes], 1)
+    prop_valid = torch.cat([prop_scores > NEG_INF / 2, gt_valid], 1)
+
+    # ---------------- R-CNN assign / sample ----------------
+    R = min(det.rcnn_num, props_all.shape[1])
+    ious = bbox_overlaps(gt_boxes, props_all)                        # (B, G, P)
+    ious = torch.where(gt_valid[..., None], ious, 0.0)
+    ious = torch.where(prop_valid[:, None, :], ious, -1.0)
+    assign = _assign_from_ious(ious, gt_labels, det.rcnn_pos_iou, det.rcnn_neg_iou,
+                               det.rcnn_pos_iou, det.rcnn_match_low_quality)
+    sample = random_sample(assign, generator, R, det.rcnn_pos_fraction)
+    rois = _take(props_all, sample.inds)
+    tgt = delta_encode(rois, _take(gt_boxes, sample.gt_inds), stds=det.bbox_stds)
+
+    flat = lambda t: t.reshape(B * R, *t.shape[2:])
+    batch_idx = torch.arange(B, device=dev).repeat_interleave(R)
+    cls_logits, reg_pred = box_fn(flat(rois), batch_idx)
+    metrics.update(bbox_head_loss(
+        cls_logits, reg_pred, type(sample)(*map(flat, sample)), flat(tgt),
+        det.num_classes, det.reg_class_agnostic, det.rcnn_smooth_l1_beta))
+    total = sum(v for k, v in metrics.items() if k.startswith("loss"))
+    return total, metrics
+
+
+def det_predict_core(det: DetConfig, anchors, img_hw: Tuple[int, int], B: int,
+                     rpn_out: RPNOut, box_fn: BoxFn) -> Detections:
+    """Detections (B, max_per_img) from the RPN's outputs and the box head:
+    proposals, class probabilities (softmax, background dropped), each
+    class's decoded box, scores at or under `score_thr` (and invalid
+    proposals) set to NEG_INF, the top min(10·max_per_img, P·C) candidates,
+    then class-aware NMS."""
+    H, W = img_hw
+    dev = rpn_out.cls_scores.device
+    A = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
+    props, prop_scores = gen_proposals(rpn_out, A, (H, W), det.nms_pre,
+                                       det.max_proposals, det.rpn_nms_iou,
+                                       level_sizes=anchor_level_sizes((H, W)))
+    P, C, D = props.shape[1], det.num_classes, 4
+    batch_idx = torch.arange(B, device=dev).repeat_interleave(P)
+    cls_logits, reg_pred = box_fn(props.reshape(B * P, D), batch_idx)
+    probs = F.softmax(cls_logits, -1)[:, :C].reshape(B, P, C)
+    if det.reg_class_agnostic:
+        reg = reg_pred.reshape(B, P, 1, D).expand(B, P, C, D)
+    else:
+        reg = reg_pred.reshape(B, P, C, D)
+    ncand = min(det.max_per_img * 10, P * C)
+    boxes = delta_decode(props[:, :, None, :].expand(B, P, C, D), reg,
+                         stds=det.bbox_stds, max_shape=(H, W)).reshape(B, P * C, D)
+    pv = (prop_scores > NEG_INF / 2)[:, :, None]
+    flat_scores = torch.where((probs > det.score_thr) & pv, probs,
+                              NEG_INF).reshape(B, P * C)
+    flat_labels = torch.arange(C, device=dev).repeat(P)
+    top_s, top_i = torch.sort(flat_scores, dim=1, descending=True, stable=True)
+    top_s, top_i = top_s[:, :ncand], top_i[:, :ncand]
+    cand_b, cand_l = _take(boxes, top_i), flat_labels[top_i]
+    keep_i, scores = batched_nms(cand_b, top_s, cand_l, det.test_nms_iou,
+                                 det.max_per_img)
+    keep_i = keep_i.long()
+    return Detections(_take(cand_b, keep_i), scores, cand_l.gather(1, keep_i),
+                      scores > NEG_INF / 2)

@@ -7,6 +7,8 @@ against on the card — to the TPU kernels' semantics.  Inputs are made with
 numpy from a seed and fed to both sides in fp32.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,8 +17,10 @@ import jax.numpy as jnp
 from mtp_tpu.ops.dcnv3_pallas import dcnv3_sample as jax_dcnv3_sample
 from mtp_tpu.ops.pallas_attn import _flash_forward as jax_flash_forward
 from mtp_tpu.ops.pallas_attn import fused_window_attention as jax_window
+from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.ops import dcnv3_sample as port_dcn
 from mtp_tpu_torch.ops import fused_attn
+from mtp_tpu_torch.ops import nms as port_nms
 
 torch.set_num_threads(1)
 
@@ -146,3 +150,24 @@ def test_shared_memory_budget_of_the_slice_shapes():
             assert fused_attn.flash_smem_bytes(D, *grid_hw) <= fused_attn.SMEM_LIMIT
             assert fused_attn.flash_bwd_smem_bytes(D, *grid_hw) <= fused_attn.SMEM_LIMIT
     assert fused_attn.window_smem_bytes(1024, 64) > fused_attn.SMEM_LIMIT
+
+
+def test_nms_kernel_wrapper_takes_only_the_card():
+    """N1's wrapper launches on CUDA tensors only: CPU tensors go to `nms_ref`
+    through `nms_batched`, and called directly on them it raises, as it
+    does on boxes that are not fp32 or past its limit; its limits are
+    csrc/nms.cu's constants."""
+    boxes, scores = torch.zeros(2, 70, 4), torch.zeros(2, 70)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_nms.nms_keep(boxes, scores, 0.7)
+    with pytest.raises(ValueError, match="device"):
+        port_nms.nms_batched(boxes.to("meta"), scores.to("meta"), 0.7, 10)
+    before = dict(port_nms.LAUNCHES)
+    port_nms.nms_batched(boxes, scores, 0.7, 10)
+    assert port_nms.LAUNCHES == before
+    src = (_build.CSRC / "nms.cu").read_text()
+    const = lambda name: re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1]
+    assert const("kTile") == str(port_nms.NMS_TILE)
+    assert const("kMaxBoxes") == "1 << 16" and port_nms.NMS_MAX_BOXES == 1 << 16
+    assert float(const("kValidMin").rstrip("f")) == port_nms.NEG_INF / 2
+    assert _build.SIGNATURES["mtp_nms"] == [_build._P] * 4 + [_build._I, _build._I, _build._F]

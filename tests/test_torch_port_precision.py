@@ -7,16 +7,22 @@ gradients to.  No kernel takes float64: the wrappers refuse it anywhere but
 on the CPU, and refuse mixed precisions.  Inputs are made with numpy from a
 seed."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from mtp_tpu_torch.ckpt.from_jax import init_weights
 from mtp_tpu_torch.config import BackboneConfig, TaskConfig, TrainConfig
+from mtp_tpu_torch.heads.rpn import gen_proposals
+from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops.precision import NoDowncast, at_least_fp32
+from mtp_tpu_torch.tasks import detection as det_core
+from mtp_tpu_torch.tasks.detection_task import DetectionTask
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 torch.set_num_threads(1)
@@ -141,6 +147,64 @@ def test_float64_witness_of_a_strip_train_step():
             assert mode.backward_calls > 0  # the backward ran under it
         runs[dtype] = loss.item(), {n: p.grad for n, p in m.named_parameters()}
     (l32, g32), (l64, g64) = runs[torch.float32], runs[torch.float64]
+    assert all(g.dtype == torch.float64 for g in g64.values())
+    assert abs(l32 - l64) <= 1e-5 * abs(l64)
+    g_all = float(torch.sqrt(sum((g ** 2).sum() for g in g64.values())))
+    for name, g in g64.items():
+        diff = float((g32[name].double() - g).norm())
+        assert diff <= 1e-3 * float(g.norm()) + 1e-6 * g_all, name
+
+
+def test_float64_witness_of_a_detection_loss():
+    """A toy Faster R-CNN (ViT+RVSA, random sampling regressors) on fixed
+    proposals, as `tools/strip_gradient_witness.py --path det_vit` runs
+    phase 19's: its float64 copy runs the detection loss and backward with
+    no op rounding float64 (the RPN and box head's fp32 layers, the
+    targets, RoIAlign, the losses), and the fp32 gradients lie within fp32
+    rounding of it."""
+    hw = (64, 96)
+    bb = BackboneConfig(img_size=64, embed_dim=32, depth=2, num_heads=2, interval=2,
+                        out_indices=(0, 0, 1, 1), dtype="float32", drop_path_rate=0.0)
+    det = dict(nms_pre=128, max_proposals=32, rpn_num=32, rcnn_num=16, max_per_img=8,
+               max_gts=4)
+    cfg = TaskConfig(task="detection", num_classes=3, backbone=bb,
+                     train=TrainConfig(batch_size=2))
+    make = lambda: init_weights(TwoStageDetector(bb, DetConfig(num_classes=3, **det),
+                                                 input_hw=hw),
+                                torch.Generator().manual_seed(0))
+    model = make()
+    assert any(p.abs().sum() > 0 for n, p in model.named_parameters()
+               if ".attn.sampling_" in n)
+    rng = np.random.default_rng(5)
+    xy = rng.uniform(4, 40, (2, 4, 2))
+    batch = {"image": torch.from_numpy(_np((2,) + hw + (3,), 6).astype(np.float32)),
+             "gt_boxes": torch.from_numpy(np.concatenate(
+                 [xy, xy + rng.uniform(12, 40, (2, 4, 2))], -1).astype(np.float32)),
+             "gt_labels": torch.from_numpy(rng.integers(0, 3, (2, 4))),
+             "gt_valid": torch.tensor([[True, True, True, False]] * 2)}
+    task = DetectionTask(cfg, det_overrides=det, model=model, device="cpu")
+    with torch.no_grad():
+        props = gen_proposals(model.rpn(model.features(batch["image"])),
+                              task.anchors_on(hw, "cpu"), hw, 128, 32, 0.7,
+                              level_sizes=det_core.anchor_level_sizes(hw))
+    fixed = lambda *a, **k: props
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        m = model if dtype == torch.float32 else make().double()
+        task = DetectionTask(cfg, det_overrides=det, model=m, device="cpu")
+        b = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+        mode = NoDowncast()
+        with mock.patch.object(det_core, "gen_proposals", fixed), \
+                mode if dtype == torch.float64 else torch.enable_grad():
+            loss, _ = task.loss_fn(m, b, torch.Generator().manual_seed(9),
+                                   deterministic=True)
+            loss.backward()
+        if dtype == torch.float64:
+            assert mode.backward_calls > 0  # the backward ran under it
+        runs[dtype] = loss.item(), {n: p.grad for n, p in m.named_parameters()
+                                    if p.grad is not None}
+    (l32, g32), (l64, g64) = runs[torch.float32], runs[torch.float64]
+    assert g64.keys() == g32.keys() and len(g64) > 50
     assert all(g.dtype == torch.float64 for g in g64.values())
     assert abs(l32 - l64) <= 1e-5 * abs(l64)
     g_all = float(torch.sqrt(sum((g ** 2).sum() for g in g64.values())))
