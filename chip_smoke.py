@@ -13,8 +13,9 @@ which is the K3/K6 sampling at P = 9 taps), and the ViT recipe at 2080²
 crops with remat (its four full-attention blocks over the 130² token grid
 run the window-attention function over one window of 16,900 tokens: K1L
 forward, K7 backward); then the classification, change-detection and
-checkpoint phases, and the two Faster R-CNN recipes at 800² (K1-K6 or K8,
-and N1, the port's greedy-NMS kernel).
+checkpoint phases, the two Faster R-CNN recipes at 800² (K1-K6 or K8,
+and N1, the port's greedy-NMS kernel) and the two Oriented R-CNN recipes
+at 800² (the same, and R1, the port's rotated-IoU kernel).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
@@ -77,6 +78,22 @@ Phases; any failure raises, so the exit code is non-zero:
    (kept at 0.7, suppressed at 0.69); the pairs whose IoU lies within one
    fp32 ulp of the threshold are counted and named; the kernel timed back
    to back and as device time, beside its plain version and its bound.
+3g. R1, rotated IoU (csrc/rotated_iou.cu), against its plain version
+   `rbox_overlaps_ref` on the card in fp32 and float64 (R1_TOL), over the
+   pairs of boxes of non-zero area: the edge cases (identical boxes, one
+   inside another, a shared edge, half overlap, a 90°-rotated copy, a
+   zero-width box, θ at ±π/2, a pair after class 19's offset, a disjoint
+   pair); the dense form at the assigner's shape (100 padded gts × 1,100
+   proposals); at the predict's (2 × 2,000 candidates of 20 classes after
+   `class_offset_boxes`, centres up to ~4·10⁴ px) the dense IoUs, the mask
+   form's bits against the plain IoU > 0.1 (any differing bit must lie
+   within R1_TOL of 0.1), and the keep sets of `batched_nms` against
+   `nms_ref` on the card (differing decisions counted, the
+   first of each image traced to a pair within R1_TOL); controls: the
+   IoUs × 0.9 must fail, and the mask form at 0.09 must keep other boxes;
+   a built case whose every same-class pair lies ≥ 1e-3 from its
+   threshold keeps, index for index, what `nms_ref` keeps on the card and
+   the CPU; times of both forms, their plain versions and bounds.
 3f. K1-K6 and K8 at the 800² detection paths' shapes (batch 2: K1/K4 over
    128 windows of 49 tokens, K2/K5 over 32 heads of the 50×50 grid,
    K3/K6 over 32 maps of 56², K8 at XL's 200² stage 0 and 25² stage 3),
@@ -138,6 +155,17 @@ Phases; any failure raises, so the exit code is non-zero:
    kernel group (torch.profiler); `predict_fn` on 2 images (N1 twice),
    ms/image; `evaluate`'s VOC AP50 on seeded synthetic boxes (finite); a
    fixed-batch sanity run whose loss must fall.
+20. Rotated detection, oriented_rcnn_rvsa_l_800_mae_mtp_diorr (ViT-L+RVSA)
+   and oriented_rcnn_intern_xl_800_imp_mtp_diorr (InternImage-XL): for the
+   ViT, fp32 FPN levels, RPN scores and deltas (6 an anchor) and the
+   rotated box head's outputs card vs CPU at the strip, and its fp32
+   gradients by phase 19's rule (the CPU's proposals, max-pool picks and
+   R-CNN assigner IoUs given to both; the TF32 control); for both, the
+   train step at batch 1 of 800² (the recipes' 4 = 1 a GPU × 4 ranks):
+   launches (N1 and R1's dense form once), ms/step, images/s, data_time,
+   peak memory, busy share and kernel groups; `predict_fn` on 2 images
+   (N1 and R1's mask form once), ms/image; `evaluate`'s rotated VOC AP50
+   on seeded synthetic rotated boxes (finite); a fixed-batch sanity run.
 The last lines are the total time, the kernels' JSON record, the card, and
 the result line.
 """
@@ -175,19 +203,22 @@ from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
                                   intern_xl_unet_256_levir,
                                   intern_xl_upernet_512_loveda,
                                   internimage_config, is_internimage,
+                                  oriented_rcnn_intern_xl_800_diorr,
+                                  oriented_rcnn_rvsa_l_800_diorr,
                                   rvsa_l_unet_256_levir,
                                   rvsa_l_upernet_384_spacenetv1,
                                   vit_rvsa_l_224_eurosat)
 from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.heads.rpn import gen_proposals
 from mtp_tpu_torch.kernels import _build
-from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector
+from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector, oriented_rcnn_cfg
 from mtp_tpu_torch.models.internimage import internimage_flops
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.models.vit_rvsa import backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops import nms as pnms
+from mtp_tpu_torch.ops import rotated_boxes as prb
 from mtp_tpu_torch.ops.boxes import bbox_overlaps
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
@@ -280,7 +311,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 COUNTERS = ("window", "flash", "bilinear_sample", "window_bwd", "flash_bwd",
-            "bilinear_sample_bwd", "window_large", "window_bwd_qblk", "nms")
+            "bilinear_sample_bwd", "window_large", "window_bwd_qblk", "nms", "rbox_iou",
+            "nms_rotated")
 
 
 def launches(**nonzero) -> Dict[str, int]:
@@ -412,6 +444,20 @@ KERNELS = {
     "nms": dict(name="nms", route="cuda", source="mtp_tpu_torch/csrc/nms.cu",
                 replaces="mtp_tpu/ops/nms.py:122 (no pallas_call: the lax.fori_loop "
                          "scan of _nms_single_lane)"),
+    # R1: the port's own kernel; JAX computes rotated IoU as jnp pair grids
+    # and the rotated NMS as N1's lax loops; one record a launch form: the
+    # mask form at the predict's shape, the dense form at the assigner's
+    "rotated_iou": dict(name="rotated_iou", route="cuda",
+                        source="mtp_tpu_torch/csrc/rotated_iou.cu",
+                        replaces="mtp_tpu/ops/rotated_boxes.py:116 (no pallas_call: the "
+                                 "jnp _intersection_area of rbox_overlaps, run by "
+                                 "mtp_tpu/ops/nms.py:122 with iou_fn=rbox_overlaps)"),
+    "rotated_iou_dense": dict(name="rotated_iou_dense", route="cuda",
+                              source="mtp_tpu_torch/csrc/rotated_iou.cu",
+                              replaces="mtp_tpu/ops/rotated_boxes.py:116 (no pallas_call: "
+                                       "the jnp _intersection_area of rbox_overlaps, run "
+                                       "by the R-CNN assigner, "
+                                       "mtp_tpu/tasks/detection.py:235)"),
 }
 # where each kernel's `launches` is read: (path, phase kind, counter)
 LAUNCHED_IN = {
@@ -426,6 +472,8 @@ LAUNCHED_IN = {
     "window_large": ("rvsa_hr", "serve", "window_large"),
     "window_bwd_qblk": ("rvsa_hr", "train", "window_bwd_qblk"),
     "nms": ("det_vit", "train", "nms"),
+    "rotated_iou": ("det_rot_vit", "predict", "nms_rotated"),
+    "rotated_iou_dense": ("det_rot_vit", "train", "rbox_iou"),
 }
 
 
@@ -434,11 +482,11 @@ def log(msg: str) -> None:
 
 
 def counters() -> dict:
-    return {**fused_attn.LAUNCHES, **dcn.LAUNCHES, **pnms.LAUNCHES}
+    return {**fused_attn.LAUNCHES, **dcn.LAUNCHES, **pnms.LAUNCHES, **prb.LAUNCHES}
 
 
 def reset_counters() -> None:
-    for launched in (fused_attn.LAUNCHES, dcn.LAUNCHES, pnms.LAUNCHES):
+    for launched in (fused_attn.LAUNCHES, dcn.LAUNCHES, pnms.LAUNCHES, prb.LAUNCHES):
         launched.update(dict.fromkeys(launched, 0))
 
 
@@ -1398,6 +1446,344 @@ def phase_800_kernels() -> None:
     }, record_label=None)
 
 
+# ------------------------------------------------------------ phase 3g --
+
+# R1's bound: the fp32 operations that rotated IoU needs, counted from
+# csrc/rotated_iou.cu's body (sincosf and atan2f as ~20 each), with what
+# belongs to one box counted once a box, not once a pair as the kernel
+# does it (`r1_ops`):
+# - a box, 81: the sincos (20), the half sides (4), the corners (32), the
+#   winding (17) and the 4 edge vectors (8);
+# - a pair, 309: the 16 crossings (19 each: r×s 3, the offset 2, the guard
+#   1, t and u 4 each with its division, the 5 range tests) and the IoU (5);
+#   the kernel's translation to a's centre is for rounding and not counted;
+# - an edge test, 6 (two offsets, two products, a difference, a compare),
+#   as many as the body runs: each of a pair's 8 corners is tested against
+#   the other box's edges up to the first that puts it outside, 1 to 4
+#   (`r1_edge_tests`, from this run's boxes);
+# - a pair whose polygon has 3 candidates or more, ~260 at the usual 8
+#   vertices: its crossing points, the centroid, the atan2s, the sort and
+#   the shoelace.
+R1_OPS_BOX, R1_OPS_PAIR, R1_OPS_EDGE, R1_OPS_POLYGON = 81, 309, 6, 260
+# pairs of one chunk of `r1_edge_tests` (float64 crosses, ~128 bytes a pair)
+R1_EDGE_CHUNK = 1 << 20
+# R1 against its plain version: |kernel − plain| at most R1_TOL[dtype of
+# the plain run].  Both translate each pair to its first box's centre; the
+# rest is FMA contraction, sincosf and atan2f against PyTorch's rounding.
+# Readings (NVIDIA H100 80GB HBM3, 700.00 W; phase 3g's cases, the
+# predict's 8M pairs at class-offset centres up to 39,076 px included):
+# 8.9e-7 against fp32, 7.2e-7 against float64.  The limits are 11× that;
+# the 0.9-scaled control is 0.1 off.
+R1_TOL = {torch.float32: 1e-5, torch.float64: 1e-5}
+# the rotated test NMS: min(max_per_img · 10, P · C) candidates an image at
+# IoU 0.1 (oriented_rcnn_cfg), 20 classes (DIOR-R); the assigner's 100
+# padded gts against the 1,000 proposals and the gts themselves
+ROT_CAND, ROT_THR, ROT_CLASSES = 2000, 0.1, 20
+ASSIGN_GTS, ASSIGN_PROPS = 100, 1000
+
+
+def rotated_scene(B: int, n_obj: int, copies: int, hw: Tuple[int, int], seed: int):
+    """n_obj · copies rboxes an image as a box head leaves them, on the CPU:
+    n_obj objects (sides log-uniform over 24-200 px, aspect 1-4, any angle,
+    centres inside the hw image, le90), each seen `copies` times (the first
+    as it is, the rest with centres jittered by 10% of a side, sides by 10%
+    and angles by 0.1 rad), in random order; uniform scores; each object's
+    label of ROT_CLASSES.  Returns (boxes (B, N, 5), scores, labels)."""
+    g = _gen(seed)
+    H, W = hw
+    rand = lambda *shape: torch.rand(shape, generator=g)
+    side = torch.exp(rand(B, n_obj) * math.log(200 / 24) + math.log(24))
+    aspect = 1 + 3 * rand(B, n_obj)
+    obj = torch.stack([rand(B, n_obj) * W, rand(B, n_obj) * H, side, side / aspect,
+                       (rand(B, n_obj) * 2 - 1) * math.pi / 2], -1)
+    labels = torch.randint(0, ROT_CLASSES, (B, n_obj), generator=g)
+    boxes = obj.repeat_interleave(copies, 1)
+    jitter = torch.randn(boxes.shape, generator=g)
+    jitter[:, ::copies] = 0
+    boxes = boxes + jitter * torch.stack([boxes[..., 2] * 0.1, boxes[..., 2] * 0.1,
+                                          boxes[..., 2] * 0.1, boxes[..., 3] * 0.1,
+                                          torch.full_like(boxes[..., 0], 0.1)], -1)
+    perm = torch.argsort(rand(B, n_obj * copies), 1)
+    take = lambda t: t.gather(1, perm[..., None].expand(-1, -1, t.shape[-1]))
+    boxes = prb.regularize_le90(take(boxes))
+    labels = labels.repeat_interleave(copies, 1).gather(1, perm)
+    return boxes, rand(B, n_obj * copies), labels
+
+
+def _edge_tests(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Edge tests of corners p (..., 4, 2) against the counter-clockwise
+    quads q (..., 4, 2), summed over the 4 corners: a corner's tests stop
+    at the first edge it lies outside of (cross product < 0), 4 if none."""
+    e1, e2 = q[..., None, :, :], q.roll(-1, -2)[..., None, :, :]
+    pc = p[..., :, None, :]
+    cross = ((e2[..., 0] - e1[..., 0]) * (pc[..., 1] - e1[..., 1])
+             - (e2[..., 1] - e1[..., 1]) * (pc[..., 0] - e1[..., 0]))  # (..., 4, 4)
+    out = ~(cross >= 0)
+    return torch.where(out.any(-1), out.int().argmax(-1) + 1, 4).sum(-1)
+
+
+def r1_edge_tests(a: torch.Tensor, b: torch.Tensor, upper: bool) -> int:
+    """The inside tests' edge tests R1's body runs over the pairs of a
+    (B, N, 5) × b (B, M, 5), both ways (a's corners in b, b's in a), in
+    float64 on each pair translated to a's centre, as the kernel does;
+    `upper`: only pairs j > i (the mask form, b = a)."""
+    B, N, M = a.shape[0], a.shape[1], b.shape[1]
+    a, b = a.double(), b.double()
+    ca = prb._ccw(prb.rbox_to_corners(torch.cat([torch.zeros_like(a[..., :2]),
+                                                 a[..., 2:]], -1)))      # (B, N, 4, 2)
+    j = torch.arange(M, device=a.device)
+    rows = max(1, R1_EDGE_CHUNK // (B * M))
+    total = 0
+    for r0 in range(0, N, rows):
+        r1 = min(N, r0 + rows)
+        rel = b[:, None, :, :2] - a[:, r0:r1, None, :2]                  # (B, n, M, 2)
+        cb = prb._ccw(prb.rbox_to_corners(torch.cat(
+            [rel, b[:, None, :, 2:].expand(-1, r1 - r0, -1, -1)], -1)))   # (B, n, M, 4, 2)
+        pa = ca[:, r0:r1, None].expand_as(cb)
+        tests = _edge_tests(pa, cb) + _edge_tests(cb, pa)                # (B, n, M)
+        if upper:
+            tests = tests * (j[None, :] > torch.arange(r0, r1, device=a.device)[:, None])
+        total += int(tests.sum())
+    return total
+
+
+def r1_ops(a: torch.Tensor, b: torch.Tensor, ious: torch.Tensor, upper: bool) -> float:
+    """The fp32 operations of rotated IoU over the pairs of a (B, N, 5) ×
+    b (B, M, 5) (`upper`: b is a, pairs j > i): each box once, each pair,
+    the edge tests the body runs, and a polygon for each pair with IoU > 0
+    (`ious`, of the pairs that count)."""
+    B, N, M = a.shape[0], a.shape[1], b.shape[1]
+    boxes, pairs = (B * N, B * N * (N - 1) // 2) if upper else (B * (N + M), B * N * M)
+    return (R1_OPS_BOX * boxes + R1_OPS_PAIR * pairs
+            + R1_OPS_EDGE * r1_edge_tests(a, b, upper)
+            + R1_OPS_POLYGON * int((ious > 0).sum()))
+
+
+def r1_bound(flops: float, nbytes: int) -> Tuple[float, str]:
+    """(bound ms, what bounds it) of R1's work."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def r1_dense_check(label: str, a: torch.Tensor, b: torch.Tensor,
+                   controls: bool = False) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """R1's dense form on the card against the plain version on the card, in
+    fp32 and float64 (R1_TOL), over the pairs of boxes of non-zero area (a
+    box of zero area, as the padded gts are, 'contains' every point of its
+    line, and its IoU divides by the eps 1e-6: there both are rounding
+    noise times 1e6, and the assigner masks those rows); `controls`: the
+    kernel's IoUs scaled by 0.9 must fail the fp32 rule.  Returns (the
+    kernel's IoUs, the float64 plain IoUs, the fp32 error)."""
+    a, b = a.cuda(), b.cuda()
+    real = ((a[..., 2] * a[..., 3] > 0)[..., :, None]
+            & (b[..., 2] * b[..., 3] > 0)[..., None, :])
+    before = counters()
+    got = prb.rbox_overlaps(a, b)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in counters().items() if n != before[k]}
+    if moved != {"rbox_iou": 1}:
+        raise AssertionError(f"R1 {label}: launched {moved}, expected one rbox_iou")
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        ref = prb.rbox_overlaps_ref(a.to(dtype), b.to(dtype))
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"R1 {label}: non-finite IoUs")
+        errs[dtype] = ((got.double() - ref.double()) * real).abs().max().item()
+    ref64 = ref * real
+    ok = all(errs[d] <= R1_TOL[d] for d in errs)
+    log(f"[rotated] R1 dense {label}: {tuple(got.shape)}, {int(real.sum())} pairs of boxes "
+        f"of non-zero area, {int((ref64 > 0).sum())} of them overlapping; max |kernel − "
+        f"plain| fp32 {errs[torch.float32]:.3e} (tol "
+        f"{R1_TOL[torch.float32]}), float64 {errs[torch.float64]:.3e} (tol "
+        f"{R1_TOL[torch.float64]})")
+    if not ok:
+        raise AssertionError(f"R1 {label} disagrees with its plain version: {errs}")
+    if controls:
+        ref32 = prb.rbox_overlaps_ref(a, b)
+        ctrl = ((got * CONTROL_SCALE - ref32) * real).abs().max().item()
+        if ctrl <= R1_TOL[torch.float32]:
+            raise AssertionError(f"R1 {label}: the control (IoUs × {CONTROL_SCALE}) passed")
+        log(f"[rotated] control {label}, the kernel's IoUs × {CONTROL_SCALE} -> rejected "
+            f"(max |Δ| {ctrl:.3e} > {R1_TOL[torch.float32]})")
+    return got, ref64, errs[torch.float32]
+
+
+def r1_edge_cases() -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairs of phase 3g's edge cases, a (1, 9, 5) against b (1, 9, 5):
+    identical boxes, one inside another, a shared edge, half overlap, a
+    90°-rotated copy, a zero-width box, θ at +π/2 against −π/2, a pair
+    after class 19's offset, and a disjoint pair."""
+    box = [40.0, 50.0, 30.0, 12.0, 0.3]
+    shift = 19 * 1901.0
+    pairs = [(box, box), (box, [41.0, 50.5, 10.0, 4.0, 0.5]),
+             ([10.0, 10.0, 10.0, 10.0, 0.0], [20.0, 10.0, 10.0, 10.0, 0.0]),
+             ([10.0, 10.0, 10.0, 10.0, 0.0], [15.0, 10.0, 10.0, 10.0, 0.0]),
+             (box, [40.0, 50.0, 30.0, 12.0, 0.3 + math.pi / 2]),
+             (box, [40.0, 50.0, 0.0, 12.0, 0.3]),
+             ([40.0, 50.0, 30.0, 12.0, math.pi / 2], [42.0, 50.0, 30.0, 12.0, -math.pi / 2]),
+             ([40.0 + shift, 50.0 + shift, 30.0, 12.0, 0.3],
+              [44.0 + shift, 52.0 + shift, 26.0, 14.0, 0.1]),
+             (box, [140.0, 50.0, 30.0, 12.0, 0.3])]
+    a, b = zip(*pairs)
+    return torch.tensor([a]), torch.tensor([b])
+
+
+def r1_mask_bits(boxes_o: torch.Tensor, scores_o: torch.Tensor, thr: float) -> torch.Tensor:
+    """R1's suppression bitmask (B, N, N) bools, bit (i, j) for j > i, from
+    the mask form launched directly (its wrapper keeps the mask to itself;
+    not counted: a check, not the main path)."""
+    B, N, _ = boxes_o.shape
+    words = (N + pnms.NMS_TILE - 1) // pnms.NMS_TILE
+    mask = torch.zeros(B, N, words, dtype=torch.int64, device=boxes_o.device)
+    keep = torch.empty(B, N, dtype=torch.bool, device=boxes_o.device)
+    _build.launch("mtp_nms_rotated", boxes_o.data_ptr(), scores_o.data_ptr(),
+                  mask.data_ptr(), keep.data_ptr(), B, N, float(thr),
+                  _build.dtype_code(boxes_o))
+    shifts = torch.arange(64, device=mask.device)
+    bits = ((mask[..., None] >> shifts) & 1).bool().reshape(B, N, words * 64)[..., :N]
+    j = torch.arange(N, device=mask.device)
+    return bits & (j[None, :] > j[:, None])
+
+
+def phase_rotated_iou_kernel() -> dict:
+    """Phase 3g: R1 against its plain version on the card, on the edge cases,
+    at the assigner's shape (dense) and at the predict's (2 × 2,000
+    candidates of 20 classes after `class_offset_boxes`: the dense IoUs,
+    the mask form's bits, and the keep sets of `batched_nms` against
+    `nms_ref` on the card), with controls; a built case whose every pair
+    lies at least 1e-3 from the threshold keeps, index for index, what
+    `nms_ref` keeps on the card and the CPU; times and bounds."""
+    # edge cases
+    a, b = r1_edge_cases()
+    got, ref64, _ = r1_dense_check("edge cases", a, b)
+    diag = lambda t: [round(float(x), 6) for x in torch.diagonal(t[0])]
+    log(f"[rotated] edge cases (identical, inside, shared edge, half, 90°, zero width, "
+        f"±π/2, offset, disjoint): kernel {diag(got)}, float64 {diag(ref64)}")
+    # the assigner: 100 padded gts (12 real) against 1,000 proposals + the gts
+    gts, _, _ = rotated_scene(1, 12, 1, (800, 800), 80)
+    gts = torch.cat([gts, torch.zeros(1, ASSIGN_GTS - 12, 5)], 1)
+    props, _, _ = rotated_scene(1, 100, ASSIGN_PROPS // 100, (800, 800), 81)
+    props = torch.cat([props, gts], 1)
+    got, ref64, dense_err = r1_dense_check(f"assigner 1x{ASSIGN_GTS}x{props.shape[1]}", gts,
+                                           props, controls=True)
+    ga, pa = gts.cuda(), props.cuda()
+    dense_ms = loop_ms(lambda: prb.rbox_overlaps(ga, pa))
+    dense_dev = graph_ms(lambda: prb.rbox_overlaps(ga, pa))
+    dense_plain = loop_ms(lambda: prb.rbox_overlaps_ref(ga, pa), reps=3, warmup=1)
+    pairs = ga.shape[1] * pa.shape[1]
+    flops = r1_ops(ga, pa, ref64, upper=False)
+    nbytes = (ga.numel() + pa.numel()) * 4 + pairs * 4
+    dense_bound, dense_by = r1_bound(flops, nbytes)
+    log(f"[kernel] rbox_iou assigner: kernel {dense_ms:.4f} ms (CUDA graph: {dense_dev:.4f} "
+        f"ms of device time a call)  plain (rbox_overlaps_ref on the card) "
+        f"{dense_plain:.4f} ms  library none  bound {dense_bound:.4f} ms by {dense_by} "
+        f"({pairs} pairs, {int((ref64 > 0).sum())} overlapping, {flops / 1e9:.4f} GFLOP "
+        f"fp32, {nbytes / 1e6:.3f} MB)")
+
+    # the predict: 2 × 2,000 candidates of 20 classes, shifted by class
+    B = 2
+    boxes, scores, labels = rotated_scene(B, ROT_CAND // 10, 10, (800, 800), 82)
+    shifted = pnms.class_offset_boxes(boxes, labels)
+    order, boxes_o, scores_o = pnms._score_order(shifted.cuda(), scores.cuda())
+    boxes_o, scores_o = boxes_o.contiguous(), scores_o.contiguous()
+    got, ref64, err = r1_dense_check(f"predict {B}x{ROT_CAND}x{ROT_CAND} after the class "
+                                     f"offset (max |centre| "
+                                     f"{shifted[..., :2].abs().max():.0f} px)",
+                                     boxes_o, boxes_o, controls=True)
+    tol = R1_TOL[torch.float32]
+    upper = torch.ones(ROT_CAND, ROT_CAND, dtype=torch.bool, device=boxes_o.device).triu(1)
+    near = ((ref64 - ROT_THR).abs() <= tol) & upper
+    bits = r1_mask_bits(boxes_o, scores_o, ROT_THR)
+    plain_bits = (prb.rbox_overlaps_ref(boxes_o, boxes_o) > ROT_THR) & upper
+    off_bits = bits != plain_bits
+    if (off_bits & ~near).any():
+        raise AssertionError(f"R1's mask differs from the plain version's IoU > {ROT_THR} "
+                             f"at {int((off_bits & ~near).sum())} pairs off the threshold")
+    log(f"[rotated] R1 mask {B}x{ROT_CAND} at {ROT_THR}: {int(bits.sum())} bits set, "
+        f"{int(off_bits.sum())} differ from the plain version's, all among the "
+        f"{int(near.sum())} pairs within {tol} of the threshold")
+    del got, plain_bits, off_bits, bits
+
+    # keep sets through batched_nms on the card against nms_ref (card, CPU)
+    before = counters()
+    idx, out = pnms.batched_nms(boxes.cuda(), scores.cuda(), labels.cuda(), ROT_THR, 200)
+    keep = pnms.nms_keep(boxes_o, scores_o, ROT_THR)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in counters().items() if n != before[k]}
+    if moved != {"nms_rotated": 2}:
+        raise AssertionError(f"R1 predict: launched {moved}, expected nms_rotated twice")
+    valid = scores_o > pnms.NEG_INF / 2
+    keep_ref = pnms.nms_keep_ref(boxes_o, valid, ROT_THR)
+    differ = keep != keep_ref
+    first = [int(d.nonzero()[0]) if d.any() else None for d in differ]
+    for img, j in enumerate(first):
+        if j is not None and not near[img, :j, j].any() and not near[img, j].any():
+            raise AssertionError(f"R1 predict image {img}: the first differing decision "
+                                 f"(box {j}) has no pair within {tol} of {ROT_THR}")
+    ref_idx, ref_out = pnms.nms_ref(shifted.cuda(), scores.cuda(), ROT_THR, 200)
+    log(f"[rotated] predict keep sets: {int(keep.sum())} kept by R1, {int(keep_ref.sum())} "
+        f"by nms_ref on the card; "
+        f"{int(differ.sum())} differing decisions, the first of each image at box "
+        f"{first}, each tracing to one of the {int(near.sum())} pairs within {tol} of "
+        f"{ROT_THR}; batched_nms top 200 equal to nms_ref's: "
+        f"{torch.equal(idx, ref_idx) and torch.equal(out, ref_out)}")
+    keep_low = pnms.nms_keep(boxes_o, scores_o, ROT_THR - 0.01)
+    if torch.equal(keep_low, keep):
+        raise AssertionError(f"R1: the control at thr {ROT_THR - 0.01} passed")
+    log(f"[rotated] control, R1 at thr {ROT_THR - 0.01:.2f} -> rejected "
+        f"({int(keep_low.sum())} kept against {int(keep.sum())} at {ROT_THR})")
+
+    # the built case: every pair at least 1e-3 from the threshold
+    boxes_m, scores_m, labels_m = rotated_scene(B, 60, 5, (800, 800), 83)
+    labels_m = labels_m % 3
+    ious = prb.rbox_overlaps_ref(boxes_m.double(), boxes_m.double())
+    same = labels_m[:, :, None] == labels_m[:, None, :]
+    vals = torch.sort(ious[same & (ious > 0.02) & (ious < 0.3)].flatten())[0]
+    gap = int(torch.argmax(vals[1:] - vals[:-1]))
+    thr_m = float((vals[gap] + vals[gap + 1]) / 2)
+    margin = float(((ious - thr_m).abs() + (~same) * 1.0).min())
+    if margin < 1e-3:
+        raise AssertionError(f"the built case's margin is {margin:.2e} < 1e-3")
+    got_idx, got_s = pnms.batched_nms(boxes_m.cuda(), scores_m.cuda(), labels_m.cuda(),
+                                      thr_m, 100)
+    shifted_m = pnms.class_offset_boxes(boxes_m, labels_m)
+    same_idx = {where: torch.equal(got_idx.cpu(), r[0].cpu()) and torch.equal(got_s.cpu(),
+                                                                              r[1].cpu())
+                for where, r in (("card", pnms.nms_ref(shifted_m.cuda(), scores_m.cuda(),
+                                                       thr_m, 100)),
+                                 ("CPU", pnms.nms_ref(shifted_m, scores_m, thr_m, 100)))}
+    log(f"[rotated] built case {B}x{boxes_m.shape[1]}, 3 classes, thr {thr_m:.4f} (every "
+        f"same-class pair ≥ {margin:.2e} from it): {int((got_s > pnms.NEG_INF / 2).sum())} "
+        f"kept; indices and scores equal to nms_ref's on the card {same_idx['card']}, on "
+        f"the CPU {same_idx['CPU']}")
+    if not all(same_idx.values()):
+        raise AssertionError(f"R1's keep set differs from nms_ref's at the built case: "
+                             f"{same_idx}")
+
+    # times at the predict's shape
+    ms = loop_ms(lambda: pnms.nms_keep(boxes_o, scores_o, ROT_THR))
+    dev = graph_ms(lambda: pnms.nms_keep(boxes_o, scores_o, ROT_THR))
+    plain_ms = loop_ms(lambda: pnms.nms_keep_ref(boxes_o, valid, ROT_THR), reps=3, warmup=1)
+    whole = loop_ms(lambda: pnms.batched_nms(boxes.cuda(), scores.cuda(), labels.cuda(),
+                                             ROT_THR, 200))
+    pairs = B * ROT_CAND * (ROT_CAND - 1) // 2
+    flops = r1_ops(boxes_o, boxes_o, ref64 * upper, upper=True)
+    nbytes = B * ROT_CAND * (20 + 4) + B * ROT_CAND
+    bound_ms, bound_by = r1_bound(flops, nbytes)
+    log(f"[kernel] nms_rotated predict {B}x{ROT_CAND}: kernel {ms:.4f} ms (CUDA graph: "
+        f"{dev:.4f} ms of device time a call; mask and N1's scan)  plain (nms_keep_ref "
+        f"on the card) {plain_ms:.4f} ms  library none (mmcv's nms_rotated is absent)  "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({pairs} pairs, "
+        f"{int(((ref64 > 0) & upper).sum())} overlapping, {flops / 1e9:.4f} GFLOP fp32, "
+        f"{nbytes / 1e6:.3f} MB); batched_nms whole (offset, sort, R1, top 200) "
+        f"{whole:.4f} ms")
+    return {"rotated_iou": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                bound_ms=bound_ms, bound_by=bound_by),
+            "rotated_iou_dense": dict(max_abs_err=dense_err, ms=dense_ms,
+                                      plain_ms=dense_plain, library_ms=None,
+                                      bound_ms=dense_bound, bound_by=dense_by)}
+
+
 # ----------------------------------------------------------- phase 4 / 8 --
 
 def build_model(path: Path, hw: Tuple[int, int]) -> Segmentor:
@@ -2109,13 +2495,16 @@ def phase_checkpoint(vit_cls_backbone, card: str) -> None:
 # ------------------------------------------------------------- phase 19 --
 
 DET_BATCH = 2          # the recipes' 2 a GPU × 8, on one card
+ROT_BATCH = 1          # phase 20: the oriented recipes' 4 = 1 a GPU × 4 ranks
 DET_STRIP = (800, 128)  # card vs CPU: a 50×8 token grid (both FPNs need even grids)
 DET_MAX_GTS = 100
 # kernel launches and where detection spends device time by kernel group
 # (first match wins), read from torch.profiler in phase 19
 KERNEL_GROUPS = [
     ("N1 mask", r"nms_mask_kernel"),
-    ("N1 scan", r"nms_scan_kernel"),
+    ("R1 mask", r"rbox_mask_kernel"),
+    ("R1 dense", r"rbox_iou_dense_kernel"),
+    ("NMS scan (N1, R1)", r"nms_scan_kernel"),
     ("K3 bilinear_sample_fwd", r"bilinear_sample_fwd_(vec_)?kernel"),
     ("K6 bilinear_sample_bwd", r"bilinear_sample_bwd_(vec_|tiled_)?kernel"),
     ("K5 flash_attn_bwd", r"flash_bwd_"),
@@ -2144,8 +2533,8 @@ def kernel_group(name: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class DetPath:
-    """A Faster R-CNN recipe's detector at full width and depth, and what
-    phase 19 drives it at."""
+    """A detection recipe's detector at full width and depth, and what phase
+    19 (Faster R-CNN) or 20 (Oriented R-CNN) drives it at."""
 
     name: str
     recipe: TaskConfig
@@ -2160,6 +2549,22 @@ class DetPath:
     grad_stochastic: ClassVar[bool] = False
     grad_rtol: Dict[str, float] = dataclasses.field(  # `phase_det_gradients`
         default_factory=lambda: GRAD_RTOL)
+    head: str = "faster_rcnn"            # or "oriented_rcnn"
+    batch: int = DET_BATCH               # the train step's images
+    card_vs_cpu: bool = True             # the strip's forward and gradient checks
+
+    @property
+    def rotated(self) -> bool:
+        return self.head == "oriented_rcnn"
+
+    @property
+    def det(self) -> DetConfig:
+        C = self.recipe.num_classes
+        return oriented_rcnn_cfg(C) if self.rotated else DetConfig(num_classes=C)
+
+    def task(self, cfg: Optional[TaskConfig] = None, **kw) -> DetectionTask:
+        """The recipe's (or `cfg`'s) DetectionTask with this path's head."""
+        return DetectionTask(cfg or self.recipe, head=self.head, **kw)
 
 
 DET_VIT, DET_XL = faster_rcnn_rvsa_l_800_dior(), faster_rcnn_intern_xl_800_dior()
@@ -2181,50 +2586,87 @@ DET_PATHS = {
 }
 
 
-def det_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int) -> dict:
-    """n seeded images of hw, each with 4-15 gt boxes (sides 24-200 px,
-    within the image) padded to DET_MAX_GTS with gt_valid; each box painted
-    with a brightness its label sets ((c + 0.5) / num_classes · 4 − 2 over
-    noise of std 0.5), so the sanity run has something to learn."""
+ROT_VIT, ROT_XL = oriented_rcnn_rvsa_l_800_diorr(), oriented_rcnn_intern_xl_800_diorr()
+ROT_PATHS = {
+    # phase 20: Oriented R-CNN on DIOR-R's 20 classes at 800², batch 1; a
+    # step adds N1 once (the oriented RPN's horizontal NMS) and R1's dense
+    # form once (the R-CNN assigner), a predict N1 once and R1's mask form
+    # once (the class-aware rotated NMS of 2,000 candidates an image)
+    "det_rot_vit": DetPath("det_rot_vit", ROT_VIT,
+                           lambda crop: backbone_flops(ROT_VIT.backbone, (crop, crop)),
+                           VIT_FWD, {**VIT_STEP, "nms": 1, "rbox_iou": 1},
+                           {**VIT_FWD, "nms": 1, "nms_rotated": 1}, train_steps=8,
+                           head="oriented_rcnn", batch=ROT_BATCH),
+    # XL: the train step and the predict only
+    "det_rot_xl": DetPath("det_rot_xl", ROT_XL,
+                          lambda crop: internimage_flops(internimage_config(ROT_XL.backbone),
+                                                         crop),
+                          XL_FWD, {**XL_STEP, "nms": 1, "rbox_iou": 1},
+                          {**XL_FWD, "nms": 1, "nms_rotated": 1}, train_steps=6,
+                          head="oriented_rcnn", batch=ROT_BATCH, card_vs_cpu=False),
+}
+
+
+def det_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int,
+              rotated: bool = False) -> dict:
+    """n seeded images of hw, each with 4-15 gt boxes padded to DET_MAX_GTS
+    with gt_valid: x1y1x2y2 boxes of sides 24-200 px within the image, or
+    with `rotated` (cx, cy, w, h, θ) boxes of sides 24-200 px, any angle,
+    centres inside the image, le90-regularised; each box painted with a
+    brightness its label sets ((c + 0.5) / num_classes · 4 − 2 over noise
+    of std 0.5), so the sanity run has something to learn."""
     rng = np.random.default_rng(seed)
     H, W = hw
     image = (rng.standard_normal((n, H, W, 3)) * 0.5).astype(np.float32)
-    boxes = np.zeros((n, DET_MAX_GTS, 4), np.float32)
+    boxes = np.zeros((n, DET_MAX_GTS, 5 if rotated else 4), np.float32)
     labels = np.zeros((n, DET_MAX_GTS), np.int64)
     valid = np.zeros((n, DET_MAX_GTS), bool)
+    ys, xs = np.mgrid[0:H, 0:W] + 0.5
     for i in range(n):
         for j in range(rng.integers(4, 16)):
-            bw, bh = rng.uniform(24, min(200, W)), rng.uniform(24, min(200, H))
-            x1, y1 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
-            c = rng.integers(num_classes)
-            boxes[i, j], labels[i, j], valid[i, j] = (x1, y1, x1 + bw, y1 + bh), c, True
-            image[i, int(y1):int(y1 + bh), int(x1):int(x1 + bw)] += \
-                (c + 0.5) / num_classes * 4 - 2
+            # a box's draws: the label first for a rotated box, last for an
+            # axis-aligned one
+            if rotated:
+                c = rng.integers(num_classes)
+                cx, cy = rng.uniform(0, W), rng.uniform(0, H)
+                bw, bh, t = rng.uniform(24, 200), rng.uniform(24, 200), rng.uniform(-1.5, 1.5)
+                boxes[i, j] = prb.regularize_le90(torch.tensor([cx, cy, bw, bh, t])).numpy()
+                u = (xs - cx) * math.cos(t) + (ys - cy) * math.sin(t)
+                v = -(xs - cx) * math.sin(t) + (ys - cy) * math.cos(t)
+                inside = (np.abs(u) <= bw / 2) & (np.abs(v) <= bh / 2)
+            else:
+                bw, bh = rng.uniform(24, min(200, W)), rng.uniform(24, min(200, H))
+                x1, y1 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
+                c = rng.integers(num_classes)
+                boxes[i, j] = (x1, y1, x1 + bw, y1 + bh)
+                inside = (slice(int(y1), int(y1 + bh)), slice(int(x1), int(x1 + bw)))
+            labels[i, j], valid[i, j] = c, True
+            image[i][inside] += (c + 0.5) / num_classes * 4 - 2
     return {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
 
 
 def build_det_model(path: DetPath, hw: Tuple[int, int]) -> TwoStageDetector:
     """The recipe's full-width detector for hw images, seeded random weights,
     on the CPU."""
-    det = DetConfig(num_classes=path.recipe.num_classes)
-    model = TwoStageDetector(path.recipe.backbone, det, input_hw=hw)
+    model = TwoStageDetector(path.recipe.backbone, path.det, input_hw=hw)
     return init_weights(model, _gen(SEED)).eval()
 
 
 def _det_heads(model, images: torch.Tensor, props: Optional[torch.Tensor], task):
-    """fp32 FPN levels, RPN scores and deltas, and, on `props` (B, P, 4) (the
-    model's own proposals if None), the box head's logits and deltas."""
+    """fp32 FPN levels, RPN scores and deltas, and, on `props` (B, P, 4 or
+    5) (the model's own proposals if None), the box head's logits and
+    deltas."""
     hw = tuple(images.shape[1:3])
     feats = model.features(images)
     rpn = model.rpn(feats)
     if props is None:
         props, _ = gen_proposals(rpn, task.anchors_on(hw, images.device), hw,
                                  task.det.nms_pre, task.det.max_proposals,
-                                 task.det.rpn_nms_iou,
+                                 task.det.rpn_nms_iou, task.det.rotated,
                                  level_sizes=det_core.anchor_level_sizes(hw))
-    B, P = props.shape[:2]
+    B, P, D = props.shape
     bidx = torch.arange(B, device=images.device).repeat_interleave(P)
-    cls, reg = model.box_head(feats, props.reshape(B * P, 4), bidx)
+    cls, reg = model.box_head(feats, props.reshape(B * P, D), bidx)
     return list(feats) + [rpn.cls_scores, rpn.deltas, cls, reg], props
 
 
@@ -2233,9 +2675,9 @@ def phase_det_forward(path: DetPath, model_cpu) -> None:
     """fp32 FPN levels, RPN scores and deltas of 2 images of the strip, card
     against CPU, and the box head's logits and deltas on the proposals the
     CPU computed, given to both: each held to SLICE_TOL of its max |ref|."""
-    batch = det_batch(DET_BATCH, DET_STRIP, path.recipe.num_classes, SEED + 1)
+    batch = det_batch(DET_BATCH, DET_STRIP, path.recipe.num_classes, SEED + 1, path.rotated)
     x = torch.from_numpy(batch["image"])
-    task = DetectionTask(path.recipe, model=model_cpu, device="cpu")
+    task = path.task(model=model_cpu, device="cpu")
     t0 = time.perf_counter()
     ref, props = _det_heads(model_cpu, x, None, task)
     t_cpu = time.perf_counter() - t0
@@ -2272,15 +2714,15 @@ def det_grad_inputs(path: DetPath, model_cpu):
     cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(recipe.backbone,
                                                                    dtype="float32"))
     batch = {k: torch.from_numpy(v) for k, v in det_batch(
-        DET_BATCH, DET_STRIP, recipe.num_classes, SEED + 3).items()}
-    task = DetectionTask(cfg, model=model_cpu, device="cpu")
+        DET_BATCH, DET_STRIP, recipe.num_classes, SEED + 3, path.rotated).items()}
+    task = path.task(cfg, model=model_cpu, device="cpu")
     picks: Dict[tuple, torch.Tensor] = {}
     with torch.no_grad():
         with recorded_pool_picks(picks):
             rpn = model_cpu.rpn(model_cpu.features(batch["image"]))
         props = gen_proposals(rpn, task.anchors_on(DET_STRIP, "cpu"), DET_STRIP,
                               task.det.nms_pre, task.det.max_proposals,
-                              task.det.rpn_nms_iou,
+                              task.det.rpn_nms_iou, task.det.rotated,
                               level_sizes=det_core.anchor_level_sizes(DET_STRIP))
     return cfg, batch, props, picks
 
@@ -2349,13 +2791,37 @@ def phase_det_gradients(path: DetPath, model_cpu) -> None:
     box head) lie across 0 from float64's, which puts the CPU's backbone
     gradients 3.4e-4 (median) and up to 1.98e-3 from float64 while the
     card's are 3.2e-7 and 3.2e-6 (`--path det_xl`); its TF32 control
-    leaves 11 parameters outside."""
+    leaves 11 parameters outside.  The oriented path (phase 20) also takes
+    the CPU's R-CNN assigner IoUs (`cpu_assigner_ious`): an IoU within
+    rounding of 0.5 would flip a sample.  This holds the network; R1 is
+    held by phase 3g."""
     cfg, batch, props, picks = det_grad_inputs(path, model_cpu)
-    grad_path = dataclasses.replace(path, per_step={**path.per_step, "nms": 0})
-    with fixed_proposals(props), fixed_pool_picks(picks):
-        check_gradients(grad_path, cfg, model_cpu, batch, DetectionTask,
+    grad_path = dataclasses.replace(path, per_step={**path.per_step, "nms": 0,
+                                                    "rbox_iou": 0})
+    fixed_ious = cpu_assigner_ious() if path.rotated else contextlib.nullcontext()
+    with fixed_proposals(props), fixed_pool_picks(picks), fixed_ious:
+        check_gradients(grad_path, cfg, model_cpu, batch,
+                        lambda *a, **k: path.task(*a, **k),
                         f"fp32 {DET_BATCH} images of {DET_STRIP[0]}×{DET_STRIP[1]}, "
-                        f"the CPU's proposals and max-pool picks")
+                        f"the CPU's proposals, max-pool picks"
+                        + (" and assigner IoUs" if path.rotated else ""))
+
+
+@contextlib.contextmanager
+def cpu_assigner_ious():
+    """`det_loss_core`'s rotated IoUs of gts and proposals: computed (plain
+    version) where the loss runs on the CPU, and that CPU result given to
+    every run on the card after it."""
+    real, held = det_core.rbox_overlaps, {}
+
+    def ious(gts, props):
+        if gts.device.type == "cpu":
+            held["ious"] = real(gts, props)
+            return held["ious"]
+        return held["ious"].to(gts.device)
+
+    with mock.patch.object(det_core, "rbox_overlaps", ious):
+        yield
 
 
 def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
@@ -2382,24 +2848,25 @@ def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
 
 
 def phase_det_train(path: DetPath, card: str) -> dict:
-    """The recipe's train step at batch 2 of 800² through `DetectionTask`
-    (`init_state` → `fit` → `predict_fn` → `evaluate`): launches, ms/step,
-    images/s, data_time, peak memory, the device's busy share and its
-    kernel groups; a predict of 2 images; VOC AP50 on seeded synthetic
-    boxes (finite; random weights); a fixed-batch sanity run whose loss must
-    fall."""
+    """The recipe's train step at `path.batch` images of 800² (phase 19: 2,
+    phase 20: 1) through `DetectionTask` (`init_state` → `fit` →
+    `predict_fn` → `evaluate`): launches, ms/step, images/s, data_time,
+    peak memory, the device's busy share and its kernel groups; a predict
+    of 2 images; VOC AP50 (rotated IoU on the oriented path) on seeded
+    synthetic boxes (finite; random weights); a fixed-batch sanity run
+    whose loss must fall."""
     recipe, tag = path.recipe, f"[train {path.name}]"
-    crop, K = recipe.backbone.img_size, recipe.num_classes
-    task = DetectionTask(recipe)
+    crop, K, B = recipe.backbone.img_size, recipe.num_classes, path.batch
+    task = path.task()
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
     opt = recipe.train.optimizer
     log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} layer "
         f"decay {opt.layer_decay}, schedule {recipe.train.schedule.kind} "
         f"({recipe.train.schedule.warmup_steps} warm-up), remat {recipe.backbone.remat}, "
-        f"drop-path {recipe.backbone.drop_path_rate}; batch {DET_BATCH} (the recipe's "
-        f"{recipe.train.batch_size} over 8 GPUs)")
-    batches = [det_batch(DET_BATCH, (crop, crop), K, SEED + 10 + i) for i in range(3)]
+        f"drop-path {recipe.backbone.drop_path_rate}; batch {B} (the recipe's "
+        f"{recipe.train.batch_size} over {recipe.train.batch_size // B} GPUs)")
+    batches = [det_batch(B, (crop, crop), K, SEED + 10 + i, path.rotated) for i in range(3)]
     logs = []
     log_fn = lambda i, m: logs.append(m)
     torch.cuda.synchronize()
@@ -2425,11 +2892,11 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
     dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
     kernel_ms, groups = _busy(task, state, dev_batch)
-    log(f"{tag} recipe train step, batch {DET_BATCH} of {crop}², bf16 autocast, "
+    log(f"{tag} recipe train step, batch {B} of {crop}², bf16 autocast, "
         f"drop-path on: median {per:.2f} ms/step over {len(step_ms)} (min "
-        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {DET_BATCH / per * 1e3:.3f} "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {B / per * 1e3:.3f} "
         f"images/s, data_time median {data_ms:.3f} ms, backbone "
-        f"~{3 * path.flops(crop) * DET_BATCH / per / 1e9:.2f} TFLOP/s (3× forward), peak "
+        f"~{3 * path.flops(crop) * B / per / 1e9:.2f} TFLOP/s (3× forward), peak "
         f"memory {peak / 2 ** 30:.3f} GiB; busy {kernel_ms / per:.3f} ({kernel_ms:.2f} ms "
         f"of device kernels a step, torch.profiler, 2 steps, over the median step); loss "
         f"{logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f} "
@@ -2440,7 +2907,9 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         f"{g} {ms:.2f} ({n // 2})" for g, (ms, n) in
         sorted(groups.items(), key=lambda kv: -kv[1][0])))
 
-    images = torch.from_numpy(batches[1]["image"]).cuda()
+    # 2 images (phase 19: the second train batch's)
+    images = torch.from_numpy(det_batch(DET_BATCH, (crop, crop), K, SEED + 11,
+                                        path.rotated)["image"]).cuda()
     predict = task.predict_fn()
     with torch.no_grad(), task.autocast():
         reset_counters()
@@ -2456,7 +2925,7 @@ def phase_det_train(path: DetPath, card: str) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     n_valid = int(dets.valid.sum())
-    ok = dets.boxes.shape == (DET_BATCH, task.det.max_per_img, 4) and \
+    ok = dets.boxes.shape == (DET_BATCH, task.det.max_per_img, 5 if path.rotated else 4) and \
         torch.isfinite(dets.boxes).all() and bool((dets.scores[dets.valid] > task.det.score_thr).all())
     log(f"[predict {path.name}] {DET_BATCH} images of {crop}², bf16: launches {p_launched}; "
         f"median {statistics.median(times) * 1e3:.2f} ms a predict, "
@@ -2465,9 +2934,11 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         f"of {DET_BATCH * task.det.max_per_img}")
     if not ok:
         raise AssertionError(f"bad detections {tuple(dets.boxes.shape)}")
-    evals = [det_batch(DET_BATCH, (crop, crop), K, SEED + 20 + i) for i in range(2)]
+    evals = [det_batch(DET_BATCH, (crop, crop), K, SEED + 20 + i, path.rotated)
+             for i in range(2)]
     res = task.evaluate(state, iter(evals))
-    log(f"[eval {path.name}] VOC AP50 on {2 * DET_BATCH} synthetic images (random "
+    log(f"[eval {path.name}] VOC AP50{' (rotated IoU)' if path.rotated else ''} on "
+        f"{2 * DET_BATCH} synthetic images (random "
         f"weights after {state.step} steps): mAP {res['mAP']:.3f}")
     if not 0.0 <= res["mAP"] <= 100.0:
         raise AssertionError(f"bad mAP {res}")
@@ -2475,7 +2946,7 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     sanity = dataclasses.replace(recipe, train=dataclasses.replace(
         recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
         schedule=ScheduleConfig(kind="constant")))
-    sane = DetectionTask(sanity, model=task.model)
+    sane = path.task(sanity, model=task.model)
     logs.clear()
     sane.fit(sane.init_state(_gen(SEED)), cycle(batches[:1]), SANITY_STEPS, log_every=1,
              log_fn=log_fn)
@@ -2488,9 +2959,13 @@ def phase_det_train(path: DetPath, card: str) -> dict:
 
 
 def run_det_path(path: DetPath, card: str) -> dict:
-    """Phase 19 for one recipe: card vs CPU forward and gradients at the
-    strip, then the train step, predict and evaluate at 800²."""
+    """Phase 19 or 20 for one recipe: card vs CPU forward and gradients at
+    the strip (unless not `card_vs_cpu`), then the train step, predict and
+    evaluate at 800²."""
     free()
+    if not path.card_vs_cpu:
+        with phase_time(f"{path.name} train"):
+            return phase_det_train(path, card)
     with phase_time(f"{path.name} models"):
         model_cpu = build_det_model(path, DET_STRIP)
     with phase_time(f"{path.name} logits"):
@@ -2553,7 +3028,7 @@ def main() -> None:
     record = {}
     for name, phase in (("3", phase_kernels), ("3b", phase_backward_kernels),
                         ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels),
-                        ("3e", phase_nms_kernel)):
+                        ("3e", phase_nms_kernel), ("3g", phase_rotated_iou_kernel)):
         with phase_time(f"kernels {name}"):
             record.update(phase())
     with phase_time("kernels 3f"):
@@ -2567,7 +3042,7 @@ def main() -> None:
     with phase_time("checkpoint"):
         phase_checkpoint(vit_cls_backbone, card)
     del vit_cls_backbone
-    for name, path in DET_PATHS.items():
+    for name, path in {**DET_PATHS, **ROT_PATHS}.items():
         runs[name] = run_det_path(path, card)
     kernels = []
     for key, meta in KERNELS.items():

@@ -311,29 +311,36 @@ def intern_xl_unet_256_levir() -> TaskConfig:
     return _cd_recipe(_intern_xl(256), lr=2e-5, layer_decay=0.94)
 
 
-def _det_recipe(backbone: BackboneConfig, layer_decay: float = 0.9) -> TaskConfig:
-    """The horizontal-detection recipe shape (`mtp_tpu.configs._det`;
-    reference mmdet faster_rcnn_..._dior.py): 20 classes (DIOR), global batch
-    2/GPU × 8 = 16, AdamW 1e-4 with weight decay 0.05, no clipping, the
-    `step` schedule (LinearLR warm-up of 500 iterations, then ×0.1 at 8/12
-    and 11/12 of 90k steps)."""
+def _det_recipe(backbone: BackboneConfig, layer_decay: float = 0.9,
+                rotated: bool = False) -> TaskConfig:
+    """The detection recipe shape (`mtp_tpu.configs._det`; reference mmdet
+    faster_rcnn_..._dior.py and mmrotate oriented_rcnn_..._dior-r.py): 20
+    classes (DIOR, DIOR-R), AdamW 1e-4 with weight decay 0.05, no clipping,
+    the `step` schedule (LinearLR warm-up of 500 iterations, then ×0.1 at
+    8/12 and 11/12 of 90k steps); global batch 2/GPU × 8 = 16 horizontal,
+    1/GPU × 4 ranks = 4 rotated."""
     return TaskConfig(
-        task="detection_h", num_classes=20, backbone=backbone,
+        task="detection_r" if rotated else "detection_h", num_classes=20,
+        backbone=backbone,
         train=TrainConfig(
-            batch_size=16,
+            batch_size=4 if rotated else 16,
             optimizer=OptimizerConfig(lr=1e-4, weight_decay=0.05,
                                       layer_decay=layer_decay, clip_norm=0.0),
             schedule=ScheduleConfig(kind="step", total_steps=90000,
                                     warmup_steps=500)))
 
 
+def _vit_l_det_800() -> BackboneConfig:
+    """ViT-L+RVSA at 800², drop-path 0.3, the last block tapped four times
+    (`out_indices=(23,)*4`, `mtp_tpu.configs._bb("rvsa_l", 800,
+    det_last=True)`)."""
+    return vit_l_rvsa(800, drop_path_rate=0.3, scan=True, out_indices=(23, 23, 23, 23))
+
+
 def faster_rcnn_rvsa_l_800_dior() -> TaskConfig:
     """The recipe `faster_rcnn_rvsa_l_800_mae_mtp_dior` (and its `_mae_`
-    twin): ViT-L+RVSA at 800², drop-path 0.3, the last block tapped four
-    times (`out_indices=(23,)*4`, `mtp_tpu.configs._bb("rvsa_l", 800,
-    det_last=True)`) → FPN → Faster R-CNN, layer decay 0.9."""
-    return _det_recipe(vit_l_rvsa(800, drop_path_rate=0.3, scan=True,
-                                  out_indices=(23, 23, 23, 23)))
+    twin): `_vit_l_det_800` → FPN → Faster R-CNN, layer decay 0.9."""
+    return _det_recipe(_vit_l_det_800())
 
 
 def faster_rcnn_intern_xl_800_dior() -> TaskConfig:
@@ -341,3 +348,17 @@ def faster_rcnn_intern_xl_800_dior() -> TaskConfig:
     twin): InternImage-XL at 800² with remat → FPN → Faster R-CNN, with
     `_ii_opt`'s layer decay 0.94 (detection keeps lr 1e-4)."""
     return _det_recipe(_intern_xl(800), layer_decay=0.94)
+
+
+def oriented_rcnn_rvsa_l_800_diorr() -> TaskConfig:
+    """The recipe `oriented_rcnn_rvsa_l_800_mae_mtp_diorr` (and its `_mae_`
+    twin): `_vit_l_det_800` → FPN → Oriented R-CNN on DIOR-R, batch 4 (1
+    a GPU × 4 ranks), layer decay 0.9."""
+    return _det_recipe(_vit_l_det_800(), rotated=True)
+
+
+def oriented_rcnn_intern_xl_800_diorr() -> TaskConfig:
+    """The recipe `oriented_rcnn_intern_xl_800_imp_mtp_diorr` (and its
+    `_imp_` twin): InternImage-XL at 800² with remat → FPN → Oriented R-CNN
+    on DIOR-R, batch 4, layer decay 0.94."""
+    return _det_recipe(_intern_xl(800), layer_decay=0.94, rotated=True)

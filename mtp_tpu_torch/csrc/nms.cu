@@ -26,13 +26,9 @@
 //    contraction into an FMA moves a value across the threshold: the bits
 //    are those of the plain PyTorch version (ops/nms.py `nms_ref`), which
 //    rounds each tensor operation.
-// 2. nms_scan_kernel: one block per image walks the rows 64 at a time.  The
-//    "removed" bits of all N boxes live in shared memory (N/64 words).  For
-//    each 64-row tile, thread 0 runs the greedy rule over its rows with the
-//    tile's diagonal words staged in shared memory (64 register steps), and
-//    the whole block then ORs the kept rows' words past the tile into the
-//    removed bits (a shared-memory atomicOr per word, rows and words spread
-//    over the threads).  It writes keep.
+// 2. nms_scan_kernel (csrc/nms_scan.cuh, shared with R1's rotated NMS): one
+//    block per image walks the rows 64 at a time, the "removed" bits of all
+//    N boxes in shared memory, and writes keep.
 //
 // What bounds it on the H100: the function reads 20 bytes a box and writes
 // one, and computes one IoU (14 fp32 operations) for each pair whose first
@@ -47,16 +43,13 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "nms_scan.cuh"
 
 namespace {
 
-constexpr int kTile = 64;                  // boxes per tile side; bits per word
-constexpr int kMaxBoxes = 1 << 16;         // the scan's removed bits: 8 KB of shared memory
-constexpr int kMaxWords = kMaxBoxes / kTile;
-constexpr int kScanThreads = 256;
-constexpr float kValidMin = -5e9f;         // NEG_INF / 2
-
-typedef unsigned long long u64;
+using nms::kMaxBoxes;
+using nms::kTile;
+using nms::u64;
 
 // bbox_overlaps(a, b) in mode "iou" with eps 1e-6, operation for operation.
 __device__ __forceinline__ float box_iou(const float4 a, const float4 b) {
@@ -92,57 +85,6 @@ nms_mask_kernel(const float4* __restrict__ boxes, u64* __restrict__ mask, int N,
   mask[(b * N + i) * words + col_tile] = bits;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-nms_scan_kernel(const u64* __restrict__ mask, const float* __restrict__ scores,
-                uint8_t* __restrict__ keep, int N, int words) {
-  __shared__ u64 removed[kMaxWords];
-  __shared__ u64 diag[kTile];
-  __shared__ float tile_scores[kTile];
-  __shared__ int kept_rows[kTile];
-  __shared__ int n_kept;
-  const long long b = blockIdx.x;
-  const u64* mk = mask + b * N * words;
-  const float* sc = scores + b * N;
-  uint8_t* kp = keep + b * N;
-  const int tid = threadIdx.x;
-  for (int w = tid; w < words; w += kScanThreads) removed[w] = 0;
-  __syncthreads();
-  for (int w = 0; w < words; ++w) {
-    const int row0 = w * kTile;
-    const int nrow = min(kTile, N - row0);
-    if (tid < nrow) {
-      diag[tid] = mk[static_cast<long long>(row0 + tid) * words + w];
-      tile_scores[tid] = sc[row0 + tid];
-    }
-    __syncthreads();
-    if (tid == 0) {  // the greedy rule over the tile's rows, in order
-      u64 cur = removed[w], kept = 0;
-      int n = 0;
-      for (int r = 0; r < nrow; ++r) {
-        if (!((cur >> r) & 1ull) && tile_scores[r] > kValidMin) {
-          kept |= 1ull << r;
-          cur |= diag[r];
-          kept_rows[n++] = r;
-        }
-      }
-      n_kept = n;
-      removed[w] = cur;
-    }
-    __syncthreads();
-    if (tid < nrow) kp[row0 + tid] = (removed[w] >> tid) & 1ull ? 0 : tile_scores[tid] > kValidMin;
-    // the kept rows suppress their later tiles: (row, word) pairs over the
-    // threads, neighbouring threads on neighbouring words of one row
-    const int nk = n_kept, later = words - w - 1;
-#pragma unroll 4
-    for (int p = tid; p < nk * later; p += kScanThreads) {
-      const int r = kept_rows[p / later], j = w + 1 + p % later;
-      const u64 bits = mk[static_cast<long long>(row0 + r) * words + j];
-      if (bits) atomicOr(&removed[j], bits);
-    }
-    __syncthreads();
-  }
-}
-
 }  // namespace
 
 // boxes (B, N, 4) fp32 and scores (B, N) fp32 in stable descending score
@@ -157,7 +99,7 @@ extern "C" int mtp_nms(const void* boxes, const void* scores, void* mask, void* 
       static_cast<const float4*>(boxes), static_cast<u64*>(mask), N, words, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<B, kScanThreads, 0, s>>>(
+  nms::nms_scan_kernel<<<B, nms::kScanThreads, 0, s>>>(
       static_cast<const u64*>(mask), static_cast<const float*>(scores),
       static_cast<uint8_t*>(keep), N, words);
   return static_cast<int>(cudaGetLastError());

@@ -37,7 +37,7 @@ class FPN(nn.Module):
     top-down, then 3×3 output convolutions; levels past the laterals up to
     `num_outs` max-pool the last one (1×1 window, stride 2).  Takes the
     backbone's NHWC levels and returns NCHW ones.  RetinaNet's
-    `add_extra_convs="on_input"` neck follows with slice 3b."""
+    `add_extra_convs="on_input"` neck follows with slice 3c."""
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
                  num_outs: int = 5, start_level: int = 0,
@@ -45,7 +45,7 @@ class FPN(nn.Module):
         super().__init__()
         if add_extra_convs:
             raise NotImplementedError(
-                f"add_extra_convs={add_extra_convs!r} (RetinaNet's neck) is slice 3b")
+                f"add_extra_convs={add_extra_convs!r} (RetinaNet's neck) is slice 3c")
         used = list(in_channels[start_level:])
         self.start_level, self.num_outs = start_level, num_outs
         self.lateral_convs = nn.ModuleList(ConvBlock(c, out_channels, 1) for c in used)

@@ -1,6 +1,7 @@
-"""RoI box head of horizontal detection (port of `mtp_tpu/heads/roi_heads.py`
-`Shared2FCTrunk`, `BBoxHead` and `bbox_head_loss`; the mask trunk follows
-with slice 3b).
+"""RoI box head of two-stage detection (port of `mtp_tpu/heads/roi_heads.py`
+`Shared2FCTrunk`, `BBoxHead` and `bbox_head_loss`): class-specific 4-d
+deltas (Faster R-CNN) or class-agnostic 5-d ones (Oriented R-CNN); the
+mask trunk follows with slice 3c.
 
 RoI features are NCHW (R, C, s, s) and flatten in CHW order, as mmdet's
 `Shared2FCBBoxHead` flattens them, so that a released `.pth` loads as it

@@ -52,6 +52,11 @@ SIGNATURES = {
     "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 7,
     # boxes, scores (score order), mask (scratch), keep, B, N, iou_thr (N1)
     "mtp_nms": [_P] * 4 + [_I, _I, _F],
+    # a, b, out, B, N, M, iof (R1, dense)
+    "mtp_rbox_iou": [_P] * 3 + [_I] * 4,
+    # boxes, scores (score order), mask (scratch), keep, B, N, iou_thr (R1,
+    # mask form, then N1's scan)
+    "mtp_nms_rotated": [_P] * 4 + [_I, _I, _F],
 }
 
 # storage types the kernels are instantiated for (csrc/common.cuh DType)
@@ -196,6 +201,17 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain version for device {device}")
+
+
+def check_on_card(kernel: str, *tensors: torch.Tensor) -> None:
+    """The box kernels (N1, R1) take fp32 tensors on one CUDA device and
+    nothing else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{kernel} runs on one CUDA device, got "
+                         f"{sorted(map(str, devices))}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{kernel} takes torch.float32, got {[t.dtype for t in tensors]}")
 
 
 def check_launchable(**tensors: torch.Tensor) -> None:

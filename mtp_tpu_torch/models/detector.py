@@ -1,11 +1,13 @@
-"""Two-stage detector of horizontal boxes, Faster R-CNN (port of
-`mtp_tpu/models/detector.py` `DetConfig` and `TwoStageDetector`; Mask
-R-CNN, Oriented R-CNN and `oriented_rcnn_cfg` follow with slice 3b).
+"""Two-stage detectors, Faster R-CNN and Oriented R-CNN (port of
+`mtp_tpu/models/detector.py` `DetConfig`, `oriented_rcnn_cfg` and
+`TwoStageDetector`; Mask R-CNN follows with slice 3c).
 
 backbone (ViT+RVSA or InternImage, 4 NHWC levels) → FPN (5 NCHW levels of
-256 channels) → RPN head; multilevel RoIAlign of the first 4 levels → the
-shared-2FC box head with its inline fc_cls / fc_reg.  State-dict prefixes
-are mmdet's: `backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`.
+256 channels) → RPN head (4 deltas an anchor, or the oriented RPN's 6);
+multilevel RoIAlign of the first 4 levels (of rotated RoIs when rotated) →
+the shared-2FC box head with its inline fc_cls / fc_reg (5-d,
+class-agnostic when rotated).  State-dict prefixes are mmdet's:
+`backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`.
 """
 
 from __future__ import annotations
@@ -66,6 +68,18 @@ class DetConfig:
     max_gts: int = 100
 
 
+def oriented_rcnn_cfg(num_classes: int) -> DetConfig:
+    """Oriented R-CNN's hyper-params (reference
+    rotated_detection/oriented_rcnn.py:18-145), as JAX's."""
+    return DetConfig(
+        num_classes=num_classes, rotated=True,
+        rpn_smooth_l1_beta=1.0 / 9.0, rpn_nms_iou=0.8,
+        nms_pre=2000, max_proposals=1000,
+        rcnn_match_low_quality=False, reg_class_agnostic=True,
+        bbox_stds=(0.1, 0.1, 0.2, 0.2, 0.1), rcnn_smooth_l1_beta=1.0,
+        test_nms_iou=0.1, max_per_img=200)
+
+
 class TwoStageDetector(nn.Module):
     """`backbone_cfg` is a BackboneConfig (or an InternImageConfig);
     `input_hw` sizes the ViT's position embedding and full-attention tables
@@ -74,14 +88,14 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone_cfg, det: DetConfig, fpn_channels: int = 256,
                  input_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
-        if det.rotated or det.with_mask:
-            raise NotImplementedError("Oriented R-CNN and Mask R-CNN are slice 3b")
+        if det.with_mask:
+            raise NotImplementedError("Mask R-CNN is slice 3c")
         self.det = det
         self.backbone = build_backbone(backbone_cfg, input_hw)
         self.neck = FPN(self.backbone.out_channels, fpn_channels, num_outs=5)
-        self.rpn_head = RPNHead(fpn_channels, fpn_channels, 3, 4)
+        self.rpn_head = RPNHead(fpn_channels, fpn_channels, 3, 6 if det.rotated else 4)
         self.roi_head = nn.ModuleDict({"bbox_head": BBoxHead(
-            fpn_channels * det.roi_size ** 2, det.num_classes, 4,
+            fpn_channels * det.roi_size ** 2, det.num_classes, 5 if det.rotated else 4,
             det.reg_class_agnostic)})
 
     def features(self, x: torch.Tensor, deterministic: bool = True,
@@ -95,12 +109,14 @@ class TwoStageDetector(nn.Module):
 
     def roi_feats(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                   batch_idx: torch.Tensor, out_size: int) -> torch.Tensor:
-        """Multilevel RoIAlign of the first 4 levels: (R, C, s, s)."""
+        """Multilevel RoIAlign of the first 4 levels: rois (R, 4), or (R, 5)
+        when rotated → (R, C, s, s)."""
         return multilevel_roi_align_fused(feats[:4], rois, batch_idx, out_size,
-                                          self.det.fpn_strides)
+                                          self.det.fpn_strides, rotated=self.det.rotated)
 
     def box_head(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
                  batch_idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(cls logits (R, C + 1), deltas (R, 4·C)), both fp32."""
+        """(cls logits (R, C + 1), deltas (R, 4·C), or (R, 5) when rotated),
+        both fp32."""
         return self.roi_head["bbox_head"](
             self.roi_feats(feats, rois, batch_idx, self.det.roi_size))

@@ -1,7 +1,7 @@
-"""Multilevel RoIAlign of horizontal boxes (port of `mtp_tpu/ops/roi_align.py`
-`map_roi_levels` and `multilevel_roi_align_fused`, the atlas form; the
-single-level `roi_align` of mask targets and the rotated form follow with
-slice 3b).
+"""Multilevel RoIAlign of horizontal and rotated boxes (port of
+`mtp_tpu/ops/roi_align.py` `map_roi_levels`, `map_rroi_levels` and
+`multilevel_roi_align_fused`, the atlas form; the single-level `roi_align`
+and `roi_align_rotated` of mask targets follow with slice 3c).
 
 Each RoI goes to one FPN level by mmdet's scale rule; its bins are sampled
 at 2×2 points each (bilinear, torchvision aligned=True: the half-pixel
@@ -35,13 +35,24 @@ def map_roi_levels(rois: torch.Tensor, num_levels: int,
     return lvl.clamp(0, num_levels - 1).long()
 
 
+def map_rroi_levels(rrois: torch.Tensor, num_levels: int,
+                    finest_scale: int = 56) -> torch.Tensor:
+    """mmrotate RotatedSingleRoIExtractor: the scale is sqrt(w·h) of the
+    rotated box itself, not of its bounding box."""
+    scale = torch.sqrt((rrois[:, 2] * rrois[:, 3]).clamp(min=1e-6))
+    lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    return lvl.clamp(0, num_levels - 1).long()
+
+
 def multilevel_roi_align_fused(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                                batch_idx: torch.Tensor, out_size: int,
-                               strides: Sequence[int],
-                               sampling: int = 2) -> torch.Tensor:
-    """feats: NCHW levels (B, C, H_l, W_l); rois (R, 4) x1y1x2y2 in image
-    coordinates; batch_idx (R,) → (R, C, out_size, out_size) in the
-    features' dtype."""
+                               strides: Sequence[int], sampling: int = 2,
+                               rotated: bool = False) -> torch.Tensor:
+    """feats: NCHW levels (B, C, H_l, W_l); rois (R, 4) x1y1x2y2, or with
+    `rotated` (R, 5) (cx, cy, w, h, θ), in image coordinates; batch_idx (R,)
+    → (R, C, out_size, out_size) in the features' dtype.  A rotated RoI's
+    grid is turned by −θ about its centre: mmcv RoIAlignRotated with
+    clockwise=True, as the oriented detector calls it."""
     B, C = feats[0].shape[:2]
     R = rois.shape[0]
     dev = rois.device
@@ -51,7 +62,7 @@ def multilevel_roi_align_fused(feats: Sequence[torch.Tensor], rois: torch.Tensor
     S = int(offs[-1])
     atlas = torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2).reshape(B * S, C)
 
-    lvls = map_roi_levels(rois, len(feats))
+    lvls = (map_rroi_levels if rotated else map_roi_levels)(rois, len(feats))
     table = lambda v, dt: torch.as_tensor(np.asarray(v), dtype=dt, device=dev)[lvls]
     inv_stride = table(1.0 / np.asarray(strides, np.float32), torch.float32)
     Hl, Wl = table(hs, torch.float32), table(ws, torch.float32)
@@ -59,12 +70,22 @@ def multilevel_roi_align_fused(feats: Sequence[torch.Tensor], rois: torch.Tensor
     Hl_i, Wl_i = table(hs, torch.int64), table(ws, torch.int64)
 
     g = _bin_grid(out_size, sampling, dev)
-    x1 = rois[:, 0] * inv_stride - 0.5
-    y1 = rois[:, 1] * inv_stride - 0.5
-    w = (rois[:, 2] - rois[:, 0]) * inv_stride
-    h = (rois[:, 3] - rois[:, 1]) * inv_stride
-    sx = (x1[:, None] + w[:, None] * g[None, :])[:, None, :]          # (R, 1, n)
-    sy = (y1[:, None] + h[:, None] * g[None, :])[:, :, None]          # (R, n, 1)
+    if rotated:
+        cx = rois[:, 0] * inv_stride - 0.5
+        cy = rois[:, 1] * inv_stride - 0.5
+        gc = g - 0.5
+        lx = (rois[:, 2] * inv_stride)[:, None, None] * gc[None, None, :]  # (R, 1, n)
+        ly = (rois[:, 3] * inv_stride)[:, None, None] * gc[None, :, None]  # (R, n, 1)
+        cos, sin = torch.cos(-rois[:, 4])[:, None, None], torch.sin(-rois[:, 4])[:, None, None]
+        sx = cx[:, None, None] + lx * cos - ly * sin                       # (R, n, n)
+        sy = cy[:, None, None] + lx * sin + ly * cos
+    else:
+        x1 = rois[:, 0] * inv_stride - 0.5
+        y1 = rois[:, 1] * inv_stride - 0.5
+        w = (rois[:, 2] - rois[:, 0]) * inv_stride
+        h = (rois[:, 3] - rois[:, 1]) * inv_stride
+        sx = (x1[:, None] + w[:, None] * g[None, :])[:, None, :]      # (R, 1, n)
+        sy = (y1[:, None] + h[:, None] * g[None, :])[:, :, None]      # (R, n, 1)
     # border padding: clamp into the RoI's own level
     ix = torch.minimum(sx.clamp(min=0.0), (Wl - 1.0)[:, None, None])
     iy = torch.minimum(sy.clamp(min=0.0), (Hl - 1.0)[:, None, None])

@@ -1,13 +1,14 @@
-"""Fixed-shape training loss and padded prediction of horizontal two-stage
-detection (port of `mtp_tpu/tasks/detection.py` `anchors_for`,
-`anchor_level_sizes`, `Detections`, `_assign_from_ious`, `det_loss_core`
-and `det_predict_core`, for one batch; the concatenated multi-dataset form
-is decided with the multitask slice, the rotated and mask branches with
-slice 3b).
+"""Fixed-shape training loss and padded prediction of two-stage detection,
+horizontal (Faster R-CNN) and rotated (Oriented R-CNN) (port of
+`mtp_tpu/tasks/detection.py` `anchors_for`, `anchor_level_sizes`,
+`Detections`, `_assign_from_ious`, `det_loss_core` and `det_predict_core`,
+for one batch; the concatenated multi-dataset form is decided with the
+multitask slice, the mask branch with slice 3c).
 
-batch dict: image (B, H, W, 3); gt_boxes (B, G, 4); gt_labels (B, G) int;
-gt_valid (B, G) bool.  Every list of the reference flow is a padded tensor
-with a mask, and nothing leaves the device during a step.
+batch dict: image (B, H, W, 3); gt_boxes (B, G, 4) x1y1x2y2, or (B, G, 5)
+(cx, cy, w, h, θ) le90 when rotated; gt_labels (B, G) int; gt_valid (B, G)
+bool.  Every list of the reference flow is a padded tensor with a mask, and
+nothing leaves the device during a step.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ from mtp_tpu_torch.ops.assign import (AssignResult, assign_from_ious,
 from mtp_tpu_torch.ops.boxes import bbox_overlaps, delta_decode, delta_encode
 from mtp_tpu_torch.ops.nms import NEG_INF, batched_nms
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.ops.rotated_boxes import (delta_decode_rbox, delta_encode_rbox,
+                                             midpoint_encode, rbox_overlaps,
+                                             rbox_to_hbox)
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
-# box_fn(flat_rois (R, 4), batch_idx (R,)) → (cls logits, deltas)
+# box_fn(flat_rois (R, 4 or 5), batch_idx (R,)) → (cls logits, deltas)
 BoxFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -49,7 +53,7 @@ def anchor_level_sizes(img_hw: Tuple[int, int]) -> Tuple[int, ...]:
 
 
 class Detections(NamedTuple):
-    boxes: torch.Tensor   # (B, N, 4)
+    boxes: torch.Tensor   # (B, N, 4 or 5)
     scores: torch.Tensor  # (B, N)
     labels: torch.Tensor  # (B, N)
     valid: torch.Tensor   # (B, N)
@@ -77,7 +81,10 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
     acc}).  The RPN losses are per image, then averaged; proposals carry no
     gradient; the gts join the proposals (add_gt_as_proposals); the R-CNN
     samples min(rcnn_num, proposals + gts) RoIs an image.  `anchors`
-    (A, 4), numpy or a tensor; the samplers draw from `generator`."""
+    (A, 4), numpy or a tensor; the samplers draw from `generator`.
+    Rotated: the RPN is assigned on the gts' bounding boxes and regresses
+    the midpoint coder's 6 deltas; the R-CNN assigns by rotated IoU and
+    regresses DeltaXYWHT's 5."""
     H, W = img_hw
     scores = rpn_out.cls_scores
     B, dev = scores.shape[0], scores.device
@@ -86,30 +93,35 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
     gt_labels = batch["gt_labels"].long()
 
     # ---------------- RPN ----------------
-    assign = max_iou_assign(A, gt_boxes, gt_valid, None, det.rpn_pos_iou,
+    gt_hbox = rbox_to_hbox(gt_boxes) if det.rotated else gt_boxes
+    assign = max_iou_assign(A, gt_hbox, gt_valid, None, det.rpn_pos_iou,
                             det.rpn_neg_iou, det.rpn_min_pos_iou, True)
     sample = random_sample(assign, generator, det.rpn_num, det.rpn_pos_fraction)
-    tgt = delta_encode(A[sample.inds], _take(gt_boxes, sample.gt_inds))
+    encode = midpoint_encode if det.rotated else delta_encode
+    tgt = encode(A[sample.inds], _take(gt_boxes, sample.gt_inds))
     metrics = {k: v.mean() for k, v in rpn_loss(rpn_out, sample, tgt,
                                                 det.rpn_smooth_l1_beta).items()}
 
     # ---------------- proposals (no gradient) ----------------
     props, prop_scores = gen_proposals(
         RPNOut(*(t.detach() for t in rpn_out)), A, (H, W), det.nms_pre,
-        det.max_proposals, det.rpn_nms_iou, level_sizes=anchor_level_sizes((H, W)))
+        det.max_proposals, det.rpn_nms_iou, det.rotated,
+        level_sizes=anchor_level_sizes((H, W)))
     props_all = torch.cat([props, gt_boxes], 1)
     prop_valid = torch.cat([prop_scores > NEG_INF / 2, gt_valid], 1)
 
     # ---------------- R-CNN assign / sample ----------------
     R = min(det.rcnn_num, props_all.shape[1])
-    ious = bbox_overlaps(gt_boxes, props_all)                        # (B, G, P)
+    overlaps = rbox_overlaps if det.rotated else bbox_overlaps
+    ious = overlaps(gt_boxes, props_all)                             # (B, G, P)
     ious = torch.where(gt_valid[..., None], ious, 0.0)
     ious = torch.where(prop_valid[:, None, :], ious, -1.0)
     assign = _assign_from_ious(ious, gt_labels, det.rcnn_pos_iou, det.rcnn_neg_iou,
                                det.rcnn_pos_iou, det.rcnn_match_low_quality)
     sample = random_sample(assign, generator, R, det.rcnn_pos_fraction)
     rois = _take(props_all, sample.inds)
-    tgt = delta_encode(rois, _take(gt_boxes, sample.gt_inds), stds=det.bbox_stds)
+    encode = delta_encode_rbox if det.rotated else delta_encode
+    tgt = encode(rois, _take(gt_boxes, sample.gt_inds), stds=det.bbox_stds)
 
     flat = lambda t: t.reshape(B * R, *t.shape[2:])
     batch_idx = torch.arange(B, device=dev).repeat_interleave(R)
@@ -127,14 +139,14 @@ def det_predict_core(det: DetConfig, anchors, img_hw: Tuple[int, int], B: int,
     proposals, class probabilities (softmax, background dropped), each
     class's decoded box, scores at or under `score_thr` (and invalid
     proposals) set to NEG_INF, the top min(10·max_per_img, P·C) candidates,
-    then class-aware NMS."""
+    then class-aware NMS (rotated IoU when rotated)."""
     H, W = img_hw
     dev = rpn_out.cls_scores.device
     A = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
     props, prop_scores = gen_proposals(rpn_out, A, (H, W), det.nms_pre,
-                                       det.max_proposals, det.rpn_nms_iou,
+                                       det.max_proposals, det.rpn_nms_iou, det.rotated,
                                        level_sizes=anchor_level_sizes((H, W)))
-    P, C, D = props.shape[1], det.num_classes, 4
+    P, C, D = props.shape[1], det.num_classes, props.shape[-1]
     batch_idx = torch.arange(B, device=dev).repeat_interleave(P)
     cls_logits, reg_pred = box_fn(props.reshape(B * P, D), batch_idx)
     probs = F.softmax(cls_logits, -1)[:, :C].reshape(B, P, C)
@@ -143,8 +155,12 @@ def det_predict_core(det: DetConfig, anchors, img_hw: Tuple[int, int], B: int,
     else:
         reg = reg_pred.reshape(B, P, C, D)
     ncand = min(det.max_per_img * 10, P * C)
-    boxes = delta_decode(props[:, :, None, :].expand(B, P, C, D), reg,
-                         stds=det.bbox_stds, max_shape=(H, W)).reshape(B, P * C, D)
+    rois = props[:, :, None, :].expand(B, P, C, D)
+    if det.rotated:
+        boxes = delta_decode_rbox(rois, reg, stds=det.bbox_stds)
+    else:
+        boxes = delta_decode(rois, reg, stds=det.bbox_stds, max_shape=(H, W))
+    boxes = boxes.reshape(B, P * C, D)
     pv = (prop_scores > NEG_INF / 2)[:, :, None]
     flat_scores = torch.where((probs > det.score_thr) & pv, probs,
                               NEG_INF).reshape(B, P * C)

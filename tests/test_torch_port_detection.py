@@ -270,9 +270,9 @@ def test_task_fit_and_evaluate_on_the_cpu():
     assert not torch.equal(before, state.model.roi_head["bbox_head"].fc_cls.weight)
     res = task.evaluate(state, iter([make_batch(seed=7)]))
     assert 0.0 <= res["mAP"] <= 100.0 and len(res["AP"]) == 3
-    with pytest.raises(NotImplementedError, match="3b"):
+    with pytest.raises(NotImplementedError, match="3c"):
         task.evaluate(state, iter([]), coco=True)
-    with pytest.raises(NotImplementedError, match="3b"):
+    with pytest.raises(NotImplementedError, match="3c"):
         DetectionTask(_task_cfg(), head="mask_rcnn", device="cpu")
 
 

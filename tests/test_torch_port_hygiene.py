@@ -55,6 +55,7 @@ SLICE_MODULES = [
     "mtp_tpu_torch.ops.nms",
     "mtp_tpu_torch.ops.assign",
     "mtp_tpu_torch.ops.roi_align",
+    "mtp_tpu_torch.ops.rotated_boxes",
     "mtp_tpu_torch.heads.rpn",
     "mtp_tpu_torch.heads.roi_heads",
     "mtp_tpu_torch.models.detector",
@@ -64,11 +65,11 @@ SLICE_MODULES = [
     "chip_smoke",
 ]
 
-# the nine kernel sources of the serving, training and detection paths
+# the ten kernel sources of the serving, training and detection paths
 KERNEL_SOURCES = {
     "window_attn_fwd.cu", "flash_attn_fwd.cu", "bilinear_sample_fwd.cu",
     "window_attn_bwd.cu", "flash_attn_bwd.cu", "bilinear_sample_bwd.cu",
-    "window_attn_fwd_large.cu", "window_attn_bwd_qblk.cu", "nms.cu"}
+    "window_attn_fwd_large.cu", "window_attn_bwd_qblk.cu", "nms.cu", "rotated_iou.cu"}
 
 
 def test_imports_without_jax_flax_or_the_jax_package():
@@ -134,14 +135,23 @@ def test_config_copies_match_the_jax_package():
             (pc.faster_rcnn_rvsa_l_800_dior, ("faster_rcnn_rvsa_l_800_mae_mtp_dior",
                                               "faster_rcnn_rvsa_l_800_mae_dior")),
             (pc.faster_rcnn_intern_xl_800_dior, ("faster_rcnn_intern_xl_800_imp_mtp_dior",
-                                                 "faster_rcnn_intern_xl_800_imp_dior"))):
+                                                 "faster_rcnn_intern_xl_800_imp_dior")),
+            (pc.oriented_rcnn_rvsa_l_800_diorr, ("oriented_rcnn_rvsa_l_800_mae_mtp_diorr",
+                                                 "oriented_rcnn_rvsa_l_800_mae_diorr")),
+            (pc.oriented_rcnn_intern_xl_800_diorr,
+             ("oriented_rcnn_intern_xl_800_imp_mtp_diorr",
+              "oriented_rcnn_intern_xl_800_imp_diorr"))):
         for name in names:
             assert dataclasses.asdict(factory()) == \
                 dataclasses.asdict(jrecipes.get(name).task), name
     from mtp_tpu.models.detector import DetConfig as JaxDetConfig
-    from mtp_tpu_torch.models.detector import DetConfig
+    from mtp_tpu.models.detector import oriented_rcnn_cfg as jax_oriented_rcnn_cfg
+    from mtp_tpu_torch.models.detector import DetConfig, oriented_rcnn_cfg
     assert [(f.name, f.type, f.default) for f in dataclasses.fields(DetConfig)] == \
         [(f.name, f.type, f.default) for f in dataclasses.fields(JaxDetConfig)]
+    for num_classes in (15, 20, 37):
+        assert dataclasses.asdict(oriented_rcnn_cfg(num_classes)) == \
+            dataclasses.asdict(jax_oriented_rcnn_cfg(num_classes))
     with pytest.raises(NotImplementedError, match="one device"):
         pc.check_single_device(pc.MeshConfig(data=4))
     pc.check_single_device(pc.MeshConfig(data=1, model=-1))
@@ -200,17 +210,18 @@ def test_library_is_stale_when_a_source_is_newer(tmp_path):
 
 
 def test_every_kernel_source_has_a_launcher_and_note():
-    """Each .cu defines one extern "C" launcher declared in SIGNATURES and
-    says which TPU kernel it replaces, or, for a kernel of the port's own
-    (N1, greedy NMS), which loops of the JAX package it takes the place of."""
+    """Each .cu defines one extern "C" launcher declared in SIGNATURES (R1's
+    source two: its dense and mask forms) and says which TPU kernel it
+    replaces, or, for a kernel of the port's own (N1, greedy NMS; R1,
+    rotated IoU), which loops of the JAX package it takes the place of."""
     assert {p.name for p in _build.sources()} == KERNEL_SOURCES
     launchers = {}
     for src in _build.sources():
         text = src.read_text()
         names = [n for n in _build.SIGNATURES if f'extern "C" int {n}(' in text]
-        assert len(names) == 1, (src.name, names)
+        assert len(names) == (2 if src.name == "rotated_iou.cu" else 1), (src.name, names)
         assert ("Replaces the TPU kernel mtp_tpu/" in text
                 or "Port-only kernel: it replaces no pallas_call.  It takes the place "
                    "of the\n// lax loops of mtp_tpu/" in text), src.name
-        launchers[names[0]] = src.name
+        launchers.update(dict.fromkeys(names, src.name))
     assert set(launchers) == set(_build.SIGNATURES)

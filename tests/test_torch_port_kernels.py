@@ -156,7 +156,7 @@ def test_nms_kernel_wrapper_takes_only_the_card():
     """N1's wrapper launches on CUDA tensors only: CPU tensors go to `nms_ref`
     through `nms_batched`, and called directly on them it raises, as it
     does on boxes that are not fp32 or past its limit; its limits are
-    csrc/nms.cu's constants."""
+    csrc/nms.cu's and the shared scan's (csrc/nms_scan.cuh) constants."""
     boxes, scores = torch.zeros(2, 70, 4), torch.zeros(2, 70)
     with pytest.raises(ValueError, match="CUDA"):
         port_nms.nms_keep(boxes, scores, 0.7)
@@ -165,7 +165,7 @@ def test_nms_kernel_wrapper_takes_only_the_card():
     before = dict(port_nms.LAUNCHES)
     port_nms.nms_batched(boxes, scores, 0.7, 10)
     assert port_nms.LAUNCHES == before
-    src = (_build.CSRC / "nms.cu").read_text()
+    src = (_build.CSRC / "nms.cu").read_text() + (_build.CSRC / "nms_scan.cuh").read_text()
     const = lambda name: re.search(rf"constexpr \w+ {name} = ([^;]+);", src)[1]
     assert const("kTile") == str(port_nms.NMS_TILE)
     assert const("kMaxBoxes") == "1 << 16" and port_nms.NMS_MAX_BOXES == 1 << 16
