@@ -14,8 +14,9 @@ crops with remat (its four full-attention blocks over the 130² token grid
 run the window-attention function over one window of 16,900 tokens: K1L
 forward, K7 backward); then the classification, change-detection and
 checkpoint phases, the two Faster R-CNN recipes at 800² (K1-K6 or K8,
-and N1, the port's greedy-NMS kernel) and the two Oriented R-CNN recipes
-at 800² (the same, and R1, the port's rotated-IoU kernel).
+and N1, the port's greedy-NMS kernel), the two Oriented R-CNN recipes
+at 800² (the same, and R1, the port's rotated-IoU kernel), the Mask R-CNN
+recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
@@ -77,7 +78,10 @@ Phases; any failure raises, so the exit code is non-zero:
    = 130, every box invalid, equal scores, and a pair at IoU exactly 0.7
    (kept at 0.7, suppressed at 0.69); the pairs whose IoU lies within one
    fp32 ulp of the threshold are counted and named; the kernel timed back
-   to back and as device time, beside its plain version and its bound.
+   to back and as device time, beside its plain version and its bound;
+   also timed at phase 21's RPN (B = 2, N = 8,768 at 1024²) and the
+   predicts of phases 21 and 22 (1,000 candidates of 80 and of 60
+   classes).
 3g. R1, rotated IoU (csrc/rotated_iou.cu), against its plain version
    `rbox_overlaps_ref` on the card in fp32 and float64 (R1_TOL), over the
    pairs of boxes of non-zero area: the edge cases (identical boxes, one
@@ -97,7 +101,10 @@ Phases; any failure raises, so the exit code is non-zero:
 3f. K1-K6 and K8 at the 800² detection paths' shapes (batch 2: K1/K4 over
    128 windows of 49 tokens, K2/K5 over 32 heads of the 50×50 grid,
    K3/K6 over 32 maps of 56², K8 at XL's 200² stage 0 and 25² stage 3),
-   held and timed as phase 3's rows.
+   held and timed as phase 3's rows; then K1-K6 at phase 21's 1024²
+   (the 64² grid padded to 70²: K1/K4 over 200 windows, K2/K5 over N =
+   4,096, K3/K6 on 70² maps) and phase 22's 416² (26² padded to 28²: 32
+   windows, N = 676, 28² maps).
 4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
    card (kernels) against the same model on the CPU (plain versions).
 5. ViT serving, bench geometry: 4 tiles of 512², 384² crops at stride 256,
@@ -143,7 +150,8 @@ Phases; any failure raises, so the exit code is non-zero:
    (224²) loaded into the 256² change detector and run.
 19. Detection, for faster_rcnn_rvsa_l_800_mae_mtp_dior (ViT-L+RVSA, the
    last block tapped 4 times) and faster_rcnn_intern_xl_800_imp_mtp_dior
-   (InternImage-XL, remat) in turn: fp32 FPN levels, RPN scores and deltas
+   (InternImage-XL, remat) in turn: for XL (the ViT's are phase 21's, on
+   the same modules) fp32 FPN levels, RPN scores and deltas
    of 2 images of an 800×128 strip card vs CPU, and the box head's
    outputs on the CPU's proposals (SLICE_TOL); fp32 gradients at the strip
    card vs CPU with the TF32 control (phase 6's rule, XL's backbone at
@@ -166,6 +174,25 @@ Phases; any failure raises, so the exit code is non-zero:
    peak memory, busy share and kernel groups; `predict_fn` on 2 images
    (N1 and R1's mask form once), ms/image; `evaluate`'s rotated VOC AP50
    on seeded synthetic rotated boxes (finite); a fixed-batch sanity run.
+21. Mask R-CNN, mask_rcnn_rvsa_l_1024_mae_mtp_coco (ViT-L+RVSA, the last
+   block tapped 4 times → FPN → RPN → box head → FCN mask head, 80
+   classes): fp32 FPN levels, RPN outputs, box head and mask logits card vs
+   CPU at a 1024×128 strip, and fp32 gradients by phase 19's rule (the
+   mask head in the 1e-2 group; box-aligned gt mask crops; the TF32
+   control); the train step at batch 2 of 1024² (N1 once, K3 41 times:
+   the mask targets' sampling), a predict of 2 images (N1 twice) with
+   score_thr 0.001 (`det_overrides`: random weights clear no 0.05), the
+   detections each image kept, `paste_masks_device` on the card against
+   `paste_masks` on the host (pixels may differ only within 1e-6 of the
+   threshold), `evaluate(coco=True)`'s 12 bbox and 12 segm stats (finite),
+   and a fixed-batch sanity run.
+22. RetinaNet, retinanet_rvsa_l_416_mae_mtp_xview (ViT-L+RVSA → FPN from
+   level 1 with two extra convolutions → the 4-conv RetinaHead, 60
+   classes, 32,526 anchors an image): the FPN levels and the head's
+   outputs card vs CPU at a 416×128 strip, and fp32 gradients on the CPU's
+   anchor assignment (the head in the 1e-2 group; the TF32 control); the
+   train step at batch 2 of 416² (no NMS), a predict (N1 once, score_thr
+   0.001), VOC AP50, and a fixed-batch sanity run.
 The last lines are the total time, the kernels' JSON record, the card, and
 the result line.
 """
@@ -203,15 +230,18 @@ from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
                                   intern_xl_unet_256_levir,
                                   intern_xl_upernet_512_loveda,
                                   internimage_config, is_internimage,
+                                  mask_rcnn_rvsa_l_1024_coco,
                                   oriented_rcnn_intern_xl_800_diorr,
                                   oriented_rcnn_rvsa_l_800_diorr,
+                                  retinanet_rvsa_l_416_xview,
                                   rvsa_l_unet_256_levir,
                                   rvsa_l_upernet_384_spacenetv1,
                                   vit_rvsa_l_224_eurosat)
+from mtp_tpu_torch.eval.masks import mask_probabilities, paste_masks, paste_masks_device
 from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.heads.rpn import gen_proposals
 from mtp_tpu_torch.kernels import _build
-from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector, oriented_rcnn_cfg
+from mtp_tpu_torch.models import retinanet as pretina
 from mtp_tpu_torch.models.internimage import internimage_flops
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.models.vit_rvsa import backbone_flops
@@ -224,7 +254,7 @@ from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
 from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
-from mtp_tpu_torch.tasks.detection_task import DetectionTask
+from mtp_tpu_torch.tasks.detection_task import DetectionTask, build_detector, det_config
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 SEED = 0
@@ -1263,8 +1293,10 @@ def phase_dcnv3_kernels() -> dict:
 
 # ------------------------------------------------------------ phase 3e --
 
-# the RPN's NMS input at 800²: min(2000, level size) anchors of each level
+# the RPN's NMS input at 800² and 1024²: min(2000, level size) anchors of
+# each level
 RPN_N = sum(min(2000, n) for n in det_core.anchor_level_sizes((800, 800)))
+RPN_N_1024 = sum(min(2000, n) for n in det_core.anchor_level_sizes((1024, 1024)))
 
 
 def clustered_boxes(B: int, N: int, hw: Tuple[int, int], seed: int, copies: int = 3):
@@ -1414,6 +1446,15 @@ def phase_nms_kernel() -> dict:
         if (1 in idx[:, :2].tolist()[0]) != both:
             raise AssertionError(f"the IoU-0.7 pair at thr {thr}: kept {idx[:, :2].tolist()}")
         nms_case(f"IoU 0.7 pair thr {thr}", boxes, scores, thr, 20)
+    # phases 21-22: Mask R-CNN's RPN at 1024², its predict (80 classes) and
+    # RetinaNet's (60 classes, 416² images)
+    boxes, scores, _ = clustered_boxes(B, RPN_N_1024, (1024, 1024), 77)
+    nms_case(f"rpn 1024² {B}x{RPN_N_1024}", boxes, scores, 0.7, 1000, timed=True)
+    for classes, hw, seed in ((80, 1024, 78), (60, 416, 80)):
+        boxes, scores, src = clustered_boxes(B, 1000, (hw, hw), seed, copies=10)
+        labels = torch.randint(0, classes, (B, 1000), generator=_gen(seed + 1)).gather(1, src)
+        nms_case(f"predict {hw}² {B}x1000 {classes} classes", boxes, scores, 0.5, 100,
+                 labels, timed=True)
     return {"nms": record}
 
 
@@ -1444,6 +1485,31 @@ def phase_800_kernels() -> None:
                                                           bwd=True))
                       for s, hw, G in ((0, 200, 12), (3, 25, 96))],
     }, record_label=None)
+
+
+def phase_path_kernels() -> None:
+    """Phase 3f, continued: K1-K6 at the shapes of phases 21 and 22, batch
+    2, as above.  Mask R-CNN at 1024²: the ViT's 64² grid, padded to 70²
+    for RVSA's windows (100 an image), K2/K5 over N = 4,096 tokens, K3/K6
+    on 70² maps.  RetinaNet at 416²: the 26² grid, padded to 28² (16
+    windows an image), N = 676, 28² maps."""
+    cases = {k: [] for k in ("window", "window_bwd", "flash", "flash_bwd",
+                             "bilinear_sample", "bilinear_sample_bwd")}
+    for hw, grid, padded, seed in ((1024, 64, 70, 81), (416, 26, 28, 91)):
+        W = 2 * (padded // 7) ** 2
+        cases["window"].append((f"{hw}² W={W}", window_case(W, 16, 49, 64, seed,
+                                                            device_time=True)))
+        cases["window_bwd"].append((f"{hw}² W={W}", window_case(
+            W, 16, 49, 64, seed + 1, bwd=True, device_time=True)))
+        cases["flash"].append((f"{hw}² {grid}x{grid}", flash_case(32, (grid, grid), 64,
+                                                                  seed + 2)))
+        cases["flash_bwd"].append((f"{hw}² {grid}x{grid}", flash_case(
+            32, (grid, grid), 64, seed + 3, bwd=True)))
+        cases["bilinear_sample"].append((f"{hw}² {padded}x{padded}", sample_case(
+            32, padded, padded, 64, padded ** 2, 1, seed + 4, edge=False)))
+        cases["bilinear_sample_bwd"].append((f"{hw}² {padded}x{padded}", sample_case(
+            32, padded, padded, 64, padded ** 2, 1, seed + 5, edge=False, bwd=True)))
+    check_kernels(cases, record_label=None)
 
 
 # ------------------------------------------------------------ phase 3g --
@@ -1911,19 +1977,27 @@ def synthetic_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int) ->
 
 
 def _loss_and_grads(cfg: TaskConfig, model, batch: dict, device: str,
-                    stochastic: bool, task_cls=SegmentationTask
+                    stochastic: bool, task_cls=SegmentationTask,
+                    no_grad: Tuple[str, ...] = ()
                     ) -> Tuple[float, Dict[str, torch.Tensor]]:
     """One loss.backward() of the task's loss on `device`: the loss and every
     parameter's gradient (on the CPU).  `stochastic` turns dropout and
     drop-path on.  The task's random draws (those masks, and detection's
     samplers) come from a CPU generator of one seed for every run, so that
-    the card's run draws what the CPU's does."""
+    the card's run draws what the CPU's does.  The parameters named from
+    `no_grad` (prefixes) must get no gradient, and every other one must."""
     task = task_cls(cfg, model=model, device=device)
     masks = _gen(SEED + 4)
     loss, _ = task.loss_fn(model, {k: v.to(device) for k, v in batch.items()},
                            masks, deterministic=not stochastic)
     loss.backward()
-    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    params = dict(model.named_parameters())
+    missing = {n for n, p in params.items() if p.grad is None}
+    expected = {n for n in params if n.startswith(no_grad)}
+    if missing != expected:
+        raise AssertionError(f"on {device}, without a gradient against the expected "
+                             f"{no_grad}: {sorted(missing ^ expected)[:6]}")
+    grads = {n: p.grad.detach().cpu() for n, p in params.items() if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
@@ -2003,10 +2077,10 @@ def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
 
 
 def check_gradients(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
-                    what: str) -> None:
+                    what: str, no_grad: Tuple[str, ...] = ()) -> None:
     """The card-vs-CPU gradient check of `phase_gradients` for any task
     (`path` gives name, per_step, grad_stochastic and head_prefixes), and
-    its TF32 control."""
+    its TF32 control; `no_grad` as `_loss_and_grads` takes it."""
     model_gpu = copy.deepcopy(model_cpu).cuda()
     tag = f"[grads {path.name}]"
     runs = {}
@@ -2014,7 +2088,7 @@ def check_gradients(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
         reset_counters()
         t0 = time.perf_counter()
         runs[device] = _loss_and_grads(cfg, model, batch, device, path.grad_stochastic,
-                                       task_cls)
+                                       task_cls, no_grad)
         if device == "cuda":
             torch.cuda.synchronize()
             launched = counters()
@@ -2027,7 +2101,7 @@ def check_gradients(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
     _tf32(True)
     try:
         control = _loss_and_grads(cfg, model_gpu, batch, "cuda", path.grad_stochastic,
-                                  task_cls)
+                                  task_cls, no_grad)
     finally:
         _tf32(False)
     control_ok, control_summary = _grad_verdict(path, runs["cpu"], control)
@@ -2498,6 +2572,7 @@ DET_BATCH = 2          # the recipes' 2 a GPU × 8, on one card
 ROT_BATCH = 1          # phase 20: the oriented recipes' 4 = 1 a GPU × 4 ranks
 DET_STRIP = (800, 128)  # card vs CPU: a 50×8 token grid (both FPNs need even grids)
 DET_MAX_GTS = 100
+MASK_CROP = 56         # the loader's box-aligned gt mask crops
 # kernel launches and where detection spends device time by kernel group
 # (first match wins), read from torch.profiler in phase 19
 KERNEL_GROUPS = [
@@ -2534,7 +2609,8 @@ def kernel_group(name: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class DetPath:
     """A detection recipe's detector at full width and depth, and what phase
-    19 (Faster R-CNN) or 20 (Oriented R-CNN) drives it at."""
+    19 (Faster R-CNN), 20 (Oriented R-CNN), 21 (Mask R-CNN) or 22
+    (RetinaNet) drives it at."""
 
     name: str
     recipe: TaskConfig
@@ -2543,28 +2619,46 @@ class DetPath:
     per_step: Dict[str, int]             # of one train step
     per_predict: Dict[str, int]          # of one predict
     train_steps: int                     # timed steps
-    # what `check_gradients` reads, as it reads a `Path`'s: the FPN, RPN and
-    # box head are the "convs" group
-    head_prefixes: ClassVar[Tuple[str, ...]] = ("neck.", "rpn_head.", "roi_head.")
     grad_stochastic: ClassVar[bool] = False
     grad_rtol: Dict[str, float] = dataclasses.field(  # `phase_det_gradients`
         default_factory=lambda: GRAD_RTOL)
-    head: str = "faster_rcnn"            # or "oriented_rcnn"
+    head: str = "faster_rcnn"            # or "oriented_rcnn", "mask_rcnn", "retinanet"
     batch: int = DET_BATCH               # the train step's images
     card_vs_cpu: bool = True             # the strip's forward and gradient checks
+    strip: Tuple[int, int] = DET_STRIP   # the card-vs-CPU image
+    # DetConfig / RetinaConfig fields the path's task overrides
+    overrides: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def rotated(self) -> bool:
         return self.head == "oriented_rcnn"
 
     @property
-    def det(self) -> DetConfig:
-        C = self.recipe.num_classes
-        return oriented_rcnn_cfg(C) if self.rotated else DetConfig(num_classes=C)
+    def masks(self) -> bool:
+        return self.head == "mask_rcnn"
+
+    @property
+    def head_prefixes(self) -> Tuple[str, ...]:
+        """What `check_gradients` reads, as it reads a `Path`'s: the FPN and
+        the heads are the "convs" group."""
+        if self.head == "retinanet":
+            return ("neck.", "bbox_head.")
+        return ("neck.", "rpn_head.", "roi_head.")
+
+    @property
+    def no_grad(self) -> Tuple[str, ...]:
+        """Parameters that get no gradient: RetinaNet does not run the ViT's
+        fpn1 (its FPN starts at level 1)."""
+        return ("backbone.fpn1.",) if self.head == "retinanet" else ()
+
+    @property
+    def det(self):
+        return det_config(self.head, self.recipe.num_classes, self.overrides)
 
     def task(self, cfg: Optional[TaskConfig] = None, **kw) -> DetectionTask:
         """The recipe's (or `cfg`'s) DetectionTask with this path's head."""
-        return DetectionTask(cfg or self.recipe, head=self.head, **kw)
+        return DetectionTask(cfg or self.recipe, head=self.head,
+                             det_overrides=self.overrides or None, **kw)
 
 
 DET_VIT, DET_XL = faster_rcnn_rvsa_l_800_dior(), faster_rcnn_intern_xl_800_dior()
@@ -2607,14 +2701,56 @@ ROT_PATHS = {
 }
 
 
+# phases 21-22: random weights clear no score threshold (Mask R-CNN's
+# softmax over 81 classes gives ~0.012 a class, RetinaNet's prior 0.01), so
+# both tasks take score_thr 0.001 through `det_overrides`, as JAX's
+# DetectionTask takes it; nothing else of the recipes changes
+SCORE_THR = 0.001
+MASK_VIT, RETINA_VIT = mask_rcnn_rvsa_l_1024_coco(), retinanet_rvsa_l_416_xview()
+INST_PATHS = {
+    # phase 21: Mask R-CNN on COCO's 80 classes at 1024², batch 2 (the
+    # recipe's 16 = 2 a GPU × 8): the ViT's 64² grid; a step adds N1 once
+    # and K3 once more (the mask targets: `grid_sample` of the gt crops), a
+    # predict N1 twice; card vs CPU at a 1024×128 strip (64×8 tokens)
+    "mask_vit": DetPath("mask_vit", MASK_VIT,
+                        lambda crop: backbone_flops(MASK_VIT.backbone, (crop, crop)),
+                        VIT_FWD, {**VIT_STEP, "bilinear_sample": 41, "nms": 1},
+                        {**VIT_FWD, "nms": 2}, train_steps=6, head="mask_rcnn",
+                        strip=(1024, 128), overrides={"score_thr": SCORE_THR}),
+    # phase 22: RetinaNet on xView's 60 classes at 416², batch 2: the 26²
+    # grid, 32,526 anchors an image; no NMS in a step, N1 once a predict;
+    # card vs CPU at a 416×128 strip (26×8 tokens)
+    "retina_vit": DetPath("retina_vit", RETINA_VIT,
+                          lambda crop: backbone_flops(RETINA_VIT.backbone, (crop, crop)),
+                          VIT_FWD, VIT_STEP, {**VIT_FWD, "nms": 1}, train_steps=6,
+                          head="retinanet", strip=(416, 128),
+                          overrides={"score_thr": SCORE_THR}),
+}
+
+
+def mask_crops(n: int, seed: int) -> np.ndarray:
+    """(n, DET_MAX_GTS, 56, 56) box-aligned gt mask crops, as the loader
+    makes them (`crop_masks_to_boxes`): each an ellipse inscribed in its
+    box, its axes 60-100% of the box's, its centre moved by up to 10%."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(MASK_CROP) + 0.5) / MASK_CROP * 2 - 1
+    ax = rng.uniform(0.6, 1.0, (n, DET_MAX_GTS, 2, 1, 1))
+    c = rng.uniform(-0.1, 0.1, (n, DET_MAX_GTS, 2, 1, 1))
+    inside = ((t[None, :] - c[:, :, 0]) / ax[:, :, 0]) ** 2 + \
+        ((t[:, None] - c[:, :, 1]) / ax[:, :, 1]) ** 2 <= 1
+    return inside.astype(np.float32)
+
+
 def det_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int,
-              rotated: bool = False) -> dict:
+              rotated: bool = False, masks: bool = False) -> dict:
     """n seeded images of hw, each with 4-15 gt boxes padded to DET_MAX_GTS
     with gt_valid: x1y1x2y2 boxes of sides 24-200 px within the image, or
     with `rotated` (cx, cy, w, h, θ) boxes of sides 24-200 px, any angle,
     centres inside the image, le90-regularised; each box painted with a
     brightness its label sets ((c + 0.5) / num_classes · 4 − 2 over noise
-    of std 0.5), so the sanity run has something to learn."""
+    of std 0.5), so the sanity run has something to learn.  With `masks`,
+    each gt's mask crop (`mask_crops`, zeros in the padded slots) as
+    gt_mask_crops."""
     rng = np.random.default_rng(seed)
     H, W = hw
     image = (rng.standard_normal((n, H, W, 3)) * 0.5).astype(np.float32)
@@ -2642,21 +2778,33 @@ def det_batch(n: int, hw: Tuple[int, int], num_classes: int, seed: int,
                 inside = (slice(int(y1), int(y1 + bh)), slice(int(x1), int(x1 + bw)))
             labels[i, j], valid[i, j] = c, True
             image[i][inside] += (c + 0.5) / num_classes * 4 - 2
-    return {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+    batch = {"image": image, "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+    if masks:
+        batch["gt_mask_crops"] = mask_crops(n, seed + 1000) * valid[..., None, None]
+    return batch
 
 
-def build_det_model(path: DetPath, hw: Tuple[int, int]) -> TwoStageDetector:
-    """The recipe's full-width detector for hw images, seeded random weights,
-    on the CPU."""
-    model = TwoStageDetector(path.recipe.backbone, path.det, input_hw=hw)
+def build_det_model(path: DetPath, hw: Tuple[int, int]):
+    """The recipe's full-width detector (a TwoStageDetector or a RetinaNet)
+    for hw images, seeded random weights, on the CPU."""
+    model = build_detector(path.head, path.recipe.backbone, path.det, hw)
     return init_weights(model, _gen(SEED)).eval()
+
+
+# phase 21's card-vs-CPU mask logits: on each image's first proposals
+MASK_ROIS = 16
 
 
 def _det_heads(model, images: torch.Tensor, props: Optional[torch.Tensor], task):
     """fp32 FPN levels, RPN scores and deltas, and, on `props` (B, P, 4 or
     5) (the model's own proposals if None), the box head's logits and
-    deltas."""
+    deltas, and with a mask head its logits on each image's first
+    MASK_ROIS proposals; RetinaNet: the FPN levels and the head's logits
+    and deltas (props None)."""
     hw = tuple(images.shape[1:3])
+    if task.head == "retinanet":
+        feats = model.features(images)
+        return list(feats) + list(model.bbox_head(feats)), None
     feats = model.features(images)
     rpn = model.rpn(feats)
     if props is None:
@@ -2667,15 +2815,22 @@ def _det_heads(model, images: torch.Tensor, props: Optional[torch.Tensor], task)
     B, P, D = props.shape
     bidx = torch.arange(B, device=images.device).repeat_interleave(P)
     cls, reg = model.box_head(feats, props.reshape(B * P, D), bidx)
-    return list(feats) + [rpn.cls_scores, rpn.deltas, cls, reg], props
+    out = list(feats) + [rpn.cls_scores, rpn.deltas, cls, reg]
+    if task.det.with_mask:
+        out.append(model.mask_head_logits(
+            feats, props[:, :MASK_ROIS].reshape(-1, D),
+            torch.arange(B, device=images.device).repeat_interleave(MASK_ROIS)))
+    return out, props
 
 
 @torch.no_grad()
 def phase_det_forward(path: DetPath, model_cpu) -> None:
     """fp32 FPN levels, RPN scores and deltas of 2 images of the strip, card
-    against CPU, and the box head's logits and deltas on the proposals the
-    CPU computed, given to both: each held to SLICE_TOL of its max |ref|."""
-    batch = det_batch(DET_BATCH, DET_STRIP, path.recipe.num_classes, SEED + 1, path.rotated)
+    against CPU, and the box head's logits and deltas (and the mask head's
+    logits) on the proposals the CPU computed, given to both; RetinaNet's
+    FPN levels and head outputs: each held to SLICE_TOL of its max |ref|."""
+    batch = det_batch(DET_BATCH, path.strip, path.recipe.num_classes, SEED + 1,
+                      path.rotated)
     x = torch.from_numpy(batch["image"])
     task = path.task(model=model_cpu, device="cpu")
     t0 = time.perf_counter()
@@ -2683,12 +2838,13 @@ def phase_det_forward(path: DetPath, model_cpu) -> None:
     t_cpu = time.perf_counter() - t0
     model = copy.deepcopy(model_cpu).cuda()
     reset_counters()
-    got, _ = _det_heads(model, x.cuda(), props.cuda(), task)
+    got, _ = _det_heads(model, x.cuda(), None if props is None else props.cuda(), task)
     launched = counters()
     if launched != path.per_forward:
         raise AssertionError(f"launch counts {launched} != {path.per_forward}")
-    names = [f"FPN level {i}" for i in range(5)] + ["RPN scores", "RPN deltas",
-                                                    "box logits", "box deltas"]
+    names = [f"FPN level {i}" for i in range(5)] + (
+        ["cls logits", "deltas"] if path.head == "retinanet" else
+        ["RPN scores", "RPN deltas", "box logits", "box deltas", "mask logits"])
     worst = 0.0
     parts = []
     for name, g, r in zip(names, got, ref):
@@ -2698,32 +2854,38 @@ def phase_det_forward(path: DetPath, model_cpu) -> None:
         rel = ((g - r).abs().max() / r.abs().max()).item()
         worst = max(worst, rel)
         parts.append(f"{name} {rel:.3e}")
-    log(f"[det {path.name}] fp32 {DET_BATCH} images of {DET_STRIP[0]}×{DET_STRIP[1]}, card "
-        f"vs CPU, max |Δ| / max |ref| (tol {SLICE_TOL}): " + ", ".join(parts)
-        + f"; box head on the CPU's {tuple(props.shape)} proposals; CPU forward "
-        f"{t_cpu:.1f} s; launches {launched}")
+    on = "" if props is None else f"; box head on the CPU's {tuple(props.shape)} proposals"
+    log(f"[det {path.name}] fp32 {DET_BATCH} images of {path.strip[0]}×{path.strip[1]}, "
+        f"card vs CPU, max |Δ| / max |ref| (tol {SLICE_TOL}): " + ", ".join(parts)
+        + f"{on}; CPU forward {t_cpu:.1f} s; launches {launched}")
     if not worst <= SLICE_TOL:
         raise AssertionError(f"card detector disagrees with the CPU: {worst:.3e}")
 
 
 def det_grad_inputs(path: DetPath, model_cpu):
-    """What phase 19's gradient check runs on: the recipe in fp32, 2 seeded
-    images of the strip, the proposals the CPU's RPN gives for them, and the
-    CPU's max-pool picks (`recorded_pool_picks`)."""
+    """What the gradient check runs on: the recipe in fp32, 2 seeded images
+    of the strip (with their gt mask crops for Mask R-CNN), the proposals
+    the CPU's RPN gives for them (None for RetinaNet), and the CPU's
+    max-pool picks (`recorded_pool_picks`)."""
     recipe = path.recipe
     cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(recipe.backbone,
                                                                    dtype="float32"))
     batch = {k: torch.from_numpy(v) for k, v in det_batch(
-        DET_BATCH, DET_STRIP, recipe.num_classes, SEED + 3, path.rotated).items()}
+        DET_BATCH, path.strip, recipe.num_classes, SEED + 3, path.rotated,
+        path.masks).items()}
     task = path.task(cfg, model=model_cpu, device="cpu")
     picks: Dict[tuple, torch.Tensor] = {}
     with torch.no_grad():
+        if path.head == "retinanet":
+            with recorded_pool_picks(picks):
+                model_cpu.features(batch["image"])
+            return cfg, batch, None, picks
         with recorded_pool_picks(picks):
             rpn = model_cpu.rpn(model_cpu.features(batch["image"]))
-        props = gen_proposals(rpn, task.anchors_on(DET_STRIP, "cpu"), DET_STRIP,
+        props = gen_proposals(rpn, task.anchors_on(path.strip, "cpu"), path.strip,
                               task.det.nms_pre, task.det.max_proposals,
                               task.det.rpn_nms_iou, task.det.rotated,
-                              level_sizes=det_core.anchor_level_sizes(DET_STRIP))
+                              level_sizes=det_core.anchor_level_sizes(path.strip))
     return cfg, batch, props, picks
 
 
@@ -2793,18 +2955,47 @@ def phase_det_gradients(path: DetPath, model_cpu) -> None:
     card's are 3.2e-7 and 3.2e-6 (`--path det_xl`); its TF32 control
     leaves 11 parameters outside.  The oriented path (phase 20) also takes
     the CPU's R-CNN assigner IoUs (`cpu_assigner_ious`): an IoU within
-    rounding of 0.5 would flip a sample.  This holds the network; R1 is
-    held by phase 3g."""
+    rounding of 0.5 would flip a sample.  RetinaNet (phase 22) takes the
+    CPU's anchor assignment (`cpu_retina_assign`): an anchor's IoU within
+    rounding of 0.4 or 0.5 would move it between negative, ignored and
+    positive.  This holds the network; R1 is held by phase 3g."""
     cfg, batch, props, picks = det_grad_inputs(path, model_cpu)
     grad_path = dataclasses.replace(path, per_step={**path.per_step, "nms": 0,
                                                     "rbox_iou": 0})
-    fixed_ious = cpu_assigner_ious() if path.rotated else contextlib.nullcontext()
-    with fixed_proposals(props), fixed_pool_picks(picks), fixed_ious:
+    if path.head == "retinanet":
+        fixed, what = cpu_retina_assign(), "max-pool picks and anchor assignment"
+    else:
+        fixed = contextlib.ExitStack()
+        fixed.enter_context(fixed_proposals(props))
+        if path.rotated:
+            fixed.enter_context(cpu_assigner_ious())
+        what = "proposals, max-pool picks" + (" and assigner IoUs" if path.rotated else "")
+    with fixed, fixed_pool_picks(picks):
         check_gradients(grad_path, cfg, model_cpu, batch,
                         lambda *a, **k: path.task(*a, **k),
-                        f"fp32 {DET_BATCH} images of {DET_STRIP[0]}×{DET_STRIP[1]}, "
-                        f"the CPU's proposals, max-pool picks"
-                        + (" and assigner IoUs" if path.rotated else ""))
+                        f"fp32 {DET_BATCH} images of {path.strip[0]}×{path.strip[1]}, "
+                        f"the CPU's {what}", path.no_grad)
+
+
+@contextlib.contextmanager
+def cpu_retina_assign():
+    """RetinaNet's anchor assignment: computed where the loss runs on the
+    CPU, and that CPU result given to every run on the card after it; logs
+    how many anchors' best IoUs lie within 1e-6 of 0.4 or 0.5."""
+    real, held = pretina.max_iou_assign, {}
+
+    def assign(anchors, gts, *args):
+        if gts.device.type == "cpu":
+            held["assign"] = real(anchors, gts, *args)
+            m = held["assign"].max_ious
+            near = int(sum(((m - t).abs() <= 1e-6).sum() for t in (0.4, 0.5)))
+            log(f"[grads retina] anchors whose best IoU lies within 1e-6 of 0.4 or 0.5: "
+                f"{near} of {m.numel()}")
+            return held["assign"]
+        return type(held["assign"])(*(t.to(gts.device) for t in held["assign"]))
+
+    with mock.patch.object(pretina, "max_iou_assign", assign):
+        yield
 
 
 @contextlib.contextmanager
@@ -2848,13 +3039,16 @@ def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
 
 
 def phase_det_train(path: DetPath, card: str) -> dict:
-    """The recipe's train step at `path.batch` images of 800² (phase 19: 2,
-    phase 20: 1) through `DetectionTask` (`init_state` → `fit` →
-    `predict_fn` → `evaluate`): launches, ms/step, images/s, data_time,
-    peak memory, the device's busy share and its kernel groups; a predict
-    of 2 images; VOC AP50 (rotated IoU on the oriented path) on seeded
-    synthetic boxes (finite; random weights); a fixed-batch sanity run
-    whose loss must fall."""
+    """The recipe's train step at `path.batch` images of its size (phase
+    19: 2 of 800², phase 20: 1 of 800², 21: 2 of 1024², 22: 2 of 416²)
+    through `DetectionTask` (`init_state` → `fit` → `predict_fn` →
+    `evaluate`): launches, ms/step, images/s, data_time, peak memory, the
+    device's busy share and its kernel groups; a predict of 2 images, with
+    the detections each image kept (and for Mask R-CNN the device paste
+    against the host paste, `check_paste`); VOC AP50 (rotated IoU on the
+    oriented path), or for Mask R-CNN the 12 COCO bbox and 12 segm stats,
+    on seeded synthetic boxes (finite; random weights); a fixed-batch
+    sanity run whose loss must fall."""
     recipe, tag = path.recipe, f"[train {path.name}]"
     crop, K, B = recipe.backbone.img_size, recipe.num_classes, path.batch
     task = path.task()
@@ -2866,7 +3060,8 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         f"({recipe.train.schedule.warmup_steps} warm-up), remat {recipe.backbone.remat}, "
         f"drop-path {recipe.backbone.drop_path_rate}; batch {B} (the recipe's "
         f"{recipe.train.batch_size} over {recipe.train.batch_size // B} GPUs)")
-    batches = [det_batch(B, (crop, crop), K, SEED + 10 + i, path.rotated) for i in range(3)]
+    batches = [det_batch(B, (crop, crop), K, SEED + 10 + i, path.rotated, path.masks)
+               for i in range(3)]
     logs = []
     log_fn = lambda i, m: logs.append(m)
     torch.cuda.synchronize()
@@ -2892,6 +3087,8 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
     dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
     kernel_ms, groups = _busy(task, state, dev_batch)
+    losses = ", ".join(f"{k[5:] if k != 'loss' else k} {v:.4f}"
+                       for k, v in logs[-1].items() if k.startswith("loss") and k != "loss")
     log(f"{tag} recipe train step, batch {B} of {crop}², bf16 autocast, "
         f"drop-path on: median {per:.2f} ms/step over {len(step_ms)} (min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {B / per * 1e3:.3f} "
@@ -2899,9 +3096,7 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         f"~{3 * path.flops(crop) * B / per / 1e9:.2f} TFLOP/s (3× forward), peak "
         f"memory {peak / 2 ** 30:.3f} GiB; busy {kernel_ms / per:.3f} ({kernel_ms:.2f} ms "
         f"of device kernels a step, torch.profiler, 2 steps, over the median step); loss "
-        f"{logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f} "
-        f"(rpn_cls {logs[-1]['loss_rpn_cls']:.4f}, rpn_bbox {logs[-1]['loss_rpn_bbox']:.4f}, "
-        f"cls {logs[-1]['loss_cls']:.4f}, bbox {logs[-1]['loss_bbox']:.4f}), grad_norm "
+        f"{logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f} ({losses}), grad_norm "
         f"{logs[-1]['grad_norm']:.4f}, step {state.step} | card {card}")
     log(f"{tag} device ms a step by kernel group (launches): " + ", ".join(
         f"{g} {ms:.2f} ({n // 2})" for g, (ms, n) in
@@ -2924,24 +3119,41 @@ def phase_det_train(path: DetPath, card: str) -> dict:
             predict(images)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-    n_valid = int(dets.valid.sum())
+    kept = dets.valid.sum(1).tolist()
     ok = dets.boxes.shape == (DET_BATCH, task.det.max_per_img, 5 if path.rotated else 4) and \
         torch.isfinite(dets.boxes).all() and bool((dets.scores[dets.valid] > task.det.score_thr).all())
+    if path.masks:
+        ok = ok and dets.mask_logits.shape == (DET_BATCH, task.det.max_per_img,
+                                               task.det.mask_size, task.det.mask_size) \
+            and bool(torch.isfinite(dets.mask_logits).all())
     log(f"[predict {path.name}] {DET_BATCH} images of {crop}², bf16: launches {p_launched}; "
         f"median {statistics.median(times) * 1e3:.2f} ms a predict, "
         f"{statistics.median(times) * 1e3 / DET_BATCH:.2f} ms/image (min "
-        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); {n_valid} valid detections "
-        f"of {DET_BATCH * task.det.max_per_img}")
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); detections kept an image "
+        f"{kept} of {task.det.max_per_img} (score_thr {task.det.score_thr})")
     if not ok:
         raise AssertionError(f"bad detections {tuple(dets.boxes.shape)}")
-    evals = [det_batch(DET_BATCH, (crop, crop), K, SEED + 20 + i, path.rotated)
+    if path.head in ("mask_rcnn", "retinanet") and not all(kept):
+        raise AssertionError(f"an image kept no detection: {kept}")
+    if path.masks:
+        check_paste(path, dets, crop)
+    evals = [det_batch(DET_BATCH, (crop, crop), K, SEED + 20 + i, path.rotated, path.masks)
              for i in range(2)]
-    res = task.evaluate(state, iter(evals))
-    log(f"[eval {path.name}] VOC AP50{' (rotated IoU)' if path.rotated else ''} on "
-        f"{2 * DET_BATCH} synthetic images (random "
-        f"weights after {state.step} steps): mAP {res['mAP']:.3f}")
-    if not 0.0 <= res["mAP"] <= 100.0:
-        raise AssertionError(f"bad mAP {res}")
+    if path.masks:
+        t0 = time.perf_counter()
+        res = task.evaluate(state, iter(evals), coco=True)
+        log(f"[eval {path.name}] COCO bbox and segm on {2 * DET_BATCH} synthetic images "
+            f"(random weights after {state.step} steps; {time.perf_counter() - t0:.1f} s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in res.items()))
+        if len(res) != 24 or not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"bad COCO stats {res}")
+    else:
+        res = task.evaluate(state, iter(evals))
+        log(f"[eval {path.name}] VOC AP50{' (rotated IoU)' if path.rotated else ''} on "
+            f"{2 * DET_BATCH} synthetic images (random "
+            f"weights after {state.step} steps): mAP {res['mAP']:.3f}")
+        if not 0.0 <= res["mAP"] <= 100.0:
+            raise AssertionError(f"bad mAP {res}")
 
     sanity = dataclasses.replace(recipe, train=dataclasses.replace(
         recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
@@ -2958,16 +3170,52 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     return {"train": launched, "predict": p_launched}
 
 
+def check_paste(path: DetPath, dets, hw: int) -> None:
+    """`paste_masks_device` on the card against `paste_masks` on the host,
+    for the valid detections' mask probabilities (sigmoid of the predict's
+    fp32 logits, taken to the host as they are) and boxes: pixels may
+    differ only where the card's probability lies within 1e-6 of the 0.5
+    threshold; both timed (host clock, the card's ended by a sync), the
+    card on its first call and on a second one."""
+    v = dets.valid
+    probs = torch.sigmoid(dets.mask_logits[v].float())
+    boxes = dets.boxes[v].float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = paste_masks(probs.cpu().numpy(), boxes.cpu().numpy(), hw, hw)
+    t_host = time.perf_counter() - t0
+    t_card = []
+    for _ in range(2):
+        reset_counters()
+        t0 = time.perf_counter()
+        card = paste_masks_device(probs, boxes, hw, hw)
+        torch.cuda.synchronize()
+        t_card.append(time.perf_counter() - t0)
+    launched = counters()
+    near = (mask_probabilities(probs, boxes, hw, hw) - 0.5).abs() <= 1e-6
+    differ = card.cpu().numpy() != host
+    outside = int((torch.from_numpy(differ) & ~near.cpu()).sum())
+    log(f"[paste {path.name}] {int(v.sum())} masks of {hw}²: the card's paste against "
+        f"the host's: {int(differ.sum())} of {differ.size} pixels differ, {int(near.sum())} "
+        f"pixels within 1e-6 of the threshold, {outside} differing off it; {int(host.sum())} "
+        f"mask pixels; host {t_host * 1e3:.1f} ms, card {t_card[0] * 1e3:.1f} ms on its "
+        f"first call, {t_card[1] * 1e3:.1f} ms on a second (K3 launches "
+        f"{launched['bilinear_sample']} a call)")
+    if outside or launched["bilinear_sample"] != 1:
+        raise AssertionError(f"the card's paste differs off the threshold at {outside} "
+                             f"pixels, or launched {launched}")
+
+
 def run_det_path(path: DetPath, card: str) -> dict:
-    """Phase 19 or 20 for one recipe: card vs CPU forward and gradients at
-    the strip (unless not `card_vs_cpu`), then the train step, predict and
-    evaluate at 800²."""
+    """Phase 19, 20, 21 or 22 for one recipe: card vs CPU forward and
+    gradients at the strip (unless not `card_vs_cpu`), then the train step,
+    predict and evaluate at the recipe's size."""
     free()
     if not path.card_vs_cpu:
         with phase_time(f"{path.name} train"):
             return phase_det_train(path, card)
     with phase_time(f"{path.name} models"):
-        model_cpu = build_det_model(path, DET_STRIP)
+        model_cpu = build_det_model(path, path.strip)
     with phase_time(f"{path.name} logits"):
         phase_det_forward(path, model_cpu)
     free()
@@ -3033,6 +3281,8 @@ def main() -> None:
             record.update(phase())
     with phase_time("kernels 3f"):
         phase_800_kernels()
+    with phase_time("kernels 3f, phases 21-22's shapes"):
+        phase_path_kernels()
     runs = {name: run_path(path, card) for name, path in PATHS.items()}
     for name, path in TASK_PATHS.items():
         trained = run_task_path(path, card)
@@ -3042,7 +3292,7 @@ def main() -> None:
     with phase_time("checkpoint"):
         phase_checkpoint(vit_cls_backbone, card)
     del vit_cls_backbone
-    for name, path in {**DET_PATHS, **ROT_PATHS}.items():
+    for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
         runs[name] = run_det_path(path, card)
     kernels = []
     for key, meta in KERNELS.items():

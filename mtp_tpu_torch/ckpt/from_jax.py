@@ -308,20 +308,28 @@ def _dense_chw(sd: dict, dst: str, p: dict, spatial: int) -> None:
     sd[dst + ".bias"] = _tensor(p["bias"])
 
 
+def _neck(sd: dict, neck: dict) -> None:
+    """`FPN` params → `neck.lateral_convs.{i}.conv` and `neck.fpn_convs.{i}
+    .conv`, the extra convolutions (`fpn_conv_i` past the laterals)
+    included."""
+    i = 0
+    while f"fpn_conv_{i}" in neck:
+        if f"lateral_{i}" in neck:
+            _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
+        _conv(sd, f"neck.fpn_convs.{i}.conv", neck[f"fpn_conv_{i}"])
+        i += 1
+
+
 def detector_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
     """JAX `TwoStageDetector` variables {"params"} → the port's
     `TwoStageDetector` state_dict (mmdet names: `neck.lateral_convs.{i}.conv`,
-    `neck.fpn_convs.{i}.conv`, `rpn_head.*`, `roi_head.bbox_head.*`); `cfg`
-    is the backbone's config."""
+    `neck.fpn_convs.{i}.conv`, `rpn_head.*`, `roi_head.bbox_head.*` and,
+    with a mask head, `roi_head.mask_head.*`); `cfg` is the backbone's
+    config."""
     params = variables.get("params", variables)
     sd = {"backbone." + k: v
           for k, v in backbone_from_jax(params["backbone"], cfg).items()}
-    neck = params["neck"]
-    i = 0
-    while f"lateral_{i}" in neck:
-        _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
-        _conv(sd, f"neck.fpn_convs.{i}.conv", neck[f"fpn_conv_{i}"])
-        i += 1
+    _neck(sd, params["neck"])
     for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
         _conv(sd, f"rpn_head.{name}", params["rpn_head"][name])
     head = "roi_head.bbox_head."
@@ -329,6 +337,35 @@ def detector_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
     _dense(sd, head + "shared_fcs.1", params["bbox_trunk"]["fc2"])
     _dense(sd, head + "fc_cls", params["fc_cls"])
     _dense(sd, head + "fc_reg", params["fc_reg"])
+    if "mask_trunk" in params:
+        trunk, head = params["mask_trunk"], "roi_head.mask_head."
+        i = 0
+        while f"conv_{i}" in trunk:
+            _conv(sd, f"{head}convs.{i}.conv", trunk[f"conv_{i}"])
+            i += 1
+        if "upsample" in trunk:
+            _deconv(sd, head + "upsample", trunk["upsample"])
+        _conv(sd, head + "conv_logits", params["conv_logits"])
+    return sd
+
+
+def retinanet_from_jax(variables: dict, cfg) -> StateDict:
+    """JAX `RetinaNet` variables {"params"} → the port's `RetinaNet`
+    state_dict (mmdet names: `neck.*` with the extra convolutions as
+    `neck.fpn_convs.{3,4}.conv`, `bbox_head.cls_convs.{i}.conv`,
+    `bbox_head.reg_convs.{i}.conv`, `bbox_head.retina_cls`,
+    `bbox_head.retina_reg`); `cfg` is the backbone's config."""
+    params = variables.get("params", variables)
+    sd = {"backbone." + k: v
+          for k, v in backbone_from_jax(params["backbone"], cfg).items()}
+    _neck(sd, params["neck"])
+    i = 0
+    while f"cls_conv_{i}" in params:
+        _conv(sd, f"bbox_head.cls_convs.{i}.conv", params[f"cls_conv_{i}"])
+        _conv(sd, f"bbox_head.reg_convs.{i}.conv", params[f"reg_conv_{i}"])
+        i += 1
+    _conv(sd, "bbox_head.retina_cls", params["retina_cls"])
+    _conv(sd, "bbox_head.retina_reg", params["retina_reg"])
     return sd
 
 
@@ -402,9 +439,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     numbers).  ViT+RVSA and the head: trunc-normal(0.02) on every Dense-like
     weight (a detector's box head: flax's lecun-normal), the regressors, `pos_embed` and the Swin bias table
     (vit_rvsa.py:47-48); zeros on the decomposed rel-pos tables; flax's
-    lecun-normal on convolutions; zero biases; unit norms; then
-    `rescale_block_init` (vit_rvsa.py:490-518).  BatchNorm keeps running
-    mean 0 and variance 1.  InternImage: `_init_internimage`."""
+    lecun-normal on convolutions; zero biases, except a module's
+    `bias_prior` where it names one (RetinaNet's classifier); unit norms;
+    then `rescale_block_init` (vit_rvsa.py:490-518).  BatchNorm keeps
+    running mean 0 and variance 1.  InternImage: `_init_internimage`."""
     internimages = [m for m in model.modules() if isinstance(m, InternImage)]
     for ii in internimages:
         _init_internimage(ii, generator)
@@ -429,7 +467,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight.fill_(1.0)
         if getattr(mod, "bias", None) is not None and \
                 isinstance(mod.bias, torch.Tensor):
-            mod.bias.zero_()
+            mod.bias.fill_(getattr(mod, "bias_prior", 0.0))
     for name, prm in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("pos_embed", "relative_position_bias_table"):

@@ -312,35 +312,35 @@ def intern_xl_unet_256_levir() -> TaskConfig:
 
 
 def _det_recipe(backbone: BackboneConfig, layer_decay: float = 0.9,
-                rotated: bool = False) -> TaskConfig:
+                task: str = "detection_h", num_classes: int = 20) -> TaskConfig:
     """The detection recipe shape (`mtp_tpu.configs._det`; reference mmdet
     faster_rcnn_..._dior.py and mmrotate oriented_rcnn_..._dior-r.py): 20
-    classes (DIOR, DIOR-R), AdamW 1e-4 with weight decay 0.05, no clipping,
-    the `step` schedule (LinearLR warm-up of 500 iterations, then ×0.1 at
-    8/12 and 11/12 of 90k steps); global batch 2/GPU × 8 = 16 horizontal,
-    1/GPU × 4 ranks = 4 rotated."""
+    classes (DIOR, DIOR-R) unless given, AdamW 1e-4 with weight decay 0.05,
+    no clipping, the `step` schedule (LinearLR warm-up of 500 iterations,
+    then ×0.1 at 8/12 and 11/12 of 90k steps); global batch 2/GPU × 8 = 16,
+    rotated ("detection_r") 1/GPU × 4 ranks = 4."""
     return TaskConfig(
-        task="detection_r" if rotated else "detection_h", num_classes=20,
-        backbone=backbone,
+        task=task, num_classes=num_classes, backbone=backbone,
         train=TrainConfig(
-            batch_size=4 if rotated else 16,
+            batch_size=4 if task == "detection_r" else 16,
             optimizer=OptimizerConfig(lr=1e-4, weight_decay=0.05,
                                       layer_decay=layer_decay, clip_norm=0.0),
             schedule=ScheduleConfig(kind="step", total_steps=90000,
                                     warmup_steps=500)))
 
 
-def _vit_l_det_800() -> BackboneConfig:
-    """ViT-L+RVSA at 800², drop-path 0.3, the last block tapped four times
-    (`out_indices=(23,)*4`, `mtp_tpu.configs._bb("rvsa_l", 800,
+def _vit_l_det(img_size: int) -> BackboneConfig:
+    """ViT-L+RVSA at img_size², drop-path 0.3, the last block tapped four
+    times (`out_indices=(23,)*4`, `mtp_tpu.configs._bb("rvsa_l", img_size,
     det_last=True)`)."""
-    return vit_l_rvsa(800, drop_path_rate=0.3, scan=True, out_indices=(23, 23, 23, 23))
+    return vit_l_rvsa(img_size, drop_path_rate=0.3, scan=True,
+                      out_indices=(23, 23, 23, 23))
 
 
 def faster_rcnn_rvsa_l_800_dior() -> TaskConfig:
     """The recipe `faster_rcnn_rvsa_l_800_mae_mtp_dior` (and its `_mae_`
-    twin): `_vit_l_det_800` → FPN → Faster R-CNN, layer decay 0.9."""
-    return _det_recipe(_vit_l_det_800())
+    twin): `_vit_l_det(800)` → FPN → Faster R-CNN, layer decay 0.9."""
+    return _det_recipe(_vit_l_det(800))
 
 
 def faster_rcnn_intern_xl_800_dior() -> TaskConfig:
@@ -352,13 +352,68 @@ def faster_rcnn_intern_xl_800_dior() -> TaskConfig:
 
 def oriented_rcnn_rvsa_l_800_diorr() -> TaskConfig:
     """The recipe `oriented_rcnn_rvsa_l_800_mae_mtp_diorr` (and its `_mae_`
-    twin): `_vit_l_det_800` → FPN → Oriented R-CNN on DIOR-R, batch 4 (1
+    twin): `_vit_l_det(800)` → FPN → Oriented R-CNN on DIOR-R, batch 4 (1
     a GPU × 4 ranks), layer decay 0.9."""
-    return _det_recipe(_vit_l_det_800(), rotated=True)
+    return _det_recipe(_vit_l_det(800), task="detection_r")
 
 
 def oriented_rcnn_intern_xl_800_diorr() -> TaskConfig:
     """The recipe `oriented_rcnn_intern_xl_800_imp_mtp_diorr` (and its
     `_imp_` twin): InternImage-XL at 800² with remat → FPN → Oriented R-CNN
     on DIOR-R, batch 4, layer decay 0.94."""
-    return _det_recipe(_intern_xl(800), layer_decay=0.94, rotated=True)
+    return _det_recipe(_intern_xl(800), layer_decay=0.94, task="detection_r")
+
+
+def mask_rcnn_rvsa_l_1024_coco() -> TaskConfig:
+    """The recipe `mask_rcnn_rvsa_l_1024_mae_mtp_coco` (and its `_mae_`
+    twin): `_vit_l_det(1024)` → FPN → Mask R-CNN, 80 classes (COCO layout),
+    task "instseg", batch 16 (2 a GPU × 8), layer decay 0.9."""
+    return _det_recipe(_vit_l_det(1024), task="instseg", num_classes=80)
+
+
+def mask_rcnn_intern_xl_1024_coco() -> TaskConfig:
+    """The recipe `mask_rcnn_intern_xl_1024_imp_mtp_coco` (and its `_imp_`
+    twin): InternImage-XL at 1024² with remat → FPN → Mask R-CNN, 80
+    classes, layer decay 0.94 (lr 1e-4)."""
+    return _det_recipe(_intern_xl(1024), layer_decay=0.94, task="instseg",
+                       num_classes=80)
+
+
+def retinanet_rvsa_l_416_xview() -> TaskConfig:
+    """The recipe `retinanet_rvsa_l_416_mae_mtp_xview` (and its `_mae_`
+    twin): `_vit_l_det(416)` → FPN (start_level 1, extra convs on the
+    input) → RetinaNet, 60 classes (xView), batch 16, layer decay 0.9."""
+    return _det_recipe(_vit_l_det(416), num_classes=60)
+
+
+def retinanet_intern_xl_416_xview() -> TaskConfig:
+    """The recipe `retinanet_intern_xl_416_imp_mtp_xview` (and its `_imp_`
+    twin): InternImage-XL at 416² with remat → RetinaNet, 60 classes, layer
+    decay 0.94 (lr 1e-4)."""
+    return _det_recipe(_intern_xl(416), layer_decay=0.94, num_classes=60)
+
+
+@dataclass(frozen=True)
+class RetinaConfig:
+    """RetinaNet's hyper-parameters (`mtp_tpu/models/retinanet.py`; reference
+    retinanet_rvsa_l_416_mae_mtp_xview.py:227-268): the 4-conv RetinaHead,
+    anchors of octave base scale 4, 3 scales an octave and ratios 0.5, 1, 2
+    on strides 8-128, focal loss (γ 2, α 0.25) and L1, MaxIoUAssigner
+    0.5 / 0.4, test NMS at 0.5 keeping 100."""
+
+    num_classes: int = 60
+    stacked_convs: int = 4
+    feat_channels: int = 256
+    octave_base_scale: float = 4.0
+    scales_per_octave: int = 3
+    ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    strides: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    pos_iou: float = 0.5
+    neg_iou: float = 0.4
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    score_thr: float = 0.05
+    nms_pre: int = 1000
+    nms_iou: float = 0.5
+    max_per_img: int = 100
+    max_gts: int = 100

@@ -3,8 +3,8 @@ copy of `mtp_tpu/eval/det_map.py`: `np_bbox_iou`, `np_rbox_iou`,
 `np_quad_iou`, `average_precision`, `tpfp`, `eval_map` (VOC-style, for
 horizontal and rotated boxes), `parse_patch_id`, `merge_dota_patches`,
 `rbox_to_quad_np` and the DOTA and FAIR1M submission writers).  Rotated
-and quadrilateral IoU are the port's plain versions on CPU tensors; COCO
-evaluation follows with slice 3c."""
+and quadrilateral IoU are the port's plain versions on CPU tensors; the
+COCO protocol is `eval/coco_eval.py`."""
 
 from __future__ import annotations
 

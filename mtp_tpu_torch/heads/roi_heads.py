@@ -1,13 +1,16 @@
-"""RoI box head of two-stage detection (port of `mtp_tpu/heads/roi_heads.py`
-`Shared2FCTrunk`, `BBoxHead` and `bbox_head_loss`): class-specific 4-d
-deltas (Faster R-CNN) or class-agnostic 5-d ones (Oriented R-CNN); the
-mask trunk follows with slice 3c.
+"""RoI heads of two-stage detection (port of `mtp_tpu/heads/roi_heads.py`
+`Shared2FCTrunk`, `BBoxHead`, `bbox_head_loss`, `FCNMaskTrunk`, `MaskHead`
+and `mask_head_loss`): class-specific 4-d deltas (Faster R-CNN) or
+class-agnostic 5-d ones (Oriented R-CNN), and Mask R-CNN's FCN mask head.
 
 RoI features are NCHW (R, C, s, s) and flatten in CHW order, as mmdet's
 `Shared2FCBBoxHead` flattens them, so that a released `.pth` loads as it
 is; JAX flattens HWC (`mtp_tpu/ckpt/full_convert.py` `_dense_hwc` permutes
 between the two).  Names are mmdet's: `shared_fcs.{0,1}`, `fc_cls`,
-`fc_reg`.  fc_cls and fc_reg compute in fp32, as JAX declares them.
+`fc_reg`; the mask head's are mmdet `FCNMaskHead`'s: `convs.{0..3}.conv`,
+`upsample`, `conv_logits`.  fc_cls, fc_reg and conv_logits compute in
+fp32, as JAX declares them.  Mask logits are NCHW (R, K, m, m), where
+JAX's are (R, m, m, K).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mtp_tpu_torch.heads.fpn import ConvBlock
 from mtp_tpu_torch.heads.rpn import _l1, fp32
 from mtp_tpu_torch.ops.precision import at_least_fp32
 
@@ -81,3 +85,65 @@ def bbox_head_loss(cls_logits: torch.Tensor, reg_pred: torch.Tensor, sample,
     l1 = _l1(reg - target_deltas, smooth_l1_beta)
     loss_reg = torch.where(sample.is_pos[:, None], l1, 0.0).sum() / n_valid
     return {"loss_cls": loss_cls, "loss_bbox": loss_reg, "acc": acc * 100.0}
+
+
+class FCNMaskTrunk(nn.Module):
+    """Four 3×3 convolutions with ReLU, then a 2× upsample: `deconv` (a 2×2
+    ConvTranspose at stride 2 and ReLU, the reference default), `nearest`
+    or `bilinear` (half-pixel centres, as `jax.image.resize`).  (R, C, s,
+    s) → (R, conv_out, 2s, 2s)."""
+
+    def __init__(self, in_channels: int = 256, conv_out: int = 256,
+                 upsample: str = "deconv"):
+        super().__init__()
+        if upsample == "carafe":
+            raise NotImplementedError(
+                "mask_upsample='carafe' (mmcv CARAFEPack) is ROADMAP item 7")
+        if upsample not in ("deconv", "nearest", "bilinear"):
+            raise ValueError(f"unknown upsample {upsample!r}")
+        self.upsample_mode = upsample
+        self.convs = nn.ModuleList(ConvBlock(in_channels if i == 0 else conv_out,
+                                             conv_out, 3) for i in range(4))
+        if upsample == "deconv":
+            self.upsample = nn.ConvTranspose2d(conv_out, conv_out, 2, stride=2)
+
+    def trunk(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        x = roi_feats
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        if self.upsample_mode == "deconv":
+            return F.relu(self.upsample(x))
+        if self.upsample_mode == "nearest":
+            return x.repeat_interleave(2, 2).repeat_interleave(2, 3)
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+    forward = trunk
+
+
+class MaskHead(FCNMaskTrunk):
+    """The trunk and the 1×1 `conv_logits`, one channel a class, in fp32."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256, conv_out: int = 256,
+                 upsample: str = "deconv"):
+        super().__init__(in_channels, conv_out, upsample=upsample)
+        self.conv_logits = nn.Conv2d(conv_out, num_classes, 1)
+
+    def forward(self, roi_feats: torch.Tensor) -> torch.Tensor:
+        x = self.trunk(roi_feats)
+        with fp32(x.device):
+            return self.conv_logits(at_least_fp32(x))
+
+
+def mask_head_loss(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
+                   sample) -> dict:
+    """BCE of each slot's gt-class channel against its target, averaged
+    over the mask's pixels, then over the positive slots (mmdet
+    CrossEntropyLoss(use_mask=True)).  mask_logits (R, K, m, m), the class
+    on axis 1; mask_targets (R, m, m) in [0, 1]; sample a flat
+    SampleResult (R,)."""
+    R, K = mask_logits.shape[:2]
+    z = mask_logits[torch.arange(R, device=mask_logits.device),
+                    sample.labels.clamp(0, K - 1)]
+    bce = z.clamp(min=0) - z * mask_targets + torch.log1p(torch.exp(-z.abs()))
+    n_pos = sample.is_pos.sum().clamp(min=1)
+    return {"loss_mask": torch.where(sample.is_pos, bce.mean((1, 2)), 0.0).sum() / n_pos}

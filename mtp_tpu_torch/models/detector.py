@@ -1,13 +1,15 @@
-"""Two-stage detectors, Faster R-CNN and Oriented R-CNN (port of
-`mtp_tpu/models/detector.py` `DetConfig`, `oriented_rcnn_cfg` and
-`TwoStageDetector`; Mask R-CNN follows with slice 3c).
+"""Two-stage detectors, Faster R-CNN, Mask R-CNN and Oriented R-CNN (port
+of `mtp_tpu/models/detector.py` `DetConfig`, `oriented_rcnn_cfg` and
+`TwoStageDetector`).
 
 backbone (ViT+RVSA or InternImage, 4 NHWC levels) → FPN (5 NCHW levels of
 256 channels) → RPN head (4 deltas an anchor, or the oriented RPN's 6);
 multilevel RoIAlign of the first 4 levels (of rotated RoIs when rotated) →
 the shared-2FC box head with its inline fc_cls / fc_reg (5-d,
-class-agnostic when rotated).  State-dict prefixes are mmdet's:
-`backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`.
+class-agnostic when rotated) and, `with_mask`, the FCN mask head on 14²
+RoIs with its inline conv_logits.  State-dict prefixes are mmdet's:
+`backbone.`, `neck.`, `rpn_head.`, `roi_head.bbox_head.`,
+`roi_head.mask_head.`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from mtp_tpu_torch.heads.fpn import FPN
-from mtp_tpu_torch.heads.roi_heads import BBoxHead
+from mtp_tpu_torch.heads.roi_heads import BBoxHead, MaskHead
 from mtp_tpu_torch.heads.rpn import RPNHead, RPNOut
 from mtp_tpu_torch.models.backbones import build_backbone
 from mtp_tpu_torch.ops.roi_align import multilevel_roi_align_fused
@@ -88,8 +90,6 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone_cfg, det: DetConfig, fpn_channels: int = 256,
                  input_hw: Optional[Tuple[int, int]] = None):
         super().__init__()
-        if det.with_mask:
-            raise NotImplementedError("Mask R-CNN is slice 3c")
         self.det = det
         self.backbone = build_backbone(backbone_cfg, input_hw)
         self.neck = FPN(self.backbone.out_channels, fpn_channels, num_outs=5)
@@ -97,6 +97,9 @@ class TwoStageDetector(nn.Module):
         self.roi_head = nn.ModuleDict({"bbox_head": BBoxHead(
             fpn_channels * det.roi_size ** 2, det.num_classes, 5 if det.rotated else 4,
             det.reg_class_agnostic)})
+        if det.with_mask:
+            self.roi_head["mask_head"] = MaskHead(det.num_classes, fpn_channels,
+                                                  upsample=det.mask_upsample)
 
     def features(self, x: torch.Tensor, deterministic: bool = True,
                  generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
@@ -120,3 +123,10 @@ class TwoStageDetector(nn.Module):
         both fp32."""
         return self.roi_head["bbox_head"](
             self.roi_feats(feats, rois, batch_idx, self.det.roi_size))
+
+    def mask_head_logits(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                         batch_idx: torch.Tensor) -> torch.Tensor:
+        """The mask head on `mask_roi_size`² RoIs: (R, num_classes,
+        mask_size, mask_size) fp32 logits."""
+        return self.roi_head["mask_head"](
+            self.roi_feats(feats, rois, batch_idx, self.det.mask_roi_size))

@@ -363,12 +363,15 @@ class ViTRVSA(nn.Module):
         return tuple(taps[i] for i in self.cfg.out_indices)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, first_level: int = 0):
+        """The 4 levels; those below `first_level` come back None, not run
+        (an FPN from level 1 reads no fpn1)."""
         taps = self.taps(x, deterministic, generator)
         if self.features_only:
             return taps
         ops = (self.fpn1, self.fpn2, self.fpn3, self.fpn4)
-        return tuple(_nhwc(op(_nchw(t))) for op, t in zip(ops, taps))
+        return tuple(None if i < first_level else _nhwc(op(_nchw(t)))
+                     for i, (op, t) in enumerate(zip(ops, taps)))
 
     def last_level(self, x: torch.Tensor, deterministic: bool = True,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Multilevel RoIAlign of horizontal and rotated boxes (port of
-`mtp_tpu/ops/roi_align.py` `map_roi_levels`, `map_rroi_levels` and
-`multilevel_roi_align_fused`, the atlas form; the single-level `roi_align`
-and `roi_align_rotated` of mask targets follow with slice 3c).
+"""RoIAlign of horizontal and rotated boxes (port of `mtp_tpu/ops/roi_align.py`
+`map_roi_levels`, `map_rroi_levels` and `multilevel_roi_align_fused`, the
+atlas form).  With one level it is also JAX's single-level `roi_align` and
+`roi_align_rotated(clockwise=True)` (stride 1/spatial_scale), which Mask
+R-CNN's legacy mask targets take.
 
 Each RoI goes to one FPN level by mmdet's scale rule; its bins are sampled
 at 2×2 points each (bilinear, torchvision aligned=True: the half-pixel

@@ -1,14 +1,17 @@
 """Fixed-shape training loss and padded prediction of two-stage detection,
-horizontal (Faster R-CNN) and rotated (Oriented R-CNN) (port of
+horizontal (Faster R-CNN, Mask R-CNN) and rotated (Oriented R-CNN) (port of
 `mtp_tpu/tasks/detection.py` `anchors_for`, `anchor_level_sizes`,
-`Detections`, `_assign_from_ious`, `det_loss_core` and `det_predict_core`,
-for one batch; the concatenated multi-dataset form is decided with the
-multitask slice, the mask branch with slice 3c).
+`Detections`, `mask_targets_from_crops`, `_assign_from_ious`,
+`det_loss_core` and `det_predict_core`, for one batch; the concatenated
+multi-dataset form is decided with the multitask slice).
 
 batch dict: image (B, H, W, 3); gt_boxes (B, G, 4) x1y1x2y2, or (B, G, 5)
 (cx, cy, w, h, θ) le90 when rotated; gt_labels (B, G) int; gt_valid (B, G)
-bool.  Every list of the reference flow is a padded tensor with a mask, and
-nothing leaves the device during a step.
+bool; with a mask head also gt_mask_crops (B, G, 56, 56), each gt's
+binary mask resampled over its own box (the loader's default), or gt_masks
+(B, G, H/4, W/4), the masks at stride 4 (the legacy mode).  Every list of
+the reference flow is a padded tensor with a mask, and nothing leaves the
+device during a step.
 """
 
 from __future__ import annotations
@@ -19,15 +22,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mtp_tpu_torch.heads.roi_heads import bbox_head_loss
+from mtp_tpu_torch.heads.roi_heads import bbox_head_loss, mask_head_loss
 from mtp_tpu_torch.heads.rpn import RPNOut, gen_proposals, rpn_loss
 from mtp_tpu_torch.models.detector import DetConfig
 from mtp_tpu_torch.ops.anchors import AnchorGenerator
 from mtp_tpu_torch.ops.assign import (AssignResult, assign_from_ious,
                                       max_iou_assign, random_sample)
 from mtp_tpu_torch.ops.boxes import bbox_overlaps, delta_decode, delta_encode
+from mtp_tpu_torch.ops.grid_sample import grid_sample
 from mtp_tpu_torch.ops.nms import NEG_INF, batched_nms
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.ops.roi_align import multilevel_roi_align_fused
 from mtp_tpu_torch.ops.rotated_boxes import (delta_decode_rbox, delta_encode_rbox,
                                              midpoint_encode, rbox_overlaps,
                                              rbox_to_hbox)
@@ -35,6 +40,8 @@ from mtp_tpu_torch.ops.rotated_boxes import (delta_decode_rbox, delta_encode_rbo
 FPN_STRIDES = (4, 8, 16, 32, 64)
 # box_fn(flat_rois (R, 4 or 5), batch_idx (R,)) → (cls logits, deltas)
 BoxFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+# mask_fn(flat_rois, batch_idx) → mask logits (R, num_classes, m, m)
+MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def anchors_for(det: Optional[DetConfig], img_hw: Tuple[int, int]) -> np.ndarray:
@@ -57,6 +64,29 @@ class Detections(NamedTuple):
     scores: torch.Tensor  # (B, N)
     labels: torch.Tensor  # (B, N)
     valid: torch.Tensor   # (B, N)
+    mask_logits: Optional[torch.Tensor] = None  # (B, N, m, m), each box's class
+
+
+def mask_targets_from_crops(crops: torch.Tensor, gt_boxes: torch.Tensor,
+                            flat_rois: torch.Tensor, flat_gt: torch.Tensor,
+                            m: int) -> torch.Tensor:
+    """(N, m, m) mask targets, each RoI's from its gt's box-aligned crop:
+    crops (B, G, C, C); gt_boxes (B, G, 4); flat_rois (N, 4) in image
+    coordinates; flat_gt (N,) the gt's index b·G + g.  The m² bin centres
+    of the RoI, put in the gt box's [-1, 1] frame, sample the crop
+    bilinearly (align_corners=False, zero padding: an instance's mask is 0
+    outside its own box)."""
+    B, G, C, _ = crops.shape
+    N = flat_rois.shape[0]
+    src = at_least_fp32(crops).reshape(B * G, C, C, 1)[flat_gt]
+    x1, y1, x2, y2 = gt_boxes.reshape(B * G, 4)[flat_gt].unbind(-1)
+    t = (torch.arange(m, dtype=torch.float32, device=crops.device) + 0.5) / m
+    sx = flat_rois[:, 0:1] + t[None, :] * (flat_rois[:, 2:3] - flat_rois[:, 0:1])
+    sy = flat_rois[:, 1:2] + t[None, :] * (flat_rois[:, 3:4] - flat_rois[:, 1:2])
+    gx = 2.0 * (sx - x1[:, None]) / (x2 - x1).clamp(min=1e-6)[:, None] - 1.0
+    gy = 2.0 * (sy - y1[:, None]) / (y2 - y1).clamp(min=1e-6)[:, None] - 1.0
+    grid = torch.stack([gx[:, None, :].expand(N, m, m), gy[:, :, None].expand(N, m, m)], -1)
+    return grid_sample(src, grid, align_corners=False, padding_mode="zeros")[..., 0]
 
 
 def _assign_from_ious(ious: torch.Tensor, gt_labels: torch.Tensor, pos_thr: float,
@@ -75,16 +105,21 @@ def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
                   rpn_out: RPNOut, box_fn: BoxFn, batch: Dict[str, torch.Tensor],
-                  generator: torch.Generator) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  generator: torch.Generator, mask_fn: Optional[MaskFn] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The detection training loss from the RPN's outputs and the box head
     `box_fn`: (total, {loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox,
-    acc}).  The RPN losses are per image, then averaged; proposals carry no
-    gradient; the gts join the proposals (add_gt_as_proposals); the R-CNN
-    samples min(rcnn_num, proposals + gts) RoIs an image.  `anchors`
-    (A, 4), numpy or a tensor; the samplers draw from `generator`.
-    Rotated: the RPN is assigned on the gts' bounding boxes and regresses
-    the midpoint coder's 6 deltas; the R-CNN assigns by rotated IoU and
-    regresses DeltaXYWHT's 5."""
+    acc}, and loss_mask with a mask head).  The RPN losses are per image,
+    then averaged; proposals carry no gradient; the gts join the proposals
+    (add_gt_as_proposals); the R-CNN samples min(rcnn_num, proposals + gts)
+    RoIs an image.  `anchors` (A, 4), numpy or a tensor; the samplers draw
+    from `generator`.  Rotated: the RPN is assigned on the gts' bounding
+    boxes and regresses the midpoint coder's 6 deltas; the R-CNN assigns by
+    rotated IoU and regresses DeltaXYWHT's 5.  The mask head (`mask_fn`,
+    when `det.with_mask`) runs on each image's first max(1, int(R ·
+    rcnn_pos_fraction)) samples, which hold every positive (the sampler
+    packs them first): targets from `gt_mask_crops` (horizontal) or by
+    RoIAlign of `gt_masks` at scale 1/4."""
     H, W = img_hw
     scores = rpn_out.cls_scores
     B, dev = scores.shape[0], scores.device
@@ -129,17 +164,38 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
     metrics.update(bbox_head_loss(
         cls_logits, reg_pred, type(sample)(*map(flat, sample)), flat(tgt),
         det.num_classes, det.reg_class_agnostic, det.rcnn_smooth_l1_beta))
+
+    if det.with_mask and mask_fn is not None:
+        P_m = max(1, int(R * det.rcnn_pos_fraction))
+        m_sample = type(sample)(*(t[:, :P_m].reshape(B * P_m) for t in sample))
+        m_rois = rois[:, :P_m].reshape(B * P_m, rois.shape[-1])
+        m_bidx = torch.arange(B, device=dev).repeat_interleave(P_m)
+        mask_logits = mask_fn(m_rois, m_bidx)
+        G = gt_boxes.shape[1]
+        flat_gt = m_sample.gt_inds + m_bidx * G
+        if not det.rotated and "gt_mask_crops" in batch:
+            tgt = mask_targets_from_crops(batch["gt_mask_crops"], gt_boxes, m_rois,
+                                          flat_gt, det.mask_size)
+        else:
+            # JAX's single-level roi_align (rotated: clockwise) at scale 1/4
+            gm = at_least_fp32(batch["gt_masks"])
+            imgs = gm.reshape(B * G, 1, gm.shape[2], gm.shape[3])
+            tgt = multilevel_roi_align_fused([imgs], m_rois, flat_gt, det.mask_size, (4,),
+                                             rotated=det.rotated)[:, 0]
+        metrics.update(mask_head_loss(mask_logits, tgt, m_sample))
     total = sum(v for k, v in metrics.items() if k.startswith("loss"))
     return total, metrics
 
 
 def det_predict_core(det: DetConfig, anchors, img_hw: Tuple[int, int], B: int,
-                     rpn_out: RPNOut, box_fn: BoxFn) -> Detections:
+                     rpn_out: RPNOut, box_fn: BoxFn,
+                     mask_fn: Optional[MaskFn] = None) -> Detections:
     """Detections (B, max_per_img) from the RPN's outputs and the box head:
     proposals, class probabilities (softmax, background dropped), each
     class's decoded box, scores at or under `score_thr` (and invalid
     proposals) set to NEG_INF, the top min(10·max_per_img, P·C) candidates,
-    then class-aware NMS (rotated IoU when rotated)."""
+    then class-aware NMS (rotated IoU when rotated).  With a mask head, the
+    mask logits of each detection's class on its box."""
     H, W = img_hw
     dev = rpn_out.cls_scores.device
     A = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
@@ -171,5 +227,12 @@ def det_predict_core(det: DetConfig, anchors, img_hw: Tuple[int, int], B: int,
     keep_i, scores = batched_nms(cand_b, top_s, cand_l, det.test_nms_iou,
                                  det.max_per_img)
     keep_i = keep_i.long()
-    return Detections(_take(cand_b, keep_i), scores, cand_l.gather(1, keep_i),
-                      scores > NEG_INF / 2)
+    boxes, labels = _take(cand_b, keep_i), cand_l.gather(1, keep_i)
+    mask_logits = None
+    if det.with_mask and mask_fn is not None:
+        N = boxes.shape[1]
+        ml = mask_fn(boxes.reshape(B * N, D),
+                     torch.arange(B, device=dev).repeat_interleave(N))
+        ml = ml[torch.arange(B * N, device=dev), labels.reshape(B * N).clamp(0, C - 1)]
+        mask_logits = ml.reshape(B, N, *ml.shape[1:])
+    return Detections(boxes, scores, labels, scores > NEG_INF / 2, mask_logits)

@@ -1,9 +1,9 @@
-"""Detection task driver, Faster R-CNN on horizontal boxes and Oriented
-R-CNN on rotated ones (port of `mtp_tpu/tasks/detection_task.py` with
-head="faster_rcnn" or "oriented_rcnn"; Mask R-CNN, RetinaNet and COCO
-evaluation follow with slice 3c): `init_state` → `fit` (the shared
-`fit_loop`, checkpoints included) → `predict_fn` → `evaluate` (VOC AP50:
-the DIOR protocol, and the rotated DIOR-R / DOTA one).
+"""The detection task: Faster R-CNN and Mask R-CNN on horizontal boxes,
+Oriented R-CNN on rotated ones, and RetinaNet (port of
+`mtp_tpu/tasks/detection_task.py`, every head): `init_state` → `fit` (the
+shared `fit_loop`, checkpoints included) → `predict_fn` → `evaluate` (VOC
+AP50, the DIOR protocol and the rotated DIOR-R / DOTA one; with
+`coco=True` the COCO protocol, bbox and, for Mask R-CNN, segm).
 
 One device (the card unless the caller asks for another) and the
 backbone's compute precision, as every task driver (`tasks._fit.Task`);
@@ -19,36 +19,60 @@ import numpy as np
 import torch
 from torch import nn
 
-from mtp_tpu_torch.config import TaskConfig
+from mtp_tpu_torch.config import RetinaConfig, TaskConfig
 from mtp_tpu_torch.core.train import TrainState, make_train_step
+from mtp_tpu_torch.eval.coco_eval import evaluate_coco_bbox_segm
 from mtp_tpu_torch.eval.det_map import eval_map
+from mtp_tpu_torch.eval.masks import paste_masks
 from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector, oriented_rcnn_cfg
+from mtp_tpu_torch.models.retinanet import (RetinaNet, retina_anchors, retinanet_loss,
+                                            retinanet_predict)
 from mtp_tpu_torch.tasks._fit import Task
 from mtp_tpu_torch.tasks.detection import (Detections, anchors_for,
                                            det_loss_core, det_predict_core)
 
+HEADS = ("faster_rcnn", "mask_rcnn", "oriented_rcnn", "retinanet")
+
+
+def det_config(head: str, num_classes: int, overrides: Optional[dict] = None):
+    """The head's config: RetinaConfig for "retinanet", else DetConfig's
+    defaults ("faster_rcnn"), with_mask ("mask_rcnn") or `oriented_rcnn_cfg`;
+    `overrides` replace its fields."""
+    ov = overrides or {}
+    if head == "retinanet":
+        return RetinaConfig(num_classes=num_classes, **ov)
+    base = (oriented_rcnn_cfg(num_classes) if head == "oriented_rcnn"
+            else DetConfig(num_classes=num_classes, with_mask=head == "mask_rcnn"))
+    return dataclasses.replace(base, **ov)
+
+
+def build_detector(head: str, backbone_cfg, det, input_hw: Tuple[int, int]) -> nn.Module:
+    """The head's model for input_hw images, on the CPU: a RetinaNet or a
+    TwoStageDetector."""
+    model = RetinaNet if head == "retinanet" else TwoStageDetector
+    return model(backbone_cfg, det, input_hw=input_hw)
+
 
 class DetectionTask(Task):
-    """head: "faster_rcnn" (DetConfig's defaults) or "oriented_rcnn"
-    (`oriented_rcnn_cfg`).  `model` defaults to the config's
-    TwoStageDetector for `cfg.backbone.img_size` images, built on the CPU;
-    `init_state` draws its weights and moves it to `device`.
-    `det_overrides` replace DetConfig fields (diagnostic runs at small
-    sizes)."""
+    """head: "faster_rcnn" (DetConfig's defaults), "mask_rcnn" (with_mask),
+    "oriented_rcnn" (`oriented_rcnn_cfg`) or "retinanet" (RetinaConfig).
+    `model` defaults to the config's TwoStageDetector or RetinaNet for
+    `cfg.backbone.img_size` images, built on the CPU; `init_state` draws its
+    weights and moves it to `device`.  `det_overrides` replace DetConfig or
+    RetinaConfig fields (diagnostic runs at small sizes, a lower
+    `score_thr`)."""
 
     def __init__(self, cfg: TaskConfig, head: str = "faster_rcnn",
                  det_overrides: Optional[dict] = None,
                  model: Optional[nn.Module] = None, device="cuda"):
-        if head not in ("faster_rcnn", "oriented_rcnn"):
-            raise NotImplementedError(f"head {head!r}: Mask R-CNN and RetinaNet are "
-                                      f"slice 3c")
+        if head not in HEADS:
+            raise ValueError(f"head {head!r} is not one of {HEADS}")
         self.head = head
-        base = (oriented_rcnn_cfg(cfg.num_classes) if self.rotated
-                else DetConfig(num_classes=cfg.num_classes))
-        self.det = dataclasses.replace(base, **(det_overrides or {}))
-        s = cfg.backbone.img_size
-        super().__init__(cfg, model if model is not None else TwoStageDetector(
-            cfg.backbone, self.det, input_hw=(s, s)), device)
+        self.det = det_config(head, cfg.num_classes, det_overrides)
+        if model is None:
+            s = cfg.backbone.img_size
+            model = build_detector(head, cfg.backbone, self.det, (s, s))
+        super().__init__(cfg, model, device)
         self._anchor_cache: Dict[tuple, torch.Tensor] = {}
         self._predict = None
 
@@ -57,51 +81,64 @@ class DetectionTask(Task):
         return self.head == "oriented_rcnn"
 
     def anchors_on(self, hw: Tuple[int, int], device) -> torch.Tensor:
-        """The RPN's anchors for hw images, as a tensor on `device` (kept
-        from call to call)."""
+        """The anchors for hw images (the RPN's, or RetinaNet's), as a tensor
+        on `device` (kept from call to call)."""
         key = (tuple(hw), str(device))
         if key not in self._anchor_cache:
-            self._anchor_cache[key] = torch.as_tensor(anchors_for(self.det, hw),
-                                                      device=device)
+            anchors = (retina_anchors(self.det, hw) if self.head == "retinanet"
+                       else anchors_for(self.det, hw))
+            self._anchor_cache[key] = torch.as_tensor(anchors, device=device)
         return self._anchor_cache[key]
 
     # -- training -----------------------------------------------------------
     def loss_fn(self, model: nn.Module, batch: Dict[str, torch.Tensor],
                 generator: torch.Generator, deterministic: bool = False):
-        """The train step's loss and metrics (`det_loss_core`); drop-path
-        and dropout on unless `deterministic`; the samplers draw from
-        `generator`."""
+        """The train step's loss and metrics (`det_loss_core`, or
+        `retinanet_loss`); drop-path and dropout on unless `deterministic`;
+        the samplers draw from `generator`."""
         images = batch["image"]
         hw = tuple(images.shape[1:3])
+        anchors = self.anchors_on(hw, images.device)
         with self.autocast():
+            if self.head == "retinanet":
+                cls_logits, deltas = model(images, deterministic, generator)
+                return retinanet_loss(self.det, anchors, cls_logits, deltas, batch)
             feats = model.features(images, deterministic, generator)
-            rpn_out = model.rpn(feats)
             box_fn = lambda rois, bidx: model.box_head(feats, rois, bidx)
-            return det_loss_core(self.det, self.anchors_on(hw, images.device), hw,
-                                 rpn_out, box_fn, batch, generator)
+            mask_fn = ((lambda rois, bidx: model.mask_head_logits(feats, rois, bidx))
+                       if self.det.with_mask else None)
+            return det_loss_core(self.det, anchors, hw, model.rpn(feats), box_fn, batch,
+                                 generator, mask_fn)
 
     def train_step_fn(self, deterministic: bool = False):
-        """(state, batch) → (state, metrics {loss_rpn_cls, loss_rpn_bbox,
-        loss_cls, loss_bbox, acc, loss, grad_norm}); batch {"image": (B, H,
-        W, 3) float, "gt_boxes": (B, G, 4), or (B, G, 5) rotated, "gt_labels":
-        (B, G) int, "gt_valid": (B, G) bool} on the task's device."""
+        """(state, batch) → (state, metrics {the losses, acc (two-stage),
+        loss, grad_norm}); batch {"image": (B, H, W, 3) float, "gt_boxes":
+        (B, G, 4), or (B, G, 5) rotated, "gt_labels": (B, G) int,
+        "gt_valid": (B, G) bool, and for Mask R-CNN "gt_mask_crops" (B, G,
+        56, 56) or "gt_masks" (B, G, H/4, W/4)} on the task's device."""
         return make_train_step(
             lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
 
     # -- inference ----------------------------------------------------------
     def predict_fn(self) -> Callable[[torch.Tensor], Detections]:
-        """images (B, H, W, 3) → Detections (B, max_per_img), eval mode, in
-        the caller's precision.  Memoized, as JAX's jitted predict is."""
+        """images (B, H, W, 3) → Detections (B, max_per_img), with Mask
+        R-CNN's mask logits, eval mode, in the caller's precision.
+        Memoized, as JAX's jitted predict is."""
         if self._predict is None:
-            model = self.model
+            model, det = self.model, self.det
 
             @torch.no_grad()
             def predict(images: torch.Tensor) -> Detections:
                 hw = tuple(images.shape[1:3])
+                anchors = self.anchors_on(hw, images.device)
+                if self.head == "retinanet":
+                    return retinanet_predict(det, anchors, hw, *model(images))
                 feats = model.features(images)
+                mask_fn = ((lambda rois, bidx: model.mask_head_logits(feats, rois, bidx))
+                           if det.with_mask else None)
                 return det_predict_core(
-                    self.det, self.anchors_on(hw, images.device), hw, images.shape[0],
-                    model.rpn(feats), lambda rois, bidx: model.box_head(feats, rois, bidx))
+                    det, anchors, hw, images.shape[0], model.rpn(feats),
+                    lambda rois, bidx: model.box_head(feats, rois, bidx), mask_fn)
 
             self._predict = predict
         return self._predict
@@ -110,24 +147,48 @@ class DetectionTask(Task):
                  iou_thr: float = 0.5, coco: bool = False) -> Dict[str, float]:
         """VOC AP at `iou_thr` (AP50: the DIOR protocol, and with rotated
         IoU DIOR-R's): {"mAP", "AP"} in %, over batches of {"image",
-        "gt_boxes", "gt_labels", "gt_valid"}."""
-        if coco:
-            raise NotImplementedError("COCO evaluation is slice 3c")
+        "gt_boxes", "gt_labels", "gt_valid"}.  `coco=True` (horizontal
+        heads): the COCO protocol's 12 stats (`evaluate_coco_bbox_segm`);
+        for Mask R-CNN with "gt_mask_crops" or "gt_masks" in the batches
+        also the 12 segm stats (keys `segm_*`): each detection's mask
+        probabilities (sigmoid) pasted into the image at 0.5
+        (`paste_masks`), against the gt crops pasted back or the stride-s
+        masks repeated up to the image."""
         self._check_state(state)
         predict = self.predict_fn()
+        with_mask = coco and self.head == "mask_rcnn"
         per_image = []
         for batch in data:
             images = torch.as_tensor(batch["image"]).to(self.device)
+            H, W = images.shape[1:3]
             with self.autocast():
                 dets = predict(images)
-            boxes, scores, labels, valid = (t.float().cpu().numpy() if t.is_floating_point()
-                                            else t.cpu().numpy() for t in dets)
+            host = lambda t: t.float().cpu().numpy() if t.is_floating_point() \
+                else t.cpu().numpy()
+            boxes, scores, labels, valid = map(host, dets[:4])
+            masks = with_mask and dets.mask_logits is not None and \
+                ("gt_masks" in batch or "gt_mask_crops" in batch)
+            logits = host(dets.mask_logits) if masks else None
             for i in range(images.shape[0]):
                 v = valid[i]
                 gv = np.asarray(batch["gt_valid"][i]).astype(bool)
-                per_image.append({
-                    "det_boxes": boxes[i][v], "det_scores": scores[i][v],
-                    "det_labels": labels[i][v],
-                    "gt_boxes": np.asarray(batch["gt_boxes"][i])[gv],
-                    "gt_labels": np.asarray(batch["gt_labels"][i])[gv]})
+                rec = {"det_boxes": boxes[i][v], "det_scores": scores[i][v],
+                       "det_labels": labels[i][v],
+                       "gt_boxes": np.asarray(batch["gt_boxes"][i])[gv],
+                       "gt_labels": np.asarray(batch["gt_labels"][i])[gv]}
+                if masks:
+                    probs = 1.0 / (1.0 + np.exp(-logits[i][v]))
+                    rec["det_masks"] = paste_masks(probs, rec["det_boxes"], H, W)
+                    if "gt_mask_crops" in batch:
+                        gm = paste_masks(np.asarray(batch["gt_mask_crops"][i])[gv],
+                                         rec["gt_boxes"], H, W)
+                    else:
+                        gm = np.asarray(batch["gt_masks"][i])[gv]
+                        if gm.ndim == 3 and gm.shape[1:] != (H, W):
+                            ry, rx = H // gm.shape[1], W // gm.shape[2]
+                            gm = np.repeat(np.repeat(gm, ry, 1), rx, 2)
+                    rec["gt_masks"] = (gm > 0.5).astype(np.uint8)
+                per_image.append(rec)
+        if coco and not self.rotated:
+            return evaluate_coco_bbox_segm(per_image, self.cfg.num_classes)
         return eval_map(per_image, self.cfg.num_classes, iou_thr, rotated=self.rotated)

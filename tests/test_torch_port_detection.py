@@ -254,7 +254,9 @@ def _task_cfg():
 
 def test_task_fit_and_evaluate_on_the_cpu():
     """Two steps of `fit` from `init_state` (the real sampler, drop rates
-    0), finite metrics that move the weights, then `evaluate`'s VOC AP50."""
+    0), finite metrics that move the weights, then `evaluate`'s VOC AP50
+    and, with `coco=True`, the 12 COCO bbox stats; the task builds every
+    head JAX's does and refuses others."""
     task = DetectionTask(_task_cfg(), det_overrides=_overrides(), device="cpu")
     state = task.init_state(torch.Generator().manual_seed(0))
     before = state.model.roi_head["bbox_head"].fc_cls.weight.detach().clone()
@@ -270,10 +272,11 @@ def test_task_fit_and_evaluate_on_the_cpu():
     assert not torch.equal(before, state.model.roi_head["bbox_head"].fc_cls.weight)
     res = task.evaluate(state, iter([make_batch(seed=7)]))
     assert 0.0 <= res["mAP"] <= 100.0 and len(res["AP"]) == 3
-    with pytest.raises(NotImplementedError, match="3c"):
-        task.evaluate(state, iter([]), coco=True)
-    with pytest.raises(NotImplementedError, match="3c"):
-        DetectionTask(_task_cfg(), head="mask_rcnn", device="cpu")
+    coco = task.evaluate(state, iter([make_batch(seed=7)]), coco=True)
+    assert len(coco) == 12 and all(-1.0 <= v <= 100.0 for v in coco.values())
+    assert DetectionTask(_task_cfg(), head="mask_rcnn", device="cpu").det.with_mask
+    with pytest.raises(ValueError, match="head"):
+        DetectionTask(_task_cfg(), head="cascade_rcnn", device="cpu")
 
 
 def test_task_defaults_to_the_card():

@@ -62,6 +62,9 @@ SLICE_MODULES = [
     "mtp_tpu_torch.tasks.detection",
     "mtp_tpu_torch.tasks.detection_task",
     "mtp_tpu_torch.eval.det_map",
+    "mtp_tpu_torch.eval.masks",
+    "mtp_tpu_torch.eval.coco_eval",
+    "mtp_tpu_torch.models.retinanet",
     "chip_smoke",
 ]
 
@@ -144,6 +147,24 @@ def test_config_copies_match_the_jax_package():
         for name in names:
             assert dataclasses.asdict(factory()) == \
                 dataclasses.asdict(jrecipes.get(name).task), name
+    for factory, names in (
+            (pc.mask_rcnn_rvsa_l_1024_coco, ("mask_rcnn_rvsa_l_1024_mae_mtp_coco",
+                                             "mask_rcnn_rvsa_l_1024_mae_coco")),
+            (pc.mask_rcnn_intern_xl_1024_coco, ("mask_rcnn_intern_xl_1024_imp_mtp_coco",
+                                                "mask_rcnn_intern_xl_1024_imp_coco")),
+            (pc.retinanet_rvsa_l_416_xview, ("retinanet_rvsa_l_416_mae_mtp_xview",
+                                             "retinanet_rvsa_l_416_mae_xview")),
+            (pc.retinanet_intern_xl_416_xview, ("retinanet_intern_xl_416_imp_mtp_xview",
+                                                "retinanet_intern_xl_416_imp_xview"))):
+        for name in names:
+            assert dataclasses.asdict(factory()) == \
+                dataclasses.asdict(jrecipes.get(name).task), name
+    from mtp_tpu.models.retinanet import RetinaConfig as JaxRetinaConfig
+    assert [(f.name, f.type, f.default) for f in dataclasses.fields(pc.RetinaConfig)] == \
+        [(f.name, f.type, f.default) for f in dataclasses.fields(JaxRetinaConfig)]
+    for kw in ({}, {"num_classes": 5, "score_thr": 0.01, "max_per_img": 16}):
+        assert dataclasses.asdict(pc.RetinaConfig(**kw)) == \
+            dataclasses.asdict(JaxRetinaConfig(**kw))
     from mtp_tpu.models.detector import DetConfig as JaxDetConfig
     from mtp_tpu.models.detector import oriented_rcnn_cfg as jax_oriented_rcnn_cfg
     from mtp_tpu_torch.models.detector import DetConfig, oriented_rcnn_cfg
@@ -152,6 +173,10 @@ def test_config_copies_match_the_jax_package():
     for num_classes in (15, 20, 37):
         assert dataclasses.asdict(oriented_rcnn_cfg(num_classes)) == \
             dataclasses.asdict(jax_oriented_rcnn_cfg(num_classes))
+    masked = DetConfig(num_classes=80, with_mask=True)
+    assert dataclasses.asdict(masked) == \
+        dataclasses.asdict(JaxDetConfig(num_classes=80, with_mask=True))
+    assert DetConfig(**dataclasses.asdict(masked)) == masked
     with pytest.raises(NotImplementedError, match="one device"):
         pc.check_single_device(pc.MeshConfig(data=4))
     pc.check_single_device(pc.MeshConfig(data=1, model=-1))
