@@ -16,7 +16,10 @@ forward, K7 backward); then the classification, change-detection and
 checkpoint phases, the two Faster R-CNN recipes at 800² (K1-K6 or K8,
 and N1, the port's greedy-NMS kernel), the two Oriented R-CNN recipes
 at 800² (the same, and R1, the port's rotated-IoU kernel), the Mask R-CNN
-recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1).
+recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1), and the
+multitask pretraining recipe mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
+3 datasets × semantic segmentation, Mask R-CNN and Oriented R-CNN: K1-K6,
+N1 and R1).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
@@ -40,7 +43,8 @@ Phases; any failure raises, so the exit code is non-zero:
    each case names the body the wrapper picks and, for K6's tiled body,
    the share of its image-gradient adds past a block's region); times of
    the kernel, its plain version and one PyTorch library call computing
-   the same function where there is one, each a run of back-to-back calls
+   the same function where there is one, in bf16 (the fp32 rows are held,
+   not timed), each a run of back-to-back calls
    between one pair of CUDA events over their count (the bf16 rows of K1's
    and K3's slice cases and of every K2 case also as device time, kernel
    and library call alike: the calls captured in a CUDA graph and
@@ -79,9 +83,9 @@ Phases; any failure raises, so the exit code is non-zero:
    (kept at 0.7, suppressed at 0.69); the pairs whose IoU lies within one
    fp32 ulp of the threshold are counted and named; the kernel timed back
    to back and as device time, beside its plain version and its bound;
-   also timed at phase 21's RPN (B = 2, N = 8,768 at 1024²) and the
-   predicts of phases 21 and 22 (1,000 candidates of 80 and of 60
-   classes).
+   also timed at phase 23's RPN (B = 1, N = 6,735 at 448²), phase 21's
+   (B = 2, N = 8,768 at 1024²) and the predicts of phases 21 and 22 (1,000
+   candidates of 80 and of 60 classes).
 3g. R1, rotated IoU (csrc/rotated_iou.cu), against its plain version
    `rbox_overlaps_ref` on the card in fp32 and float64 (R1_TOL), over the
    pairs of boxes of non-zero area: the edge cases (identical boxes, one
@@ -101,10 +105,12 @@ Phases; any failure raises, so the exit code is non-zero:
 3f. K1-K6 and K8 at the 800² detection paths' shapes (batch 2: K1/K4 over
    128 windows of 49 tokens, K2/K5 over 32 heads of the 50×50 grid,
    K3/K6 over 32 maps of 56², K8 at XL's 200² stage 0 and 25² stage 3),
-   held and timed as phase 3's rows; then K1-K6 at phase 21's 1024²
-   (the 64² grid padded to 70²: K1/K4 over 200 windows, K2/K5 over N =
-   4,096, K3/K6 on 70² maps) and phase 22's 416² (26² padded to 28²: 32
-   windows, N = 676, 28² maps).
+   held as phase 3's rows (K1-K6 there not timed, K8 timed); then K1-K6,
+   held and timed, at phase 21's 1024² (the 64² grid padded to 70²: K1/K4
+   over 200 windows, K2/K5 over N = 4,096, K3/K6 on 70² maps), phase 22's
+   416² (26² padded to 28²: 32 windows, N = 676, 28² maps) and phase 23's
+   448² (3 images of the 28² grid: 48 windows, 48 heads of N = 784, 48
+   maps of 28²).
 4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
    card (kernels) against the same model on the CPU (plain versions).
 5. ViT serving, bench geometry: 4 tiles of 512², 384² crops at stride 256,
@@ -193,6 +199,24 @@ Phases; any failure raises, so the exit code is non-zero:
    anchor assignment (the head in the 1e-2 group; the TF32 control); the
    train step at batch 2 of 416² (no NMS), a predict (N1 once, score_thr
    0.001), VOC AP50, and a fixed-batch sanity run.
+23. Multitask pretraining, mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
+   drop-path 0.1; SAMRS's 19, 21 and 38 classes; one encoder pass over one
+   image a dataset, the UperNet trunk and a 1×1 head a dataset, Mask
+   R-CNN and Oriented R-CNN with per-dataset final layers): fp32 encoder
+   levels, ss logits, both FPNs' levels and RPN outputs, box heads and
+   mask logits card vs CPU at a 448×128 strip (SLICE_TOL), and the 30
+   named losses (LOSS_RTOL) and fp32 gradients by phase 6's rule (the
+   decoders in the 1e-2 group; the CPU's proposals, max-pool picks,
+   rotated assigner IoUs and draws given to both; the TF32 control); the
+   train step at batch 3 (one image a dataset) through
+   `MultiTaskPretrainTask.init_state` → `fit` (with a checkpoint and the
+   encoder export): launches, ms/step, images/s, data_time, peak memory,
+   busy share and kernel groups; the concatenated detection form
+   (det_multi) against the sequential one in fp32 on the card (losses and
+   gradients) and its steps timed A B B A beside the sequential form's;
+   `evaluate`'s 9-way metrics and a predict's launches; the exported
+   encoder loaded into the ViT-L segmentation recipe at 384² and run; a
+   fixed-batch sanity run.
 The last lines are the total time, the kernels' JSON record, the card, and
 the result line.
 """
@@ -223,7 +247,9 @@ import torch.nn.functional as F
 from mtp_tpu_torch.ckpt.from_jax import init_weights
 from mtp_tpu_torch.ckpt.store import CheckpointStore, load_encoder, save_encoder
 from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
-from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
+from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
+from mtp_tpu_torch.core.train import create_state
+from mtp_tpu_torch.config import (SAMRS_CLASSES, ScheduleConfig, SlideConfig, TaskConfig,
                                   faster_rcnn_intern_xl_800_dior,
                                   faster_rcnn_rvsa_l_800_dior,
                                   intern_xl_224_eurosat,
@@ -231,6 +257,7 @@ from mtp_tpu_torch.config import (ScheduleConfig, SlideConfig, TaskConfig,
                                   intern_xl_upernet_512_loveda,
                                   internimage_config, is_internimage,
                                   mask_rcnn_rvsa_l_1024_coco,
+                                  mtp_vit_l_rvsa_448_samrs,
                                   oriented_rcnn_intern_xl_800_diorr,
                                   oriented_rcnn_rvsa_l_800_diorr,
                                   retinanet_rvsa_l_416_xview,
@@ -243,18 +270,22 @@ from mtp_tpu_torch.heads.rpn import gen_proposals
 from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.models import retinanet as pretina
 from mtp_tpu_torch.models.internimage import internimage_flops
+from mtp_tpu_torch.models.multitask import MultiTaskPretrainModel
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.models.vit_rvsa import backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops import nms as pnms
 from mtp_tpu_torch.ops import rotated_boxes as prb
+from mtp_tpu_torch.ops.assign import SampleResult
 from mtp_tpu_torch.ops.boxes import bbox_overlaps
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
 from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
+from mtp_tpu_torch.tasks._fit import to_device
 from mtp_tpu_torch.tasks.detection_task import DetectionTask, build_detector, det_config
+from mtp_tpu_torch.tasks.multitask import MultiTaskPretrainTask
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
 
 SEED = 0
@@ -325,7 +356,7 @@ GRAD_RTOL_CD = {"backbone": 1e-2, "convs": 1e-2}
 # steps of the fixed-batch sanity run that follows each recipe's train step
 SANITY_STEPS = 6
 # phases 16-17: steps after the counted one, then the timed steps
-TASK_WARM_STEPS, TASK_TRAIN_STEPS = 2, 8
+TASK_WARM_STEPS, TASK_TRAIN_STEPS = 2, 5
 # phase 18: a step from a restored checkpoint against one from an in-process
 # copy of the same state, by their parameter updates u: ‖Δu‖ <= RESUME_RTOL·‖u‖.
 # Not bitwise: K6 adds its image gradient with fp32 atomics, whose order
@@ -398,9 +429,9 @@ PATHS = {
         per_forward=launches(window=20, flash=4, bilinear_sample=40),
         per_step=launches(window=20, flash=4, bilinear_sample=40, window_bwd=20,
                           flash_bwd=4, bilinear_sample_bwd=40),
-        cpu_hw=(384, 384), tile=512, tiles=4, serve_iters=8, grad_batch=2,
+        cpu_hw=(384, 384), tile=512, tiles=4, serve_iters=5, grad_batch=2,
         grad_stochastic=False, head_prefixes=("backbone.fpn", "decode_head."),
-        warm_steps=2, train_steps=12, eval_tiles=(2, 512)),
+        warm_steps=2, train_steps=6, eval_tiles=(2, 512)),
     # InternImage-XL (channels 192, depths 5/5/24/5, groups 12/24/48/96,
     # post-norm, layer scale 1e-5, offset_scale 2, remat, drop-path 0.1) →
     # UperNet, 7 classes (LoveDA), 512² crops, slide eval at stride 256,
@@ -413,9 +444,9 @@ PATHS = {
         flops=lambda crop: internimage_flops(internimage_config(XL.backbone), crop),
         per_forward=launches(bilinear_sample=39),
         per_step=launches(bilinear_sample=78, bilinear_sample_bwd=39),
-        cpu_hw=(256, 256), tile=1024, tiles=2, serve_iters=8, grad_batch=2,
+        cpu_hw=(256, 256), tile=1024, tiles=2, serve_iters=5, grad_batch=2,
         grad_stochastic=False, head_prefixes=("decode_head.",), warm_steps=2,
-        train_steps=8, eval_tiles=(1, 1024)),
+        train_steps=4, eval_tiles=(1, 1024)),
     # the ViT recipe at 2080² with remat: per crop forward the 4 full blocks
     # run K1L; per train step each block runs forward and recompute (K1 40,
     # K1L 8, K3 80) and K4 20, K7 4, K6 40.  Card vs CPU at a 2080×112 strip
@@ -1104,13 +1135,13 @@ def bits_digest(t: torch.Tensor) -> Tuple[int, ...]:
     return tuple(sums)
 
 
-def check_kernels(cases: dict, record_label: str = "slice") -> dict:
+def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) -> dict:
     """Each case's kernel against its plain version on the same inputs, in
     its dtypes (fp32 and bf16 unless it names others), output by output,
     after checking that the kernel call launched the kernel of its key;
-    returns {kernel: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
-    bound_by}} of the `record_label` case in bf16, the main path's working
-    type."""
+    the bf16 rows, the main path's working type, also timed (unless not
+    `timed`); returns {kernel: {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}} of the `record_label` case in bf16."""
     record = {}
     for kname, kcases in cases.items():
         counter = LAUNCHED_IN[kname][2]
@@ -1153,21 +1184,29 @@ def check_kernels(cases: dict, record_label: str = "slice") -> dict:
                                              f"the same inputs differ: {same}")
                     log(f"[kernel] {kname} {label} {dtype}: two launches bitwise equal "
                         f"in all {len(same)} outputs (digest of the bits)")
-                timed = lambda fn: loop_ms(fn, reps=case.reps,
-                                           warmup=min(3, case.reps // 4))
-                recorded = label == record_label and dtype == torch.bfloat16
-                device = case.device_time and dtype == torch.bfloat16
+                if dtype != torch.bfloat16 or not timed:
+                    log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
+                        f"shape {tuple(args[0].shape)} max_abs_err "
+                        f"{' '.join(f'{e:.3e}' for e in errs)} of max |ref| "
+                        f"{' '.join(f'{m:.3e}' for m in scales)} ‖Δ‖/‖ref‖ "
+                        f"{' '.join(f'{r:.3e}' for r in rels)} (atol, rtol, limit {tols}); "
+                        f"not timed")
+                    continue
+                timed_ms = lambda fn: loop_ms(fn, reps=case.reps,
+                                              warmup=min(3, case.reps // 4))
+                recorded = label == record_label
+                device = case.device_time
                 graph_note = lambda fn: (f" (CUDA graph: {graph_ms(fn, case.reps):.4f} ms "
                                          f"of device time a call)") if device else ""
                 with torch.no_grad():
-                    ms = timed(lambda: case.kernel(*args))
-                    plain_ms = timed(lambda: case.plain(*args))
+                    ms = timed_ms(lambda: case.kernel(*args))
+                    plain_ms = timed_ms(lambda: case.plain(*args))
                     prof = graph_note(lambda: case.kernel(*args))
                 library_ms, what, lib_prof = None, "none", ""
                 if case.library is not None:
                     free()
                     call, what = case.library(args)
-                    library_ms = timed(call)
+                    library_ms = timed_ms(call)
                     lib_prof = graph_note(call)
                     del call
                     free()
@@ -1297,6 +1336,8 @@ def phase_dcnv3_kernels() -> dict:
 # each level
 RPN_N = sum(min(2000, n) for n in det_core.anchor_level_sizes((800, 800)))
 RPN_N_1024 = sum(min(2000, n) for n in det_core.anchor_level_sizes((1024, 1024)))
+# and at 448², one image: each of phase 23's six RPNs runs on one dataset's
+RPN_N_448 = sum(min(2000, n) for n in det_core.anchor_level_sizes((448, 448)))
 
 
 def clustered_boxes(B: int, N: int, hw: Tuple[int, int], seed: int, copies: int = 3):
@@ -1446,6 +1487,9 @@ def phase_nms_kernel() -> dict:
         if (1 in idx[:, :2].tolist()[0]) != both:
             raise AssertionError(f"the IoU-0.7 pair at thr {thr}: kept {idx[:, :2].tolist()}")
         nms_case(f"IoU 0.7 pair thr {thr}", boxes, scores, thr, 20)
+    # phase 23: one dataset's RPN at 448²
+    boxes, scores, _ = clustered_boxes(1, RPN_N_448, (448, 448), 79)
+    nms_case(f"rpn 448² 1x{RPN_N_448}", boxes, scores, 0.7, 1000, timed=True)
     # phases 21-22: Mask R-CNN's RPN at 1024², its predict (80 classes) and
     # RetinaNet's (60 classes, 416² images)
     boxes, scores, _ = clustered_boxes(B, RPN_N_1024, (1024, 1024), 77)
@@ -1462,13 +1506,13 @@ def phase_nms_kernel() -> dict:
 
 def phase_800_kernels() -> None:
     """Phase 3f: K1-K6 and K8 at the 800² detection paths' shapes, batch 2,
-    each against its plain version (TOL and REL_TOL) and timed; nothing
-    recorded (the JSON line keeps phases 3-3d's rows).  The ViT's 50² token
-    grid: K1/K4 over 128 windows (64 an image: the grid padded to 56²) of
-    16 heads × 49 tokens; K2/K5 over 32 heads of the 50×50 grid (N =
-    2,500); K3/K6 sampling 32 maps of 56² (C = 64).  XL: K8 at stage 0
-    (200², 12 groups) and stage 3 (25², 96 groups), gc 16, random
-    offsets."""
+    each against its plain version (TOL and REL_TOL); nothing recorded (the
+    JSON line keeps phases 3-3d's rows).  The ViT's 50² token grid: K1/K4
+    over 128 windows (64 an image: the grid padded to 56²) of 16 heads × 49
+    tokens; K2/K5 over 32 heads of the 50×50 grid (N = 2,500); K3/K6
+    sampling 32 maps of 56² (C = 64): held, not timed (the 1024², 416² and
+    448² rows below time the same kernels).  XL: K8 at stage 0 (200², 12
+    groups) and stage 3 (25², 96 groups), gc 16, random offsets, timed."""
     check_kernels({
         "window": [("800² W=128", window_case(128, 16, 49, 64, 61, device_time=True))],
         "window_bwd": [("800² W=128", window_case(128, 16, 49, 64, 62, bwd=True,
@@ -1479,6 +1523,8 @@ def phase_800_kernels() -> None:
                                                        edge=False))],
         "bilinear_sample_bwd": [("800² 56x56", sample_case(32, 56, 56, 64, 56 * 56, 1,
                                                            66, edge=False, bwd=True))],
+    }, record_label=None, timed=False)
+    check_kernels({
         "dcnv3_fwd": [(f"800² stage{s} {hw}²", dcnv3_case(2, hw, G, 16, 67 + s, "random"))
                       for s, hw, G in ((0, 200, 12), (3, 25, 96))],
         "dcnv3_bwd": [(f"800² stage{s} {hw}²", dcnv3_case(2, hw, G, 16, 69 + s, "random",
@@ -1488,27 +1534,30 @@ def phase_800_kernels() -> None:
 
 
 def phase_path_kernels() -> None:
-    """Phase 3f, continued: K1-K6 at the shapes of phases 21 and 22, batch
-    2, as above.  Mask R-CNN at 1024²: the ViT's 64² grid, padded to 70²
-    for RVSA's windows (100 an image), K2/K5 over N = 4,096 tokens, K3/K6
-    on 70² maps.  RetinaNet at 416²: the 26² grid, padded to 28² (16
-    windows an image), N = 676, 28² maps."""
+    """Phase 3f, continued: K1-K6 at the shapes of phases 21 and 22 (batch
+    2) and 23 (batch 3), as above.  Mask R-CNN at 1024²: the ViT's 64²
+    grid, padded to 70² for RVSA's windows (100 an image), K2/K5 over N =
+    4,096 tokens, K3/K6 on 70² maps.  RetinaNet at 416²: the 26² grid,
+    padded to 28² (16 windows an image), N = 676, 28² maps.  The multitask
+    step at 448²: the 28² grid (16 windows an image, W = 48), K2/K5 over 48
+    heads of N = 784, K3/K6 on 48 maps of 28²."""
     cases = {k: [] for k in ("window", "window_bwd", "flash", "flash_bwd",
                              "bilinear_sample", "bilinear_sample_bwd")}
-    for hw, grid, padded, seed in ((1024, 64, 70, 81), (416, 26, 28, 91)):
-        W = 2 * (padded // 7) ** 2
+    for hw, grid, padded, seed, n in ((1024, 64, 70, 81, 2), (416, 26, 28, 91, 2),
+                                      (448, 28, 28, 101, 3)):
+        W, BH = n * (padded // 7) ** 2, 16 * n
         cases["window"].append((f"{hw}² W={W}", window_case(W, 16, 49, 64, seed,
                                                             device_time=True)))
         cases["window_bwd"].append((f"{hw}² W={W}", window_case(
             W, 16, 49, 64, seed + 1, bwd=True, device_time=True)))
-        cases["flash"].append((f"{hw}² {grid}x{grid}", flash_case(32, (grid, grid), 64,
+        cases["flash"].append((f"{hw}² {grid}x{grid}", flash_case(BH, (grid, grid), 64,
                                                                   seed + 2)))
         cases["flash_bwd"].append((f"{hw}² {grid}x{grid}", flash_case(
-            32, (grid, grid), 64, seed + 3, bwd=True)))
+            BH, (grid, grid), 64, seed + 3, bwd=True)))
         cases["bilinear_sample"].append((f"{hw}² {padded}x{padded}", sample_case(
-            32, padded, padded, 64, padded ** 2, 1, seed + 4, edge=False)))
+            BH, padded, padded, 64, padded ** 2, 1, seed + 4, edge=False)))
         cases["bilinear_sample_bwd"].append((f"{hw}² {padded}x{padded}", sample_case(
-            32, padded, padded, 64, padded ** 2, 1, seed + 5, edge=False, bwd=True)))
+            BH, padded, padded, 64, padded ** 2, 1, seed + 5, edge=False, bwd=True)))
     check_kernels(cases, record_label=None)
 
 
@@ -2128,6 +2177,7 @@ def phase_train(path: Path, card: str) -> dict:
     task = SegmentationTask(recipe)
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
+    initial = host_copy(state.model)
     opt = recipe.train.optimizer
     log(f"{tag} init_state (CPU init, copy to the card, optimizer) "
         f"{time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} wd "
@@ -2186,22 +2236,37 @@ def phase_train(path: Path, card: str) -> dict:
     if not all(0.0 <= metrics[k] <= 100.0 for k in ("mIoU", "mAcc", "aAcc")):
         raise AssertionError(f"bad evaluate metrics {metrics}")
 
-    # sanity check, not the recipe: the recipe's warmup starts at ~1e-11, so
-    # a fixed batch at a constant 1e-4 shows that the step learns
-    sanity_steps = SANITY_STEPS
-    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
-        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
-        schedule=ScheduleConfig(kind="constant")))
-    task = SegmentationTask(sanity, model=task.model)
-    state = task.init_state(_gen(SEED))
-    logs.clear()
-    task.fit(state, cycle(batches[:1]), sanity_steps, log_every=1, log_fn=log_fn)
-    losses = [m["loss"] for m in logs]
-    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, "
-        f"{sanity_steps} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
+    sanity_run(task, batches[0], tag, initial)
+    return launched
+
+
+def host_copy(model) -> Dict[str, torch.Tensor]:
+    """The model's state dict, copied to the host."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def sanity_run(task, batch, tag: str, initial: Dict[str, torch.Tensor]) -> None:
+    """The fixed-batch sanity run after a recipe's train step (not the
+    recipe: its warm-up starts near 0, so a constant lr of 1e-4 shows that
+    the step learns): the task's initial weights (`initial`, the recipe
+    state's as `init_state` drew them from the seed, restored rather than
+    drawn again), AdamW at a constant lr of 1e-4 with the recipe's layer
+    decay and weight decay, SANITY_STEPS steps on one batch; the loss must
+    fall."""
+    task.model.load_state_dict(initial)
+    cfg = task.cfg
+    opt = dataclasses.replace(cfg.train.optimizer, lr=1e-4)
+    tx = make_optimizer(opt, make_schedule(ScheduleConfig(kind="constant"), opt.lr),
+                        task.model.named_parameters(), cfg.backbone.depth,
+                        layer_id_fn=layer_id_fn_for(cfg.backbone, root=task.backbone_root))
+    state = create_state(task.model, tx, torch.Generator(device=task.device).manual_seed(SEED))
+    losses = []
+    task.fit(state, cycle([batch]), SANITY_STEPS, log_every=1,
+             log_fn=lambda i, m: losses.append(m["loss"]))
+    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, {SANITY_STEPS} "
+        f"steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
     if not min(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
-    return launched
 
 
 # ------------------------------------------------------- phases 16-18 --
@@ -2357,6 +2422,7 @@ def phase_task_train(path: TaskPath, card: str):
     task = path.task(recipe)
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
+    initial = host_copy(state.model)
     opt = recipe.train.optimizer
     log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} layer "
         f"decay {opt.layer_decay}, {recipe.train.schedule.total_steps} steps "
@@ -2413,18 +2479,7 @@ def phase_task_train(path: TaskPath, card: str):
     if not all(0.0 <= metrics[k] <= 100.0 for k in shown):
         raise AssertionError(f"bad evaluate metrics {metrics}")
 
-    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
-        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
-        schedule=ScheduleConfig(kind="constant")))
-    sane = path.task(sanity, model=task.model)
-    logs.clear()
-    sane.fit(sane.init_state(_gen(SEED)), cycle(batches[:1]), SANITY_STEPS, log_every=1,
-             log_fn=log_fn)
-    losses = [m["loss"] for m in logs]
-    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, "
-        f"{SANITY_STEPS} steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
-    if not min(losses[-3:]) < losses[0]:
-        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    sanity_run(task, batches[0], tag, initial)
     return task.model
 
 
@@ -2670,13 +2725,13 @@ DET_PATHS = {
     "det_vit": DetPath("det_vit", DET_VIT,
                        lambda crop: backbone_flops(DET_VIT.backbone, (crop, crop)),
                        VIT_FWD, {**VIT_STEP, "nms": 1}, {**VIT_FWD, "nms": 2},
-                       train_steps=8),
+                       train_steps=5),
     # InternImage-XL at 800² with remat: K8 on maps of 200², 100², 50², 25²
     "det_xl": DetPath("det_xl", DET_XL,
                       lambda crop: internimage_flops(internimage_config(DET_XL.backbone),
                                                      crop),
                       XL_FWD, {**XL_STEP, "nms": 1}, {**XL_FWD, "nms": 2},
-                      train_steps=6, grad_rtol=GRAD_RTOL_STOCHASTIC),
+                      train_steps=3, grad_rtol=GRAD_RTOL_STOCHASTIC),
 }
 
 
@@ -2689,14 +2744,14 @@ ROT_PATHS = {
     "det_rot_vit": DetPath("det_rot_vit", ROT_VIT,
                            lambda crop: backbone_flops(ROT_VIT.backbone, (crop, crop)),
                            VIT_FWD, {**VIT_STEP, "nms": 1, "rbox_iou": 1},
-                           {**VIT_FWD, "nms": 1, "nms_rotated": 1}, train_steps=8,
+                           {**VIT_FWD, "nms": 1, "nms_rotated": 1}, train_steps=5,
                            head="oriented_rcnn", batch=ROT_BATCH),
     # XL: the train step and the predict only
     "det_rot_xl": DetPath("det_rot_xl", ROT_XL,
                           lambda crop: internimage_flops(internimage_config(ROT_XL.backbone),
                                                          crop),
                           XL_FWD, {**XL_STEP, "nms": 1, "rbox_iou": 1},
-                          {**XL_FWD, "nms": 1, "nms_rotated": 1}, train_steps=6,
+                          {**XL_FWD, "nms": 1, "nms_rotated": 1}, train_steps=3,
                           head="oriented_rcnn", batch=ROT_BATCH, card_vs_cpu=False),
 }
 
@@ -2715,14 +2770,14 @@ INST_PATHS = {
     "mask_vit": DetPath("mask_vit", MASK_VIT,
                         lambda crop: backbone_flops(MASK_VIT.backbone, (crop, crop)),
                         VIT_FWD, {**VIT_STEP, "bilinear_sample": 41, "nms": 1},
-                        {**VIT_FWD, "nms": 2}, train_steps=6, head="mask_rcnn",
+                        {**VIT_FWD, "nms": 2}, train_steps=4, head="mask_rcnn",
                         strip=(1024, 128), overrides={"score_thr": SCORE_THR}),
     # phase 22: RetinaNet on xView's 60 classes at 416², batch 2: the 26²
     # grid, 32,526 anchors an image; no NMS in a step, N1 once a predict;
     # card vs CPU at a 416×128 strip (26×8 tokens)
     "retina_vit": DetPath("retina_vit", RETINA_VIT,
                           lambda crop: backbone_flops(RETINA_VIT.backbone, (crop, crop)),
-                          VIT_FWD, VIT_STEP, {**VIT_FWD, "nms": 1}, train_steps=6,
+                          VIT_FWD, VIT_STEP, {**VIT_FWD, "nms": 1}, train_steps=4,
                           head="retinanet", strip=(416, 128),
                           overrides={"score_thr": SCORE_THR}),
 }
@@ -2954,7 +3009,7 @@ def phase_det_gradients(path: DetPath, model_cpu) -> None:
     gradients 3.4e-4 (median) and up to 1.98e-3 from float64 while the
     card's are 3.2e-7 and 3.2e-6 (`--path det_xl`); its TF32 control
     leaves 11 parameters outside.  The oriented path (phase 20) also takes
-    the CPU's R-CNN assigner IoUs (`cpu_assigner_ious`): an IoU within
+    the CPU's R-CNN assigner IoUs (`cpu_replay`): an IoU within
     rounding of 0.5 would flip a sample.  RetinaNet (phase 22) takes the
     CPU's anchor assignment (`cpu_retina_assign`): an anchor's IoU within
     rounding of 0.4 or 0.5 would move it between negative, ignored and
@@ -2968,7 +3023,7 @@ def phase_det_gradients(path: DetPath, model_cpu) -> None:
         fixed = contextlib.ExitStack()
         fixed.enter_context(fixed_proposals(props))
         if path.rotated:
-            fixed.enter_context(cpu_assigner_ious())
+            fixed.enter_context(cpu_replay(det_core, "rbox_overlaps"))
         what = "proposals, max-pool picks" + (" and assigner IoUs" if path.rotated else "")
     with fixed, fixed_pool_picks(picks):
         check_gradients(grad_path, cfg, model_cpu, batch,
@@ -2999,29 +3054,40 @@ def cpu_retina_assign():
 
 
 @contextlib.contextmanager
-def cpu_assigner_ious():
-    """`det_loss_core`'s rotated IoUs of gts and proposals: computed (plain
-    version) where the loss runs on the CPU, and that CPU result given to
-    every run on the card after it."""
-    real, held = det_core.rbox_overlaps, {}
+def cpu_replay(module, name: str):
+    """`module.name`'s results, computed in call order where they run on
+    the CPU, and given back in the same order to each run on the card
+    after it (`det_core.rbox_overlaps`: the rotated assigners' IoUs, in
+    phases 20 and 23; `det_core.gen_proposals`: phase 23's six RPNs'
+    proposals)."""
+    real, held, at = getattr(module, name), [], [0]
 
-    def ious(gts, props):
-        if gts.device.type == "cpu":
-            held["ious"] = real(gts, props)
-            return held["ious"]
-        return held["ious"].to(gts.device)
+    def call(first, *args, **kwargs):
+        lead = first.cls_scores if hasattr(first, "cls_scores") else first
+        if lead.device.type == "cpu":
+            held.append(real(first, *args, **kwargs))
+            return held[-1]
+        out = held[at[0] % len(held)]
+        at[0] += 1
+        return tuple(t.to(lead.device) for t in out) if isinstance(out, tuple) \
+            else out.to(lead.device)
 
-    with mock.patch.object(det_core, "rbox_overlaps", ious):
+    with mock.patch.object(module, name, call):
         yield
 
 
-def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
-    """Device kernel ms per train step (torch.profiler over `steps` steps)
-    and the ms and launches of each kernel group."""
+# steps of the train step under torch.profiler (`_busy`)
+BUSY_STEPS = 1
+
+
+def _busy(task, state, batch: dict, steps: int = BUSY_STEPS) -> Tuple[float, dict]:
+    """Device kernel ms per train step (torch.profiler over `steps` steps,
+    the card's activity only: the host's operators add nothing to the
+    kernels' times and count, and building their events took longer than
+    the steps) and the ms and launches a step of each kernel group."""
     step = task.train_step_fn()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, m = step(state, batch)
         float(m["loss"])
@@ -3034,7 +3100,7 @@ def _busy(task, state, batch: dict, steps: int = 2) -> Tuple[float, dict]:
             continue
         g = groups.setdefault(kernel_group(e.name), [0.0, 0])
         g[0] += e.device_time_total / 1e3 / steps
-        g[1] += 1
+        g[1] += 1 / steps
     return sum(v[0] for v in groups.values()), groups
 
 
@@ -3054,6 +3120,7 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     task = path.task()
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
+    initial = host_copy(state.model)
     opt = recipe.train.optimizer
     log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} layer "
         f"decay {opt.layer_decay}, schedule {recipe.train.schedule.kind} "
@@ -3095,11 +3162,11 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         f"images/s, data_time median {data_ms:.3f} ms, backbone "
         f"~{3 * path.flops(crop) * B / per / 1e9:.2f} TFLOP/s (3× forward), peak "
         f"memory {peak / 2 ** 30:.3f} GiB; busy {kernel_ms / per:.3f} ({kernel_ms:.2f} ms "
-        f"of device kernels a step, torch.profiler, 2 steps, over the median step); loss "
+        f"of device kernels a step, torch.profiler, {BUSY_STEPS} step, over the median step); loss "
         f"{logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f} ({losses}), grad_norm "
         f"{logs[-1]['grad_norm']:.4f}, step {state.step} | card {card}")
     log(f"{tag} device ms a step by kernel group (launches): " + ", ".join(
-        f"{g} {ms:.2f} ({n // 2})" for g, (ms, n) in
+        f"{g} {ms:.2f} ({n:.0f})" for g, (ms, n) in
         sorted(groups.items(), key=lambda kv: -kv[1][0])))
 
     # 2 images (phase 19: the second train batch's)
@@ -3155,18 +3222,7 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         if not 0.0 <= res["mAP"] <= 100.0:
             raise AssertionError(f"bad mAP {res}")
 
-    sanity = dataclasses.replace(recipe, train=dataclasses.replace(
-        recipe.train, optimizer=dataclasses.replace(opt, lr=1e-4),
-        schedule=ScheduleConfig(kind="constant")))
-    sane = path.task(sanity, model=task.model)
-    logs.clear()
-    sane.fit(sane.init_state(_gen(SEED)), cycle(batches[:1]), SANITY_STEPS, log_every=1,
-             log_fn=log_fn)
-    losses = [m["loss"] for m in logs]
-    log(f"{tag} sanity (not the recipe): fixed batch, constant lr 1e-4, {SANITY_STEPS} "
-        f"steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
-    if not min(losses[-3:]) < losses[0]:
-        raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+    sanity_run(task, batches[0], tag, initial)
     return {"train": launched, "predict": p_launched}
 
 
@@ -3225,6 +3281,413 @@ def run_det_path(path: DetPath, card: str) -> dict:
     free()
     with phase_time(f"{path.name} train"):
         return phase_det_train(path, card)
+
+
+# ------------------------------------------------------------- phase 23 --
+
+MTP = mtp_vit_l_rvsa_448_samrs()
+MTP_STRIP = (448, 128)  # card vs CPU: a 28×8 token grid, one image a dataset
+MTP_G, MTP_VALID = 24, 12  # bench.py's synthetic pretraining batch
+MTP_STEPS = 6           # timed steps after 3
+MTP_AB_STEPS = 3        # steps of each A/B block
+# one encoder pass over the 3 images; the sequential detection losses run
+# N1 once per RPN (3 Mask R-CNN, 3 Oriented R-CNN), R1's dense form once
+# per Oriented R-CNN assigner and K3 once more per Mask R-CNN branch (the
+# mask targets' sampling of the gt crops); the concatenated form
+# (det_multi) runs each once a task
+MTP_STEP = {**VIT_STEP, "bilinear_sample": 43, "nms": 6, "rbox_iou": 3}
+MTP_STEP_MULTI = {**VIT_STEP, "bilinear_sample": 41, "nms": 2, "rbox_iou": 1}
+# one dataset's predict: N1 for each RPN and for Mask R-CNN's class-aware
+# NMS, R1's mask form for Oriented R-CNN's
+MTP_PREDICT = {**VIT_FWD, "nms": 3, "nms_rotated": 1}
+# the ss trunk, both decoders and the nine final layers: the "convs" group
+MTP_HEADS = ("encoder.fpn", "semsegdecoder.", "semseghead_", "inssegdecoder.",
+             "inssegroi", "rotdetdecoder.", "rotdetroi")
+
+
+@dataclasses.dataclass(frozen=True)
+class MtpPath:
+    """What `check_gradients`' helpers read of phase 23's path."""
+
+    name: str = "mtp_vit"
+    per_step: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {**MTP_STEP, "nms": 0, "rbox_iou": 0})
+    grad_stochastic: bool = True
+    grad_rtol: Dict[str, float] = dataclasses.field(default_factory=lambda: GRAD_RTOL)
+    head_prefixes: Tuple[str, ...] = MTP_HEADS
+
+
+def mtp_batch(hw: Tuple[int, int], seed: int) -> dict:
+    """bench.py's synthetic pretraining batch at one image a SAMRS dataset
+    ({"d0", "d1", "d2"}): seeded images and ss labels, MTP_G padded gts
+    with MTP_VALID valid, horizontal boxes of sides 16-64 px and rotated
+    ones 24-60 × 12-30 px at any angle (foreground labels), and each
+    horizontal gt's box-aligned mask crop (`mask_crops`, the loader's
+    default)."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    out = {}
+    for d, c in enumerate(SAMRS_CLASSES):
+        xy = rng.uniform(0, 1, (1, MTP_G, 2)) * [W - 80, H - 80] + 16
+        valid = np.zeros((1, MTP_G), bool)
+        valid[:, :MTP_VALID] = True
+        centre = rng.uniform(0, 1, (1, MTP_G, 2)) * [W - 32, H - 32] + 16
+        out[f"d{d}"] = {
+            "image": rng.standard_normal((1, H, W, 3)).astype(np.float32),
+            "ss_label": rng.integers(0, c, (1, H, W)).astype(np.int64),
+            "gt_boxes": np.concatenate([xy, xy + rng.uniform(16, 64, (1, MTP_G, 2))],
+                                       -1).astype(np.float32),
+            "gt_labels": rng.integers(0, c - 1, (1, MTP_G)),
+            "gt_valid": valid,
+            "gt_mask_crops": mask_crops(1, seed + 100 + d)[:, :MTP_G] * valid[..., None, None],
+            "r_gt_boxes": np.concatenate([centre, rng.uniform(24, 60, (1, MTP_G, 1)),
+                                          rng.uniform(12, 30, (1, MTP_G, 1)),
+                                          rng.uniform(-1.2, 1.2, (1, MTP_G, 1))],
+                                         -1).astype(np.float32),
+            "r_gt_labels": rng.integers(0, c - 1, (1, MTP_G)),
+            "r_gt_valid": valid,
+        }
+    return out
+
+
+def mtp_task(cfg: Optional[TaskConfig] = None, **kw) -> MultiTaskPretrainTask:
+    """The recipe's task (score_thr 0.001 through `det_overrides`, as
+    phases 21-22 take it: random weights clear no 0.05)."""
+    return MultiTaskPretrainTask(cfg or MTP, det_overrides={"score_thr": SCORE_THR}, **kw)
+
+
+def _mtp_heads(model, images: torch.Tensor, props: Optional[dict]):
+    """fp32 encoder levels, each dataset's ss logits (eval mode), both
+    FPNs' levels and RPN outputs and, on `props` ({(task, d): (P, 4 or 5)},
+    the CPU's; the model's own when None), each dataset's box head outputs
+    and Mask R-CNN's mask logits on its first MASK_ROIS proposals.
+    Returns ([(name, tensor)], props)."""
+    enc = model.encode(images)
+    out = [(f"encoder level {i}", t) for i, t in enumerate(enc)]
+    out += [(f"ss logits d{d}", model.ss_logits([t[d:d + 1] for t in enc], d, False, True))
+            for d in range(3)]
+    hw = tuple(images.shape[1:3])
+    anchors = torch.as_tensor(det_core.anchors_for(None, hw), device=images.device)
+    own = props is None
+    props = props or {}
+    for task, fwd, dets in (("is", model.is_forward, model.det_h_cfgs),
+                            ("rd", model.rd_forward, model.det_r_cfgs)):
+        feats, rpn = fwd(enc)
+        out += [(f"{task} FPN level {i}", t) for i, t in enumerate(feats)]
+        out += [(f"{task} RPN scores", rpn.cls_scores), (f"{task} RPN deltas", rpn.deltas)]
+        if own:
+            det = dets[0]
+            boxes, _ = gen_proposals(rpn, anchors, hw, det.nms_pre, det.max_proposals,
+                                     det.rpn_nms_iou, det.rotated,
+                                     level_sizes=det_core.anchor_level_sizes(hw))
+            props.update({(task, d): boxes[d] for d in range(3)})
+        for d in range(3):
+            fd, p = [t[d:d + 1] for t in feats], props[task, d].to(images.device)
+            bidx = torch.zeros(p.shape[0], dtype=torch.long, device=images.device)
+            cls, reg = model.box_fn(task, fd, d)(p, bidx)
+            out += [(f"{task} d{d} box logits", cls), (f"{task} d{d} box deltas", reg)]
+            if task == "is":
+                out.append((f"is d{d} mask logits",
+                            model.mask_fn(fd, d)(p[:MASK_ROIS], bidx[:MASK_ROIS])))
+    return out, props
+
+
+@torch.no_grad()
+def phase_mtp_forward(model_cpu) -> None:
+    """fp32, one image a dataset of the strip, card against CPU: the
+    encoder's levels, each dataset's ss logits, both FPNs' levels and RPN
+    outputs, and on the CPU's proposals each dataset's box heads and mask
+    logits; each within SLICE_TOL of its max |ref|."""
+    x = torch.from_numpy(np.concatenate([b["image"] for b in mtp_batch(
+        MTP_STRIP, SEED + 1).values()]))
+    t0 = time.perf_counter()
+    ref, props = _mtp_heads(model_cpu, x, None)
+    t_cpu = time.perf_counter() - t0
+    model = copy.deepcopy(model_cpu).cuda()
+    reset_counters()
+    got, _ = _mtp_heads(model, x.cuda(), props)
+    launched = counters()
+    if launched != VIT_FWD:
+        raise AssertionError(f"launch counts {launched} != {VIT_FWD}")
+    parts, worst = [], 0.0
+    for (name, g), (_, r) in zip(got, ref):
+        g = g.float().cpu()
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: {tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
+        rel = ((g - r).abs().max() / r.abs().max()).item()
+        worst = max(worst, rel)
+        parts.append(f"{name} {rel:.2e}")
+    log(f"[mtp] fp32 3 images of {MTP_STRIP[0]}×{MTP_STRIP[1]} (one a dataset), card vs "
+        f"CPU, max |Δ| / max |ref| (tol {SLICE_TOL}), heads on the CPU's proposals: "
+        + ", ".join(parts) + f"; worst {worst:.3e}; CPU forward {t_cpu:.1f} s; "
+        f"launches {launched}")
+    if not worst <= SLICE_TOL:
+        raise AssertionError(f"the card's multitask model disagrees with the CPU: {worst:.3e}")
+
+
+def _mtp_loss_and_grads(cfg, model, batch, device: str):
+    """One backward of the 9-way loss on `device`, train mode (BatchNorm
+    on batch statistics, dropout and drop-path on, every draw from one CPU
+    generator of one seed): (loss, {name: loss}, {parameter: gradient})."""
+    task = mtp_task(cfg, model=model, device=device)
+    model.zero_grad(set_to_none=True)
+    loss, losses = task.loss_fn(model, to_device(batch, device), _gen(SEED + 4))
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), {k: v.item() for k, v in losses.items()}, grads
+
+
+def phase_mtp_gradients(model_cpu) -> None:
+    """fp32 gradients of the 9-way loss at one image a dataset of the
+    strip, card against CPU (phase 6's rule: backbone rtol 1e-3, the
+    decoders and final layers 1e-2; the TF32 control must fail), and each
+    named loss within LOSS_RTOL.  Both sides take what the CPU decides
+    where rounding could tip a discrete choice (phases 19-21): the six
+    RPNs' proposals and the rotated assigners' IoUs (`cpu_replay`), the
+    fpn4 max-pool picks of the CPU's loss (`recorded_pool_picks`), and one
+    CPU generator's dropout, drop-path and sampler draws.  The ss
+    trunk's BatchNorm runs per dataset on one image: its PSP pool-1 branch
+    normalises one value a channel, whose gradient is 0 in exact
+    arithmetic (the absolute floor, GRAD_ATOL·‖g_all‖, holds it)."""
+    path, tag = MtpPath(), "[grads mtp_vit]"
+    cfg = dataclasses.replace(MTP, backbone=dataclasses.replace(MTP.backbone, dtype="float32"))
+    batch = to_device(mtp_batch(MTP_STRIP, SEED + 3), "cpu")
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    runs, picks = {}, {}
+    with cpu_replay(det_core, "gen_proposals"), cpu_replay(det_core, "rbox_overlaps"):
+        for device, model in (("cpu", model_cpu), ("cuda", model_gpu)):
+            reset_counters()
+            t0 = time.perf_counter()
+            with (recorded_pool_picks if device == "cpu" else fixed_pool_picks)(picks):
+                runs[device] = _mtp_loss_and_grads(cfg, model, batch, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launched = counters()
+            log(f"{tag} {device}: loss {runs[device][0]:.6f} forward+backward "
+                f"{time.perf_counter() - t0:.1f} s")
+        _tf32(True)
+        try:
+            with fixed_pool_picks(picks):
+                control = _mtp_loss_and_grads(cfg, model_gpu, batch, "cuda")
+        finally:
+            _tf32(False)
+    if launched != path.per_step:
+        raise AssertionError(f"launch counts {launched} != {path.per_step}")
+    (_, l_ref, g_ref), (_, l_got, g_got) = runs["cpu"], runs["cuda"]
+    rel = {k: abs(l_got[k] - v) / max(abs(v), 1e-12) for k, v in l_ref.items()}
+    bad_losses = [k for k, r in rel.items() if not (r <= LOSS_RTOL or l_ref[k] == l_got[k])]
+    ok, summary = _grad_verdict(path, runs["cpu"][::2], runs["cuda"][::2])
+    control_ok, control_summary = _grad_verdict(path, runs["cpu"][::2], control[::2])
+    worst = max(rel, key=rel.get)
+    log(f"{tag} fp32 3 images of {MTP_STRIP[0]}×{MTP_STRIP[1]}, dropout + drop-path on, the "
+        f"CPU's proposals, max-pool picks and rotated assigner IoUs, card vs CPU: "
+        f"{len(rel)} named losses, largest rel {rel[worst]:.3e} at {worst} (tol {LOSS_RTOL}); "
+        f"{summary}; launches {launched}")
+    log(f"{tag} control, the card with TF32 on, vs CPU: {control_summary}")
+    if bad_losses or not ok:
+        raise AssertionError(f"card disagrees with the CPU: losses {bad_losses}; {summary}")
+    if control_ok:
+        raise AssertionError("the TF32 control passed the gradient tolerance")
+
+
+def ordered_sample(assign, generator, num: int, pos_fraction: float):
+    """A sampler without draws, image by image the same whatever the batch:
+    positives in index order up to int(num · pos_fraction), then negatives
+    in index order (what both detection forms are compared under)."""
+    gt = assign.gt_inds
+    A = gt.shape[-1]
+    pos, neg = gt > 0, gt == 0
+    pos_sel = pos & (pos.long().cumsum(-1) <= int(num * pos_fraction))
+    neg_sel = neg & (neg.long().cumsum(-1) <= num - pos_sel.sum(-1, keepdim=True))
+    key = (2 * pos_sel.long() + neg_sel.long()) * A + (A - 1 - torch.arange(A, device=gt.device))
+    inds = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :num]
+    take = lambda t: t.gather(-1, inds)
+    return SampleResult(inds, take(pos_sel), take(pos_sel | neg_sel),
+                        (take(gt) - 1).clamp(min=0), take(assign.labels))
+
+
+def check_det_multi(model, batch: dict) -> None:
+    """The concatenated detection form against the sequential one on the
+    card, fp32, same weights and batch, train mode, one seed's draws for
+    the encoder and the ss heads and `ordered_sample` for the samplers:
+    every named loss within LOSS_RTOL and every gradient by phase 6's rule."""
+    cfg = dataclasses.replace(MTP, backbone=dataclasses.replace(MTP.backbone, dtype="float32"))
+    runs = {}
+    with mock.patch.object(det_core, "random_sample", ordered_sample):
+        for multi in (False, True):
+            model.det_multi = multi
+            runs[multi] = _mtp_loss_and_grads(cfg, model, batch, "cuda")
+    model.det_multi = False
+    (l0, n0, g0), (l1, n1, g1) = runs[False], runs[True]
+    rel = {k: abs(n1[k] - v) / max(abs(v), 1e-12) for k, v in n0.items()}
+    ok, summary = _grad_verdict(MtpPath(name="det_multi"), (l0, g0), (l1, g1))
+    worst = max(rel, key=rel.get)
+    log(f"[det_multi] fp32, the train batch, det_multi=True vs the sequential form on the "
+        f"card: {len(rel)} named losses, largest rel {rel[worst]:.3e} at {worst}; {summary}")
+    if max(rel.values()) > LOSS_RTOL or not ok:
+        raise AssertionError(f"the concatenated form differs: {summary}")
+
+
+def phase_mtp_train(card: str) -> dict:
+    """The recipe's train step at batch 3 of 448² (one image a dataset, the
+    recipe's 24 = 3 a GPU × 8) through `MultiTaskPretrainTask.init_state` →
+    `fit` (checkpoint and encoder export) → `evaluate`: launches, ms/step,
+    images/s, data_time, peak memory, busy share and kernel groups, the 30
+    named losses; the concatenated detection form (det_multi) against the
+    sequential one (`check_det_multi`), its launches and its steps timed in
+    the order A B B A; the 9-way evaluation on one batch, with a predict's
+    launches; the exported encoder loaded into the ViT-L segmentation task
+    at 384²; a fixed-batch sanity run whose loss must fall."""
+    tag, hw = "[train mtp_vit]", (MTP.backbone.img_size,) * 2
+    task = mtp_task()
+    t0 = time.perf_counter()
+    state = task.init_state(_gen(SEED))
+    initial = host_copy(state.model)
+    opt = MTP.train.optimizer
+    log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} wd "
+        f"{opt.weight_decay} layer decay {opt.layer_decay} clip {opt.clip_norm}, schedule "
+        f"{MTP.train.schedule.kind} ({MTP.train.schedule.warmup_steps} warm-up), drop-path "
+        f"{MTP.backbone.drop_path_rate}; batch 3 (one image a dataset; the recipe's "
+        f"{MTP.train.batch_size} over {MTP.train.batch_size // 3} GPUs), classes "
+        f"{task.model.classes}")
+    batches = [mtp_batch(hw, SEED + 10 + i) for i in range(3)]
+    logs = []
+    log_fn = lambda i, m: logs.append(m)
+    torch.cuda.synchronize()
+    reset_counters()
+    state, m = task.fit(state, cycle(batches), 1, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launched = counters()
+    log(f"{tag} launches in one train step: {launched}, expected {MTP_STEP}")
+    if launched != MTP_STEP:
+        raise AssertionError(f"launch counts {launched} != {MTP_STEP}")
+    with tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_") as tmp:
+        enc_path = os.path.join(tmp, "mtp_encoder.pth")
+        t0 = time.perf_counter()
+        state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=log_fn,
+                            ckpt=CheckpointStore(os.path.join(tmp, "ckpt")),
+                            encoder_path=enc_path)
+        t_save = time.perf_counter() - t0
+        export = load_encoder(enc_path, MTP.backbone)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs.clear()
+    state, _ = task.fit(state, cycle(batches), MTP_STEPS, log_every=1, log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    for m in logs:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite train metrics {m}")
+    step_ms = [m["step_time"] * 1e3 for m in logs]
+    per = statistics.median(step_ms)
+    data_ms = statistics.median(m["data_time"] * 1e3 for m in logs)
+    dev_batch = to_device(batches[0], "cuda")
+    kernel_ms, groups = _busy(task, state, dev_batch)
+    named = {k: v for k, v in logs[-1].items() if k.startswith(("ss_", "is_", "rd_"))}
+    if len(named) != 30:
+        raise AssertionError(f"named losses {sorted(named)}")
+    flops = 3 * backbone_flops(MTP.backbone, hw) * 3
+    log(f"{tag} recipe train step, batch 3 of {hw[0]}², bf16 autocast, drop-path and "
+        f"dropout on, sequential detection: median {per:.2f} ms/step over {len(step_ms)} (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {3 / per * 1e3:.3f} images/s, "
+        f"data_time median {data_ms:.3f} ms, backbone ~{flops / per / 1e9:.2f} TFLOP/s (3× "
+        f"forward), peak memory {peak / 2 ** 30:.3f} GiB; busy {kernel_ms / per:.3f} "
+        f"({kernel_ms:.2f} ms of device kernels a step, torch.profiler, {BUSY_STEPS} step, over the "
+        f"median step); loss {logs[0]['loss']:.4f} → {logs[-1]['loss']:.4f}, grad_norm "
+        f"{logs[-1]['grad_norm']:.4f}, step {state.step} | card {card}")
+    log(f"{tag} the 9 losses (each the sum of its named ones) at the last step: " + ", ".join(
+        f"{t}_d{d} {sum(v for k, v in named.items() if k.startswith(f'{t}_d{d}')):.4f}"
+        for t in ("ss", "is", "rd") for d in range(3)))
+    log(f"{tag} device ms a step by kernel group (launches): " + ", ".join(
+        f"{g} {ms:.2f} ({n:.0f})" for g, (ms, n) in
+        sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    log(f"{tag} checkpoint + encoder export after 2 more steps: {t_save:.1f} s with the steps; "
+        f"encoder artifact {len(export)} tensors")
+
+    # the concatenated detection form: the same function, then its step
+    check_det_multi(state.model, dev_batch)
+    model = state.model
+    model.det_multi = True
+    reset_counters()
+    state, _ = task.fit(state, cycle(batches), 1)
+    torch.cuda.synchronize()
+    multi_launched = counters()
+    if multi_launched != MTP_STEP_MULTI:
+        raise AssertionError(f"det_multi launch counts {multi_launched} != {MTP_STEP_MULTI}")
+    blocks = []
+    for multi in (False, True, True, False):
+        model.det_multi = multi
+        logs.clear()
+        state, _ = task.fit(state, cycle(batches), MTP_AB_STEPS, log_every=1, log_fn=log_fn)
+        blocks.append(statistics.median(m["step_time"] * 1e3 for m in logs))
+    model.det_multi = False
+    seq, multi = (blocks[0] + blocks[3]) / 2, (blocks[1] + blocks[2]) / 2
+    log(f"[det_multi] recipe step, batch 3 of {hw[0]}², bf16, A B B A blocks of "
+        f"{MTP_AB_STEPS} steps (median each): sequential {blocks[0]:.2f} / {blocks[3]:.2f}, "
+        f"det_multi {blocks[1]:.2f} / {blocks[2]:.2f} ms/step; det_multi / sequential "
+        f"{multi / seq:.3f}; launches a step: sequential {MTP_STEP}, det_multi "
+        f"{multi_launched} | card {card}")
+
+    # the 9-way validation on one batch, and one dataset's predict
+    t0 = time.perf_counter()
+    res = task.evaluate(state, iter([mtp_batch(hw, SEED + 20)]))
+    t_eval = time.perf_counter() - t0
+    log(f"[eval mtp_vit] 9-way on one batch (3 images of {hw[0]}², random weights after "
+        f"{state.step} steps, score_thr {SCORE_THR}; {t_eval:.1f} s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res.items()))
+    if len(res) != 3 * 6 + 3 or not all(math.isfinite(v) for v in res.values()):
+        raise AssertionError(f"bad 9-way metrics {res}")
+    images = torch.from_numpy(batches[0]["d0"]["image"]).cuda()
+    with torch.no_grad(), task.autocast():
+        reset_counters()
+        task.predict_fn()(images, 0)
+        torch.cuda.synchronize()
+    p_launched = counters()
+    log(f"[predict mtp_vit] one dataset's predict (ss, Mask R-CNN, Oriented R-CNN): launches "
+        f"{p_launched}, expected {MTP_PREDICT}")
+    if p_launched != MTP_PREDICT:
+        raise AssertionError(f"predict launch counts {p_launched} != {MTP_PREDICT}")
+
+    # the exported encoder in the ViT-L segmentation recipe at 384²
+    seg, crop = SegmentationTask(RVSA), RVSA.backbone.img_size
+    sd = backbone_state_dict(export, RVSA.backbone)
+    seg_state = seg.init_state(_gen(SEED), pretrained_backbone=sd)
+    same = torch.equal(seg_state.model.backbone.blocks[0].attn.qkv.weight.cpu(),
+                       export["blocks.0.attn.qkv.weight"])
+    x = torch.from_numpy(synthetic_batch(1, (crop, crop), RVSA.num_classes, SEED + 41)["image"])
+    with torch.no_grad(), seg.autocast():
+        out = seg_state.model.predict(x.cuda()).float()
+    log(f"[export mtp_vit] the fit's encoder artifact (grid {hw[0] // 16}) → "
+        f"rvsa-l-upernet-384 (grid {crop // 16}): pos_embed {tuple(sd['pos_embed'].shape)}, "
+        f"{len(sd)} tensors; loaded weights equal {same}; one forward {tuple(out.shape)} "
+        f"finite {bool(torch.isfinite(out).all())}")
+    if not same or out.shape != (1, crop, crop, RVSA.num_classes) or \
+            not torch.isfinite(out).all():
+        raise AssertionError("the exported encoder did not load into the segmentor")
+    del seg, seg_state, export
+    free()
+
+    sanity_run(task, batches[0], tag, initial)
+    return {"train": launched, "predict": p_launched}
+
+
+def run_mtp_path(card: str) -> dict:
+    """Phase 23: card vs CPU at the strip, then the train step, the
+    concatenated form, evaluate and the encoder export at 448²."""
+    free()
+    with phase_time("mtp_vit models"):
+        model_cpu = init_weights(MultiTaskPretrainModel(
+            MTP.backbone, det_overrides={"score_thr": SCORE_THR}, input_hw=MTP_STRIP),
+            _gen(SEED)).eval()
+    with phase_time("mtp_vit logits"):
+        phase_mtp_forward(model_cpu)
+    free()
+    with phase_time("mtp_vit gradients"):
+        phase_mtp_gradients(model_cpu)
+    del model_cpu
+    free()
+    with phase_time("mtp_vit train"):
+        return phase_mtp_train(card)
 
 
 @contextlib.contextmanager
@@ -3294,6 +3757,7 @@ def main() -> None:
     del vit_cls_backbone
     for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
         runs[name] = run_det_path(path, card)
+    runs["mtp_vit"] = run_mtp_path(card)
     kernels = []
     for key, meta in KERNELS.items():
         path, kind, counter = LAUNCHED_IN[key]

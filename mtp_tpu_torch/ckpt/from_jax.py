@@ -23,6 +23,7 @@ Adam moments — to the port's parameter names (`params_from_jax`,
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict
 
 import numpy as np
@@ -239,7 +240,8 @@ def upernet_from_jax(params: dict, batch_stats: dict) -> StateDict:
         i += 1
     _convmodule(sd, "fpn_bottleneck", params["fpn_bottleneck"],
                 batch_stats["fpn_bottleneck"])
-    _conv(sd, "conv_seg", params["conv_seg"])
+    if "conv_seg" in params:  # the multitask trunk has none
+        _conv(sd, "conv_seg", params["conv_seg"])
     return sd
 
 
@@ -308,16 +310,38 @@ def _dense_chw(sd: dict, dst: str, p: dict, spatial: int) -> None:
     sd[dst + ".bias"] = _tensor(p["bias"])
 
 
-def _neck(sd: dict, neck: dict) -> None:
-    """`FPN` params → `neck.lateral_convs.{i}.conv` and `neck.fpn_convs.{i}
-    .conv`, the extra convolutions (`fpn_conv_i` past the laterals)
+def _neck(sd: dict, neck: dict, prefix: str = "neck.") -> None:
+    """`FPN` params → `{prefix}lateral_convs.{i}.conv` and `{prefix}fpn_convs.
+    {i}.conv`, the extra convolutions (`fpn_conv_i` past the laterals)
     included."""
     i = 0
     while f"fpn_conv_{i}" in neck:
         if f"lateral_{i}" in neck:
-            _conv(sd, f"neck.lateral_convs.{i}.conv", neck[f"lateral_{i}"])
-        _conv(sd, f"neck.fpn_convs.{i}.conv", neck[f"fpn_conv_{i}"])
+            _conv(sd, f"{prefix}lateral_convs.{i}.conv", neck[f"lateral_{i}"])
+        _conv(sd, f"{prefix}fpn_convs.{i}.conv", neck[f"fpn_conv_{i}"])
         i += 1
+
+
+def _mask_trunk(sd: dict, trunk: dict, prefix: str) -> None:
+    """`FCNMaskTrunk` params → `{prefix}convs.{i}.conv` and `{prefix}upsample`."""
+    i = 0
+    while f"conv_{i}" in trunk:
+        _conv(sd, f"{prefix}convs.{i}.conv", trunk[f"conv_{i}"])
+        i += 1
+    if "upsample" in trunk:
+        _deconv(sd, prefix + "upsample", trunk["upsample"])
+
+
+def _two_stage(sd: dict, prefix: str, neck: dict, rpn: dict, bbox_trunk: dict,
+               roi_size: int) -> None:
+    """FPN, RPN head and shared-2FC trunk → `{prefix}neck.*`,
+    `{prefix}rpn_head.*`, `{prefix}roi_head.bbox_head.shared_fcs.{0,1}`."""
+    _neck(sd, neck, prefix + "neck.")
+    for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
+        _conv(sd, f"{prefix}rpn_head.{name}", rpn[name])
+    head = prefix + "roi_head.bbox_head."
+    _dense_chw(sd, head + "shared_fcs.0", bbox_trunk["fc1"], roi_size)
+    _dense(sd, head + "shared_fcs.1", bbox_trunk["fc2"])
 
 
 def detector_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
@@ -329,23 +353,38 @@ def detector_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
     params = variables.get("params", variables)
     sd = {"backbone." + k: v
           for k, v in backbone_from_jax(params["backbone"], cfg).items()}
-    _neck(sd, params["neck"])
-    for name in ("rpn_conv", "rpn_cls", "rpn_reg"):
-        _conv(sd, f"rpn_head.{name}", params["rpn_head"][name])
+    _two_stage(sd, "", params["neck"], params["rpn_head"], params["bbox_trunk"], roi_size)
     head = "roi_head.bbox_head."
-    _dense_chw(sd, head + "shared_fcs.0", params["bbox_trunk"]["fc1"], roi_size)
-    _dense(sd, head + "shared_fcs.1", params["bbox_trunk"]["fc2"])
     _dense(sd, head + "fc_cls", params["fc_cls"])
     _dense(sd, head + "fc_reg", params["fc_reg"])
     if "mask_trunk" in params:
-        trunk, head = params["mask_trunk"], "roi_head.mask_head."
-        i = 0
-        while f"conv_{i}" in trunk:
-            _conv(sd, f"{head}convs.{i}.conv", trunk[f"conv_{i}"])
-            i += 1
-        if "upsample" in trunk:
-            _deconv(sd, head + "upsample", trunk["upsample"])
-        _conv(sd, head + "conv_logits", params["conv_logits"])
+        _mask_trunk(sd, params["mask_trunk"], "roi_head.mask_head.")
+        _conv(sd, "roi_head.mask_head.conv_logits", params["conv_logits"])
+    return sd
+
+
+def multitask_from_jax(variables: dict, cfg, roi_size: int = 7) -> StateDict:
+    """JAX `MultiTaskPretrainModel` variables {"params", "batch_stats"} (the
+    encoder unrolled or scanned) → the port's `MultiTaskPretrainModel`
+    state_dict, under the reference model's names (`models/multitask.py`);
+    `cfg` is the encoder's config."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd = {"encoder." + k: v for k, v in backbone_from_jax(params["encoder"], cfg).items()}
+    sd.update({"semsegdecoder.decode_head." + k: v for k, v in upernet_from_jax(
+        params["ss_trunk"], stats["ss_trunk"]).items()})
+    _two_stage(sd, "inssegdecoder.", params["is_neck"], params["is_rpn"],
+               params["is_bbox_trunk"], roi_size)
+    _mask_trunk(sd, params["is_mask_trunk"], "inssegdecoder.roi_head.mask_head.")
+    _two_stage(sd, "rotdetdecoder.", params["rd_neck"], params["rd_rpn"],
+               params["rd_bbox_trunk"], roi_size)
+    d = 0
+    while f"ss_head_{d}" in params:
+        _conv(sd, f"semseghead_{d + 1}.1", params[f"ss_head_{d}"])
+        for task, prefix in (("is", "inssegroiboxhead_fc_"), ("rd", "rotdetroiboxhead_fc_")):
+            _dense(sd, f"{prefix}cls{d + 1}", params[f"{task}_fc_cls_{d}"])
+            _dense(sd, f"{prefix}reg{d + 1}", params[f"{task}_fc_reg_{d}"])
+        _conv(sd, f"inssegroimaskhead_conv{d + 1}", params[f"is_mask_conv_{d}"])
+        d += 1
     return sd
 
 
@@ -433,11 +472,18 @@ def _init_internimage(model: InternImage, generator: torch.Generator) -> None:
             layer.gamma2.fill_(model.cfg.layer_scale)
 
 
+# the detection heads' Linears, plain `nn.Dense` in JAX: a detector's
+# `roi_head.*`, the multitask model's `{insseg,rotdet}decoder.roi_head.*` and
+# its per-dataset `*roiboxhead_fc_*` finals
+_FLAX_DENSE = re.compile(r"(^|\.)roi_head\.|roiboxhead_fc_")
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the JAX modules draw them (not the same
     numbers).  ViT+RVSA and the head: trunc-normal(0.02) on every Dense-like
-    weight (a detector's box head: flax's lecun-normal), the regressors, `pos_embed` and the Swin bias table
+    weight (the detection heads' Linears, `_FLAX_DENSE`: flax's
+    lecun-normal), the regressors, `pos_embed` and the Swin bias table
     (vit_rvsa.py:47-48); zeros on the decomposed rel-pos tables; flax's
     lecun-normal on convolutions; zero biases, except a module's
     `bias_prior` where it names one (RetinaNet's classifier); unit norms;
@@ -450,7 +496,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, mod in model.named_modules():
         if id(mod) in inner:
             continue
-        if isinstance(mod, nn.Linear) and name.startswith("roi_head."):
+        if isinstance(mod, nn.Linear) and _FLAX_DENSE.search(name):
             _lecun(mod.weight, mod.in_features, generator)  # flax's Dense default
         elif isinstance(mod, nn.Linear):
             _trunc_normal(mod.weight, 0.02, generator)

@@ -134,3 +134,18 @@ def backbone_state_dict(sd: dict, cfg, grid: Optional[Tuple[int, int]] = None,
             raise ValueError(f"backbone checkpoint: {k} is {tuple(v.shape)}, the "
                              f"model's {tuple(want[k].shape)}")
     return sd
+
+
+# the reference builds its multitask UPerHead with one class and never runs
+# its conv_seg (the per-dataset `semseghead_*` replace it; mtp_tpu/ckpt/
+# full_convert.py drops it as well)
+UNUSED_MULTITASK_KEYS = ("semsegdecoder.decode_head.conv_seg.weight",
+                         "semsegdecoder.decode_head.conv_seg.bias")
+
+
+def multitask_state_dict(sd: dict) -> StateDict:
+    """A released full MTP pretraining checkpoint's state dict (reference
+    main_pretrain.py:823-829, `load_torch_checkpoint` of its `.pth`) → the
+    port's `MultiTaskPretrainModel` state dict: the same names, less the
+    UPerHead's unused 1-class conv_seg."""
+    return {k: v for k, v in sd.items() if k not in UNUSED_MULTITASK_KEYS}

@@ -393,6 +393,47 @@ def retinanet_intern_xl_416_xview() -> TaskConfig:
     return _det_recipe(_intern_xl(416), layer_decay=0.94, num_classes=60)
 
 
+# SAMRS's class counts with the background: SOTA 18 + 1, SIOR 20 + 1, FAST
+# 37 + 1 (`mtp_tpu/models/multitask.py`; reference main_pretrain.py:150-157
+# with --background True)
+SAMRS_CLASSES = (19, 21, 38)
+
+
+def _mtp_recipe(backbone: BackboneConfig, lr: float = 6e-5,
+                layer_decay: float = 0.9) -> TaskConfig:
+    """The multitask pretraining recipe shape (`mtp_tpu.configs`; reference
+    main_pretrain.py:433-474): task "multitask" (the class counts are
+    SAMRS_CLASSES, not `num_classes`), global batch 24 (3 a GPU × 8),
+    AdamW with weight decay 0.05, the default clipping at 5.0, cosine over
+    80k steps without warm-up."""
+    return TaskConfig(
+        task="multitask", num_classes=0, backbone=backbone,
+        train=TrainConfig(
+            batch_size=24,
+            optimizer=OptimizerConfig(lr=lr, weight_decay=0.05,
+                                      layer_decay=layer_decay),
+            schedule=ScheduleConfig(kind="cosine", total_steps=80000,
+                                    warmup_steps=0)))
+
+
+def mtp_vit_b_rvsa_448_samrs() -> TaskConfig:
+    """The recipe `mtp_vit_b_rvsa_448_samrs`: ViT-B+RVSA at 448², drop-path
+    0.1, AdamW 6e-5, layer decay 0.9."""
+    return _mtp_recipe(vit_b_rvsa(448, drop_path_rate=0.1))
+
+
+def mtp_vit_l_rvsa_448_samrs() -> TaskConfig:
+    """The flagship recipe `mtp_vit_l_rvsa_448_samrs`: ViT-L+RVSA at 448²
+    (the 28² token grid), drop-path 0.1, AdamW 6e-5, layer decay 0.9."""
+    return _mtp_recipe(vit_l_rvsa(448, drop_path_rate=0.1, scan=True))
+
+
+def mtp_internimage_xl_448_samrs() -> TaskConfig:
+    """The recipe `mtp_internimage_xl_448_samrs`: InternImage-XL at 448²
+    with remat, AdamW 2e-5, layer decay 0.94."""
+    return _mtp_recipe(_intern_xl(448), lr=2e-5, layer_decay=0.94)
+
+
 @dataclass(frozen=True)
 class RetinaConfig:
     """RetinaNet's hyper-parameters (`mtp_tpu/models/retinanet.py`; reference

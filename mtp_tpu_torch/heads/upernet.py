@@ -112,13 +112,17 @@ class PSPModule(nn.ModuleList):
 
 class UperNetHead(nn.Module):
     """PSP + top-down FPN fusion to a stride-4 map, then the 1×1 classifier.
-    `in_channels` are the 4 pyramid levels' widths."""
+    `in_channels` are the 4 pyramid levels' widths.  `with_classifier=False`
+    (the multitask model's shared trunk) builds no `conv_seg` and returns
+    the fused `channels`-wide map, before the dropout."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  channels: int = 512, pool_scales: Tuple[int, ...] = (1, 2, 3, 6),
-                 dropout: float = 0.1, align_corners: bool = False):
+                 dropout: float = 0.1, align_corners: bool = False,
+                 with_classifier: bool = True):
         super().__init__()
         self.dropout_ratio, self.align_corners = dropout, align_corners
+        self.with_classifier = with_classifier
         self.psp_modules = PSPModule(in_channels[-1], channels, pool_scales)
         self.bottleneck = ConvModule(in_channels[-1] + len(pool_scales) * channels,
                                      channels, 3)
@@ -127,7 +131,8 @@ class UperNetHead(nn.Module):
         self.fpn_convs = nn.ModuleList(
             ConvModule(channels, channels, 3) for _ in in_channels[:-1])
         self.fpn_bottleneck = ConvModule(len(in_channels) * channels, channels, 3)
-        self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+        if with_classifier:
+            self.conv_seg = nn.Conv2d(channels, num_classes, 1)
 
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False,
                 deterministic: bool = True,
@@ -144,5 +149,7 @@ class UperNetHead(nn.Module):
         h, w = outs[0].shape[1:3]
         outs = [resize_bilinear(o, (h, w), self.align_corners) for o in outs]
         x = self.fpn_bottleneck(torch.cat(outs, -1), train)
+        if not self.with_classifier:
+            return x
         x = dropout(x, self.dropout_ratio, deterministic, generator)
         return self.conv_seg(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -1,6 +1,7 @@
 """Stochastic regularisers of the train step, drawn from explicit
-generators: elementwise dropout (flax `nn.Dropout`) and per-sample drop-path
-(`mtp_tpu/models/vit_rvsa.py` `drop_path`).  Each draws its mask from the
+generators: elementwise dropout (flax `nn.Dropout`), channel dropout
+(Dropout2d) and per-sample drop-path (`mtp_tpu/models/vit_rvsa.py`
+`drop_path`).  Each draws its mask from the
 `torch.Generator` it is given, on the generator's device, and uses it on the
 tensor's: the train state's generator lives on the card with the model, and
 a CPU generator drives a run on the card with the very masks it draws for a
@@ -34,6 +35,18 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     keep = 1.0 - rate
     mask = _uniform(x.shape, generator, x.device) < keep
+    return _keep(x, mask, keep)
+
+
+def dropout2d(x: torch.Tensor, rate: float, deterministic: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout2d of an NHWC map: each sample's channels kept whole with
+    probability 1 − rate, scaled by 1/(1 − rate) (the multitask ss heads'
+    channel mask, `mtp_tpu/models/multitask.py` `ss_logits`)."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _uniform((x.shape[0], 1, 1, x.shape[-1]), generator, x.device) < keep
     return _keep(x, mask, keep)
 
 

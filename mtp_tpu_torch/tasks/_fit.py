@@ -20,7 +20,11 @@ from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_sched
 from mtp_tpu_torch.core.train import TrainState, create_state
 
 
-def _to_device(v, device) -> torch.Tensor:
+def to_device(v, device):
+    """A batch (numpy arrays or tensors, in dicts, which may nest: the
+    multitask batch is {"d0": {...}, "d1": ..., "d2": ...}) on `device`."""
+    if isinstance(v, dict):
+        return {k: to_device(x, device) for k, x in v.items()}
     t = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
     return t.to(device, non_blocking=True)
 
@@ -42,7 +46,7 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
              ckpt=None, ckpt_every: int = 1000,
              encoder_path: Optional[str] = None) -> Tuple[TrainState, dict]:
     """Run `steps` optimizer steps on batches from `data` (dicts of numpy
-    arrays or tensors, moved to `task.device`).
+    arrays or tensors, nested or not, moved to `task.device`).
 
     At step 0, every `log_every`-th step and the last one, `log_fn(i,
     metrics)` gets the step's metrics as floats plus `data_time` (host
@@ -62,7 +66,7 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
     n_since = 0
     for i in range(steps):
         t0 = time.perf_counter()
-        batch = {k: _to_device(v, task.device) for k, v in next(data).items()}
+        batch = to_device(next(data), task.device)
         t_data += time.perf_counter() - t0
         state, metrics = step_fn(state, batch)
         n_since += 1
@@ -84,7 +88,8 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
 
 class Task:
     """A task driver on one device (`device`, the card unless the caller
-    asks for another) for `model`, whose backbone is `model.backbone`.
+    asks for another) for `model`, whose backbone is `model.encoder` (the
+    multitask model) or else `model.backbone`.
 
     Compute precision follows the backbone config's `dtype`, as the JAX
     package's does: "bfloat16" runs the train step and evaluation under
@@ -104,29 +109,36 @@ class Task:
             return torch.autocast(self.device.type, dtype=torch.bfloat16)
         return contextlib.nullcontext()
 
+    @property
+    def backbone_root(self) -> str:
+        """The prefix of the backbone's parameter names."""
+        return "encoder." if hasattr(self.model, "encoder") else "backbone."
+
     def _init_state(self, generator: torch.Generator,
                     pretrained_backbone: Optional[dict] = None,
-                    frozen_backbone: bool = False) -> TrainState:
+                    frozen_backbone: bool = False,
+                    frozen: Tuple[str, ...] = ()) -> TrainState:
         """Random weights from `generator` (a CPU generator: the weights are
         drawn on the CPU, then the model moves to the task's device), an
         optional backbone state_dict on top (`ckpt.torch_convert.
         backbone_state_dict` makes one from a checkpoint), the optimizer
-        (layer decay by the backbone's layer ids; `frozen_backbone`: no
-        update of any `backbone.*` parameter), and the state's own
-        generator on the device, seeded from `generator`."""
-        cfg = self.cfg
+        (layer decay by the backbone's layer ids; no update of the
+        parameters whose names start with one of `frozen`, nor, with
+        `frozen_backbone`, of the backbone's), and the state's own generator
+        on the device, seeded from `generator`."""
+        cfg, root = self.cfg, self.backbone_root
         model = init_weights(self.model.cpu(), generator)
         if pretrained_backbone is not None:
-            model.backbone.load_state_dict(pretrained_backbone)
+            getattr(model, root[:-1]).load_state_dict(pretrained_backbone)
         model.to(self.device)
-        frozen = None
-        if frozen_backbone:
-            frozen = {n: n.startswith("backbone.") for n, _ in model.named_parameters()}
+        frozen = tuple(frozen) + ((root,) if frozen_backbone else ())
+        mask = ({n: n.startswith(frozen) for n, _ in model.named_parameters()}
+                if frozen else None)
         tx = make_optimizer(cfg.train.optimizer,
                             make_schedule(cfg.train.schedule, cfg.train.optimizer.lr),
                             model.named_parameters(), cfg.backbone.depth,
-                            layer_id_fn=layer_id_fn_for(cfg.backbone, root="backbone."),
-                            frozen_mask=frozen)
+                            layer_id_fn=layer_id_fn_for(cfg.backbone, root=root),
+                            frozen_mask=mask)
         seed = int(torch.randint(2 ** 62, (), generator=generator))
         rng = torch.Generator(device=self.device).manual_seed(seed)
         return create_state(model, tx, rng)

@@ -2,8 +2,8 @@
 horizontal (Faster R-CNN, Mask R-CNN) and rotated (Oriented R-CNN) (port of
 `mtp_tpu/tasks/detection.py` `anchors_for`, `anchor_level_sizes`,
 `Detections`, `mask_targets_from_crops`, `_assign_from_ious`,
-`det_loss_core` and `det_predict_core`, for one batch; the concatenated
-multi-dataset form is decided with the multitask slice).
+`det_loss_core`, `det_loss_multi` (several datasets' batches concatenated
+into one pass, with per-dataset final layers) and `det_predict_core`).
 
 batch dict: image (B, H, W, 3); gt_boxes (B, G, 4) x1y1x2y2, or (B, G, 5)
 (cx, cy, w, h, θ) le90 when rotated; gt_labels (B, G) int; gt_valid (B, G)
@@ -16,7 +16,8 @@ device during a step.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,12 @@ FPN_STRIDES = (4, 8, 16, 32, 64)
 BoxFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 # mask_fn(flat_rois, batch_idx) → mask logits (R, num_classes, m, m)
 MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# the concatenated form's: (flat_rois, batch_idx, segs) → one output a
+# segment, segs the (start, end) rows of each
+SegBoxFn = Callable[[torch.Tensor, torch.Tensor, Sequence[Tuple[int, int]]],
+                    List[Tuple[torch.Tensor, torch.Tensor]]]
+SegMaskFn = Callable[[torch.Tensor, torch.Tensor, Sequence[Tuple[int, int]]],
+                     List[torch.Tensor]]
 
 
 def anchors_for(det: Optional[DetConfig], img_hw: Tuple[int, int]) -> np.ndarray:
@@ -109,23 +116,66 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The detection training loss from the RPN's outputs and the box head
     `box_fn`: (total, {loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox,
-    acc}, and loss_mask with a mask head).  The RPN losses are per image,
-    then averaged; proposals carry no gradient; the gts join the proposals
-    (add_gt_as_proposals); the R-CNN samples min(rcnn_num, proposals + gts)
-    RoIs an image.  `anchors` (A, 4), numpy or a tensor; the samplers draw
-    from `generator`.  Rotated: the RPN is assigned on the gts' bounding
-    boxes and regresses the midpoint coder's 6 deltas; the R-CNN assigns by
-    rotated IoU and regresses DeltaXYWHT's 5.  The mask head (`mask_fn`,
-    when `det.with_mask`) runs on each image's first max(1, int(R ·
+    acc}, and loss_mask with a mask head).  `det_loss_multi` with one
+    segment."""
+    total, metrics = det_loss_multi(
+        [det], anchors, img_hw, rpn_out, lambda rois, bidx, segs: [box_fn(rois, bidx)],
+        [batch], generator,
+        None if mask_fn is None else lambda rois, bidx, segs: [mask_fn(rois, bidx)])
+    return total, metrics[0]
+
+
+def _pad_gt_axis1(t: torch.Tensor, G: int) -> torch.Tensor:
+    if t.shape[1] == G:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], G - t.shape[1]) + t.shape[2:])], 1)
+
+
+def det_loss_multi(dets: Sequence[DetConfig], anchors, img_hw: Tuple[int, int],
+                   rpn_out: RPNOut, box_fn: SegBoxFn,
+                   batches: Sequence[Dict[str, torch.Tensor]],
+                   generator: torch.Generator, mask_fn: Optional[SegMaskFn] = None
+                   ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+    """The detection loss of several datasets' batches (segments) over one
+    concatenated batch: `rpn_out` holds the concatenated images' RPN outputs;
+    the assigners, samplers, proposals, RoIAlign and the RoI trunks run once
+    over all of them (no layer couples samples), and only each segment's
+    final layers (`box_fn` / `mask_fn` return one output a segment, on its
+    rows [s, e)) and loss reductions are per segment.  The segments' configs
+    may differ only in num_classes.  Returns (total, [metrics a segment]).
+
+    The RPN losses are per image, then averaged over the segment's images;
+    proposals carry no gradient; the gts (padded to the largest G) join the
+    proposals (add_gt_as_proposals); the R-CNN samples min(rcnn_num,
+    proposals + gts) RoIs an image.  `anchors` (A, 4), numpy or a tensor;
+    the samplers draw from `generator`.  Rotated: the RPN is assigned on the
+    gts' bounding boxes and regresses the midpoint coder's 6 deltas; the
+    R-CNN assigns by rotated IoU and regresses DeltaXYWHT's 5.  The mask
+    head (when `det.with_mask`) runs on each image's first max(1, int(R ·
     rcnn_pos_fraction)) samples, which hold every positive (the sampler
-    packs them first): targets from `gt_mask_crops` (horizontal) or by
-    RoIAlign of `gt_masks` at scale 1/4."""
+    packs them first): targets from `gt_mask_crops` (horizontal, every
+    segment having them) or by RoIAlign of `gt_masks` at scale 1/4."""
+    det = dets[0]
+    for other in dets[1:]:
+        if dataclasses.replace(other, num_classes=det.num_classes) != det:
+            raise ValueError(f"det_loss_multi segments may differ only in num_classes; "
+                             f"got {other} vs {det}")
     H, W = img_hw
     scores = rpn_out.cls_scores
     B, dev = scores.shape[0], scores.device
+    offs = np.cumsum([0] + [b["image"].shape[0] if "image" in b else b["gt_valid"].shape[0]
+                            for b in batches])
+    if offs[-1] != B:
+        raise ValueError(f"segments of {offs[-1]} images for {B} RPN outputs")
+    G = max(b["gt_boxes"].shape[1] for b in batches)
+
+    def cat(key: str) -> torch.Tensor:
+        parts = [_pad_gt_axis1(b[key], G) for b in batches]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
     A = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
-    gt_boxes, gt_valid = at_least_fp32(batch["gt_boxes"]), batch["gt_valid"].bool()
-    gt_labels = batch["gt_labels"].long()
+    gt_boxes, gt_valid = at_least_fp32(cat("gt_boxes")), cat("gt_valid").bool()
+    gt_labels = cat("gt_labels").long()
 
     # ---------------- RPN ----------------
     gt_hbox = rbox_to_hbox(gt_boxes) if det.rotated else gt_boxes
@@ -134,8 +184,9 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
     sample = random_sample(assign, generator, det.rpn_num, det.rpn_pos_fraction)
     encode = midpoint_encode if det.rotated else delta_encode
     tgt = encode(A[sample.inds], _take(gt_boxes, sample.gt_inds))
-    metrics = {k: v.mean() for k, v in rpn_loss(rpn_out, sample, tgt,
-                                                det.rpn_smooth_l1_beta).items()}
+    rpn = rpn_loss(rpn_out, sample, tgt, det.rpn_smooth_l1_beta)
+    bounds = list(zip(offs[:-1].tolist(), offs[1:].tolist()))
+    metrics = [{k: v[s:e].mean() for k, v in rpn.items()} for s, e in bounds]
 
     # ---------------- proposals (no gradient) ----------------
     props, prop_scores = gen_proposals(
@@ -160,30 +211,36 @@ def det_loss_core(det: DetConfig, anchors, img_hw: Tuple[int, int],
 
     flat = lambda t: t.reshape(B * R, *t.shape[2:])
     batch_idx = torch.arange(B, device=dev).repeat_interleave(R)
-    cls_logits, reg_pred = box_fn(flat(rois), batch_idx)
-    metrics.update(bbox_head_loss(
-        cls_logits, reg_pred, type(sample)(*map(flat, sample)), flat(tgt),
-        det.num_classes, det.reg_class_agnostic, det.rcnn_smooth_l1_beta))
+    segs = [(s * R, e * R) for s, e in bounds]
+    flat_sample, flat_tgt = type(sample)(*map(flat, sample)), flat(tgt)
+    for d, ((s, e), (cls_logits, reg_pred)) in enumerate(
+            zip(segs, box_fn(flat(rois), batch_idx, segs))):
+        metrics[d].update(bbox_head_loss(
+            cls_logits, reg_pred, type(sample)(*(t[s:e] for t in flat_sample)),
+            flat_tgt[s:e], dets[d].num_classes, det.reg_class_agnostic,
+            det.rcnn_smooth_l1_beta))
 
     if det.with_mask and mask_fn is not None:
         P_m = max(1, int(R * det.rcnn_pos_fraction))
         m_sample = type(sample)(*(t[:, :P_m].reshape(B * P_m) for t in sample))
         m_rois = rois[:, :P_m].reshape(B * P_m, rois.shape[-1])
         m_bidx = torch.arange(B, device=dev).repeat_interleave(P_m)
-        mask_logits = mask_fn(m_rois, m_bidx)
-        G = gt_boxes.shape[1]
+        m_segs = [(s * P_m, e * P_m) for s, e in bounds]
+        mask_logits = mask_fn(m_rois, m_bidx, m_segs)
         flat_gt = m_sample.gt_inds + m_bidx * G
-        if not det.rotated and "gt_mask_crops" in batch:
-            tgt = mask_targets_from_crops(batch["gt_mask_crops"], gt_boxes, m_rois,
+        if not det.rotated and all("gt_mask_crops" in b for b in batches):
+            tgt = mask_targets_from_crops(cat("gt_mask_crops"), gt_boxes, m_rois,
                                           flat_gt, det.mask_size)
         else:
             # JAX's single-level roi_align (rotated: clockwise) at scale 1/4
-            gm = at_least_fp32(batch["gt_masks"])
+            gm = at_least_fp32(cat("gt_masks"))
             imgs = gm.reshape(B * G, 1, gm.shape[2], gm.shape[3])
             tgt = multilevel_roi_align_fused([imgs], m_rois, flat_gt, det.mask_size, (4,),
                                              rotated=det.rotated)[:, 0]
-        metrics.update(mask_head_loss(mask_logits, tgt, m_sample))
-    total = sum(v for k, v in metrics.items() if k.startswith("loss"))
+        for d, ((s, e), logits) in enumerate(zip(m_segs, mask_logits)):
+            metrics[d].update(mask_head_loss(
+                logits, tgt[s:e], type(m_sample)(*(t[s:e] for t in m_sample))))
+    total = sum(v for m in metrics for k, v in m.items() if k.startswith("loss"))
     return total, metrics
 
 

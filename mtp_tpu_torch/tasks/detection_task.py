@@ -53,6 +53,47 @@ def build_detector(head: str, backbone_cfg, det, input_hw: Tuple[int, int]) -> n
     return model(backbone_cfg, det, input_hw=input_hw)
 
 
+def host_detections(dets: Detections, batch: dict, masks: bool = False) -> dict:
+    """A batch's Detections on the host (fp32 numpy), one copy a field:
+    "boxes", "scores", "labels", "valid" and, with `masks` when the model
+    gave mask logits and the batch has gt masks ("gt_mask_crops" or
+    "gt_masks"), "mask_logits"."""
+    host = lambda t: t.float().cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+    out = dict(zip(("boxes", "scores", "labels", "valid"), map(host, dets[:4])))
+    if masks and dets.mask_logits is not None and \
+            ("gt_masks" in batch or "gt_mask_crops" in batch):
+        out["mask_logits"] = host(dets.mask_logits)
+    return out
+
+
+def image_record(dets: dict, i: int, batch: dict, hw: Tuple[int, int],
+                 gt_prefix: str = "") -> dict:
+    """Image i's record for the evaluators: its valid detections (from
+    `host_detections`) and its valid gts (batch[gt_prefix + "gt_boxes"],
+    ...); with mask logits, each detection's mask probabilities (sigmoid)
+    pasted into the image at 0.5 (`paste_masks`) and the gt masks: the gt
+    crops pasted back, or the stride-s masks repeated up to the image."""
+    H, W = hw
+    v = dets["valid"][i]
+    gv = np.asarray(batch[gt_prefix + "gt_valid"][i]).astype(bool)
+    rec = {"det_boxes": dets["boxes"][i][v], "det_scores": dets["scores"][i][v],
+           "det_labels": dets["labels"][i][v],
+           "gt_boxes": np.asarray(batch[gt_prefix + "gt_boxes"][i])[gv],
+           "gt_labels": np.asarray(batch[gt_prefix + "gt_labels"][i])[gv]}
+    if "mask_logits" in dets:
+        probs = 1.0 / (1.0 + np.exp(-dets["mask_logits"][i][v]))
+        rec["det_masks"] = paste_masks(probs, rec["det_boxes"], H, W)
+        if "gt_mask_crops" in batch:
+            gm = paste_masks(np.asarray(batch["gt_mask_crops"][i])[gv], rec["gt_boxes"], H, W)
+        else:
+            gm = np.asarray(batch["gt_masks"][i])[gv]
+            if gm.ndim == 3 and gm.shape[1:] != (H, W):
+                ry, rx = H // gm.shape[1], W // gm.shape[2]
+                gm = np.repeat(np.repeat(gm, ry, 1), rx, 2)
+        rec["gt_masks"] = (gm > 0.5).astype(np.uint8)
+    return rec
+
+
 class DetectionTask(Task):
     """head: "faster_rcnn" (DetConfig's defaults), "mask_rcnn" (with_mask),
     "oriented_rcnn" (`oriented_rcnn_cfg`) or "retinanet" (RetinaConfig).
@@ -156,39 +197,14 @@ class DetectionTask(Task):
         masks repeated up to the image."""
         self._check_state(state)
         predict = self.predict_fn()
-        with_mask = coco and self.head == "mask_rcnn"
         per_image = []
         for batch in data:
             images = torch.as_tensor(batch["image"]).to(self.device)
-            H, W = images.shape[1:3]
             with self.autocast():
-                dets = predict(images)
-            host = lambda t: t.float().cpu().numpy() if t.is_floating_point() \
-                else t.cpu().numpy()
-            boxes, scores, labels, valid = map(host, dets[:4])
-            masks = with_mask and dets.mask_logits is not None and \
-                ("gt_masks" in batch or "gt_mask_crops" in batch)
-            logits = host(dets.mask_logits) if masks else None
-            for i in range(images.shape[0]):
-                v = valid[i]
-                gv = np.asarray(batch["gt_valid"][i]).astype(bool)
-                rec = {"det_boxes": boxes[i][v], "det_scores": scores[i][v],
-                       "det_labels": labels[i][v],
-                       "gt_boxes": np.asarray(batch["gt_boxes"][i])[gv],
-                       "gt_labels": np.asarray(batch["gt_labels"][i])[gv]}
-                if masks:
-                    probs = 1.0 / (1.0 + np.exp(-logits[i][v]))
-                    rec["det_masks"] = paste_masks(probs, rec["det_boxes"], H, W)
-                    if "gt_mask_crops" in batch:
-                        gm = paste_masks(np.asarray(batch["gt_mask_crops"][i])[gv],
-                                         rec["gt_boxes"], H, W)
-                    else:
-                        gm = np.asarray(batch["gt_masks"][i])[gv]
-                        if gm.ndim == 3 and gm.shape[1:] != (H, W):
-                            ry, rx = H // gm.shape[1], W // gm.shape[2]
-                            gm = np.repeat(np.repeat(gm, ry, 1), rx, 2)
-                    rec["gt_masks"] = (gm > 0.5).astype(np.uint8)
-                per_image.append(rec)
+                dets = host_detections(predict(images), batch,
+                                       coco and self.head == "mask_rcnn")
+            per_image += [image_record(dets, i, batch, tuple(images.shape[1:3]))
+                          for i in range(images.shape[0])]
         if coco and not self.rotated:
             return evaluate_coco_bbox_segm(per_image, self.cfg.num_classes)
         return eval_map(per_image, self.cfg.num_classes, iou_thr, rotated=self.rotated)

@@ -65,6 +65,8 @@ SLICE_MODULES = [
     "mtp_tpu_torch.eval.masks",
     "mtp_tpu_torch.eval.coco_eval",
     "mtp_tpu_torch.models.retinanet",
+    "mtp_tpu_torch.models.multitask",
+    "mtp_tpu_torch.tasks.multitask",
     "chip_smoke",
 ]
 
@@ -180,6 +182,22 @@ def test_config_copies_match_the_jax_package():
     with pytest.raises(NotImplementedError, match="one device"):
         pc.check_single_device(pc.MeshConfig(data=4))
     pc.check_single_device(pc.MeshConfig(data=1, model=-1))
+
+
+@pytest.mark.parametrize("factory", ["mtp_vit_b_rvsa_448_samrs", "mtp_vit_l_rvsa_448_samrs",
+                                     "mtp_internimage_xl_448_samrs"])
+def test_multitask_recipes_match_the_jax_package(factory):
+    """The multitask pretraining recipes field for field, and the SAMRS
+    class counts."""
+    import dataclasses
+
+    from mtp_tpu import configs as jrecipes
+    from mtp_tpu.models.multitask import SAMRS_CLASSES
+    from mtp_tpu_torch import config as pc
+
+    assert dataclasses.asdict(getattr(pc, factory)()) == \
+        dataclasses.asdict(jrecipes.get(factory).task)
+    assert pc.SAMRS_CLASSES == SAMRS_CLASSES
 
 
 def test_build_without_nvcc_raises_naming_it(monkeypatch, tmp_path):

@@ -39,7 +39,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from mtp_tpu_torch.ops import dcnv3 as dcnv3_mod  # noqa: E402
-from mtp_tpu_torch.tasks._fit import _to_device  # noqa: E402
+from mtp_tpu_torch.tasks._fit import to_device  # noqa: E402
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask  # noqa: E402
 
 # kernel name → group, first match wins
@@ -98,7 +98,7 @@ def main() -> None:
     recipe = path.recipe
     crop = recipe.backbone.img_size
     state = task.init_state(torch.Generator().manual_seed(0))
-    batch = {k: _to_device(v, task.device) for k, v in host_batch.items()}
+    batch = to_device(host_batch, task.device)
     step = task.train_step_fn()
     for _ in range(3):
         state, m = step(state, batch)
