@@ -85,7 +85,12 @@ Phases; any failure raises, so the exit code is non-zero:
    to back and as device time, beside its plain version and its bound;
    also timed at phase 23's RPN (B = 1, N = 6,735 at 448²), phase 21's
    (B = 2, N = 8,768 at 1024²) and the predicts of phases 21 and 22 (1,000
-   candidates of 80 and of 60 classes).
+   candidates of 80 and of 60 classes).  At each timed shape the two halves
+   are held on their own: the mask kernel's words equal `nms_mask_ref`'s
+   bit for bit, and the scan's keep mask equals `nms_scan_ref`'s from the
+   kernel's own words, with a control (the bit by which a kept row alone
+   removes a box of a later tile, cleared, must make the check fail); the
+   time is split into the mask kernel and the scan (torch.profiler).
 3g. R1, rotated IoU (csrc/rotated_iou.cu), against its plain version
    `rbox_overlaps_ref` on the card in fp32 and float64 (R1_TOL), over the
    pairs of boxes of non-zero area: the edge cases (identical boxes, one
@@ -101,7 +106,12 @@ Phases; any failure raises, so the exit code is non-zero:
    IoUs × 0.9 must fail, and the mask form at 0.09 must keep other boxes;
    a built case whose every same-class pair lies ≥ 1e-3 from its
    threshold keeps, index for index, what `nms_ref` keeps on the card and
-   the CPU; times of both forms, their plain versions and bounds.
+   the CPU; the pairs R1's early exit takes (`rbox_apart`, the kernel's
+   test) counted at every dense case, their float64 plain IoU and the
+   kernel's all exactly 0; the mask form's scan held to `nms_scan_ref` on
+   its own words, with the control of phase 3e; times of both forms, their
+   plain versions and bounds (the work the early exit leaves, beside the
+   count without it), the mask form split into its kernel and the scan.
 3f. K1-K6 and K8 at the 800² detection paths' shapes (batch 2: K1/K4 over
    128 windows of 49 tokens, K2/K5 over 32 heads of the 50×50 grid,
    K3/K6 over 32 maps of 56², K8 at XL's 200² stage 0 and 25² stage 3),
@@ -1382,6 +1392,92 @@ def nms_near_threshold(boxes_o: torch.Tensor, thr: float) -> Tuple[int, list]:
     return count, pairs
 
 
+def launch_keep(launcher: str, boxes_o: torch.Tensor, scores_o: torch.Tensor,
+                thr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The suppression words (B, N, ⌈N/64⌉), zeroed before the launch, and
+    the keep mask of N1 (`mtp_nms`) or R1's mask form (`mtp_nms_rotated`)
+    launched directly: the wrapper keeps its mask to itself.  Not counted: a
+    check, not the main path."""
+    B, N, _ = boxes_o.shape
+    scratch, lists_at, keep = pnms.keep_scratch(B, N, boxes_o.device)
+    words = (N + pnms.NMS_TILE - 1) // pnms.NMS_TILE
+    mask = scratch[:B * N * words].view(B, N, words)
+    mask.zero_()
+    at = scratch.data_ptr()
+    _build.launch(launcher, boxes_o.data_ptr(), scores_o.data_ptr(), at, at + 8 * lists_at,
+                  keep.data_ptr(), B, N, float(thr), _build.dtype_code(boxes_o))
+    torch.cuda.synchronize()
+    return mask, keep
+
+
+def unpack_words(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., W) int64 suppression words → (..., n) bool bits."""
+    shifts = torch.arange(64, device=words.device)
+    return ((words[..., None] >> shifts) & 1).bool().flatten(-2)[..., :n]
+
+
+def check_scan(label: str, mask: torch.Tensor, keep: torch.Tensor,
+               scores_o: torch.Tensor) -> None:
+    """The scan on its own, apart from IoU rounding: the keep mask a launch
+    wrote equals `nms_scan_ref`'s from the words the same launch wrote.
+    Control: the bit by which a kept row alone removes a row of a later
+    tile, cleared, must give another keep mask, and the check must then
+    fail."""
+    want = pnms.nms_scan_ref(mask, scores_o)
+    if not torch.equal(keep, want):
+        raise AssertionError(f"scan {label}: the keep mask differs from nms_scan_ref's on the "
+                             f"kernel's own words at {int((keep != want).sum())} boxes")
+    N = mask.shape[1]
+    col = torch.arange(N, device=mask.device)
+    for b in range(mask.shape[0]):
+        rows = keep[b].nonzero()[:, 0]
+        if not len(rows):
+            continue
+        by_kept = unpack_words(mask[b, rows], N)                      # (kept, N)
+        first = rows[by_kept.int().argmax(0)]                         # a kept suppressor of each box
+        sole = ((by_kept.sum(0) == 1) & ~keep[b]
+                & (first // pnms.NMS_TILE < col // pnms.NMS_TILE)).nonzero()[:, 0]
+        if len(sole):
+            break
+    else:
+        raise AssertionError(f"scan {label}: no box removed by one kept row of an earlier "
+                             f"tile alone, no control")
+    j = int(sole[0])
+    i, w = int(first[j]), j // pnms.NMS_TILE
+    cleared = mask.clone()
+    cleared[b, i, w] &= ~(torch.ones((), dtype=torch.int64, device=mask.device)
+                          << (j % pnms.NMS_TILE))
+    other = pnms.nms_scan_ref(cleared, scores_o)
+    if torch.equal(keep, other):
+        raise AssertionError(f"scan {label}: the control (bit {j} of row {i} cleared) passed")
+    log(f"[nms] scan {label}: the kernel's keep mask equals nms_scan_ref's on its own words "
+        f"({int(keep.sum())} kept); control, image {b}: the bit by which kept row {i} alone "
+        f"removes row {j} (tile {w}) cleared -> rejected ({int((other != keep).sum())} "
+        f"decisions differ)")
+
+
+def kernel_split_ms(fn, reps: int = 10, tries: int = 3) -> Dict[str, float]:
+    """Device ms a call of each kernel group that fn launches (torch.profiler,
+    the card's activity, over `reps` calls after one), as phases 19-23 read
+    them (`kernel_group`); a window in which the profiler saw no kernel is
+    taken again, up to `tries` times."""
+    fn()
+    torch.cuda.synchronize()
+    cuda, out = torch.autograd.DeviceType.CUDA, {}
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == cuda and not getattr(e, "is_user_annotation", False):
+                group = kernel_group(e.name)
+                out[group] = out.get(group, 0.0) + e.device_time_total / 1e3 / reps
+        if out:
+            break
+    return out
+
+
 def nms_case(label: str, boxes, scores, thr: float, max_out: int, labels=None,
              control: bool = False, timed: bool = False) -> Optional[dict]:
     """N1 through `nms_batched` (or `batched_nms` with labels) on the card
@@ -1433,8 +1529,19 @@ def nms_case(label: str, boxes, scores, thr: float, max_out: int, labels=None,
     keep = pnms.nms_keep(boxes_o, scores_o, thr)
     if not torch.equal(keep, keep_ref):
         raise AssertionError(f"N1 {label}: the keep mask differs from nms_keep_ref")
+    # the two halves on their own: the mask words bit for bit, then the scan
+    mask_k, keep_k = launch_keep("mtp_nms", boxes_o, scores_o, thr)
+    mask_ref = pnms.nms_mask_ref(boxes_o, thr)
+    if not torch.equal(mask_k, mask_ref):
+        raise AssertionError(f"N1 {label}: {int((mask_k != mask_ref).sum())} mask words differ "
+                             f"from nms_mask_ref's")
+    log(f"[nms] mask {label}: {mask_k.numel()} words equal to nms_mask_ref's bit for bit "
+        f"({int(unpack_words(mask_k, mask_k.shape[1]).sum())} bits set)")
+    check_scan(f"N1 {label}", mask_k, keep_k, scores_o)
+    del mask_k, mask_ref
     ms = loop_ms(lambda: pnms.nms_keep(boxes_o, scores_o, thr))
     dev = graph_ms(lambda: pnms.nms_keep(boxes_o, scores_o, thr))
+    split = kernel_split_ms(lambda: pnms.nms_keep(boxes_o, scores_o, thr))
     plain_ms = loop_ms(lambda: pnms.nms_keep_ref(boxes_o, valid, thr), reps=3, warmup=1)
     whole = loop_ms(lambda: run(thr))
     B, N = scores_o.shape
@@ -1451,7 +1558,8 @@ def nms_case(label: str, boxes, scores, thr: float, max_out: int, labels=None,
         f"absent)  bound {bound_ms:.4f} ms by {bound_by} ({pairs_needed} pairs with a "
         f"kept first box, {flops / 1e9:.4f} GFLOP fp32, {nbytes / 1e6:.3f} MB); "
         f"{'batched_nms' if labels is not None else 'nms_batched'} whole (sort, N1, "
-        f"top {max_out}) {whole:.4f} ms")
+        f"top {max_out}) {whole:.4f} ms; split (torch.profiler, device ms a call): mask "
+        f"{split.get('N1 mask', 0.0):.4f}, scan {split.get('NMS scan (N1, R1)', 0.0):.4f}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1566,20 +1674,31 @@ def phase_path_kernels() -> None:
 # R1's bound: the fp32 operations that rotated IoU needs, counted from
 # csrc/rotated_iou.cu's body (sincosf and atan2f as ~20 each), with what
 # belongs to one box counted once a box, not once a pair as the kernel
-# does it (`r1_ops`):
+# does it (`r1_ops`).  With the early exit, what this run's boxes need:
 # - a box, 81: the sincos (20), the half sides (4), the corners (32), the
-#   winding (17) and the 4 edge vectors (8);
-# - a pair, 309: the 16 crossings (19 each: r×s 3, the offset 2, the guard
-#   1, t and u 4 each with its division, the 5 range tests) and the IoU (5);
-#   the kernel's translation to a's centre is for rounding and not counted;
-# - an edge test, 6 (two offsets, two products, a difference, a compare),
-#   as many as the body runs: each of a pair's 8 corners is tested against
-#   the other box's edges up to the first that puts it outside, 1 to 4
-#   (`r1_edge_tests`, from this run's boxes);
+#   winding (17) and the 4 edge vectors (8); and for the exit, 10: its
+#   half-diagonal (two squares, a sum, the square root as ~4, the half)
+#   and the two positive-side tests;
+# - every pair, its separation test, 15: dx and dy (2), |dx| + |dy| (3),
+#   the two reaches' sum (1), the margin (3), dx² + dy² (3), the gap's
+#   square (1), the compare and the positive-area test (2);
+# - a pair the test lets through (`rbox_apart` false), 309: the 16
+#   crossings (19 each: r×s 3, the offset 2, the guard 1, t and u 4 each
+#   with its division, the 5 range tests) and the IoU (5); the kernel's
+#   translation to a's centre is for rounding and not counted;
+# - an edge test of such a pair, 6 (two offsets, two products, a
+#   difference, a compare), as many as the body runs: each of a pair's 8
+#   corners is tested against the other box's edges up to the first that
+#   puts it outside, 1 to 4 (`r1_edge_tests`, from this run's boxes);
 # - a pair whose polygon has 3 candidates or more, ~260 at the usual 8
 #   vertices: its crossing points, the centroid, the atan2s, the sort and
 #   the shoelace.
+# Without the early exit every pair is charged the 309 and its edge tests,
+# and a box no half-diagonal: `r1_ops`' second count, the bound that
+# readings of the kernel without the exit were held to, printed beside the
+# new one.
 R1_OPS_BOX, R1_OPS_PAIR, R1_OPS_EDGE, R1_OPS_POLYGON = 81, 309, 6, 260
+R1_OPS_REACH, R1_OPS_APART = 10, 15
 # pairs of one chunk of `r1_edge_tests` (float64 crosses, ~128 bytes a pair)
 R1_EDGE_CHUNK = 1 << 20
 # R1 against its plain version: |kernel − plain| at most R1_TOL[dtype of
@@ -1637,18 +1756,21 @@ def _edge_tests(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.where(out.any(-1), out.int().argmax(-1) + 1, 4).sum(-1)
 
 
-def r1_edge_tests(a: torch.Tensor, b: torch.Tensor, upper: bool) -> int:
+def r1_edge_tests(a: torch.Tensor, b: torch.Tensor, upper: bool,
+                  through: torch.Tensor) -> Tuple[int, int]:
     """The inside tests' edge tests R1's body runs over the pairs of a
     (B, N, 5) × b (B, M, 5), both ways (a's corners in b, b's in a), in
     float64 on each pair translated to a's centre, as the kernel does;
-    `upper`: only pairs j > i (the mask form, b = a)."""
+    `upper`: only pairs j > i (the mask form, b = a).  (over every pair,
+    over the pairs `through` (B, N, M) marks: those the early exit lets
+    through)."""
     B, N, M = a.shape[0], a.shape[1], b.shape[1]
     a, b = a.double(), b.double()
     ca = prb._ccw(prb.rbox_to_corners(torch.cat([torch.zeros_like(a[..., :2]),
                                                  a[..., 2:]], -1)))      # (B, N, 4, 2)
     j = torch.arange(M, device=a.device)
     rows = max(1, R1_EDGE_CHUNK // (B * M))
-    total = 0
+    total, total_through = 0, 0
     for r0 in range(0, N, rows):
         r1 = min(N, r0 + rows)
         rel = b[:, None, :, :2] - a[:, r0:r1, None, :2]                  # (B, n, M, 2)
@@ -1659,19 +1781,31 @@ def r1_edge_tests(a: torch.Tensor, b: torch.Tensor, upper: bool) -> int:
         if upper:
             tests = tests * (j[None, :] > torch.arange(r0, r1, device=a.device)[:, None])
         total += int(tests.sum())
-    return total
+        total_through += int((tests * through[:, r0:r1]).sum())
+    return total, total_through
 
 
-def r1_ops(a: torch.Tensor, b: torch.Tensor, ious: torch.Tensor, upper: bool) -> float:
+def r1_ops(a: torch.Tensor, b: torch.Tensor, ious: torch.Tensor,
+           upper: bool) -> Tuple[float, float, int]:
     """The fp32 operations of rotated IoU over the pairs of a (B, N, 5) ×
-    b (B, M, 5) (`upper`: b is a, pairs j > i): each box once, each pair,
-    the edge tests the body runs, and a polygon for each pair with IoU > 0
-    (`ious`, of the pairs that count)."""
+    b (B, M, 5) (`upper`: b is a, pairs j > i): each box once, each pair's
+    separation test, the crossings and edge tests of the pairs it lets
+    through, and a polygon for each pair with IoU > 0 (`ious`, of the pairs
+    that count).  (those operations, the count before the early exit, which
+    charged every pair the crossings and its edge tests, the pairs the exit
+    takes)."""
     B, N, M = a.shape[0], a.shape[1], b.shape[1]
     boxes, pairs = (B * N, B * N * (N - 1) // 2) if upper else (B * (N + M), B * N * M)
-    return (R1_OPS_BOX * boxes + R1_OPS_PAIR * pairs
-            + R1_OPS_EDGE * r1_edge_tests(a, b, upper)
-            + R1_OPS_POLYGON * int((ious > 0).sum()))
+    polygons = R1_OPS_POLYGON * int((ious > 0).sum())
+    through = ~prb.rbox_apart(a, b)
+    if upper:
+        through &= torch.ones(N, N, dtype=torch.bool, device=a.device).triu(1)
+    n_through = int(through.sum())
+    tests, tests_through = r1_edge_tests(a, b, upper, through)
+    return ((R1_OPS_BOX + R1_OPS_REACH) * boxes + R1_OPS_APART * pairs
+            + R1_OPS_PAIR * n_through + R1_OPS_EDGE * tests_through + polygons,
+            R1_OPS_BOX * boxes + R1_OPS_PAIR * pairs + R1_OPS_EDGE * tests + polygons,
+            pairs - n_through)
 
 
 def r1_bound(flops: float, nbytes: int) -> Tuple[float, str]:
@@ -1706,13 +1840,22 @@ def r1_dense_check(label: str, a: torch.Tensor, b: torch.Tensor,
         errs[dtype] = ((got.double() - ref.double()) * real).abs().max().item()
     ref64 = ref * real
     ok = all(errs[d] <= R1_TOL[d] for d in errs)
+    # the early exit's pairs (rbox_apart, the kernel's test operation for
+    # operation): their float64 plain IoU and the kernel's must be 0 exactly
+    apart = prb.rbox_apart(a, b)
+    n_apart = int(apart.sum())
+    apart_ok = not (ref[apart] != 0).any() and not (got[apart] != 0).any()
     log(f"[rotated] R1 dense {label}: {tuple(got.shape)}, {int(real.sum())} pairs of boxes "
         f"of non-zero area, {int((ref64 > 0).sum())} of them overlapping; max |kernel − "
         f"plain| fp32 {errs[torch.float32]:.3e} (tol "
         f"{R1_TOL[torch.float32]}), float64 {errs[torch.float64]:.3e} (tol "
-        f"{R1_TOL[torch.float64]})")
+        f"{R1_TOL[torch.float64]}); {n_apart} pairs taken by the early exit "
+        f"({n_apart / got.numel():.4f} of all), their float64 plain IoU and the kernel's all "
+        f"0: {apart_ok}")
     if not ok:
         raise AssertionError(f"R1 {label} disagrees with its plain version: {errs}")
+    if not apart_ok:
+        raise AssertionError(f"R1 {label}: a pair the early exit takes has IoU > 0")
     if controls:
         ref32 = prb.rbox_overlaps_ref(a, b)
         ctrl = ((got * CONTROL_SCALE - ref32) * real).abs().max().item()
@@ -1743,21 +1886,15 @@ def r1_edge_cases() -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.tensor([a]), torch.tensor([b])
 
 
-def r1_mask_bits(boxes_o: torch.Tensor, scores_o: torch.Tensor, thr: float) -> torch.Tensor:
+def r1_mask_bits(boxes_o: torch.Tensor, scores_o: torch.Tensor,
+                 thr: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """R1's suppression bitmask (B, N, N) bools, bit (i, j) for j > i, from
-    the mask form launched directly (its wrapper keeps the mask to itself;
-    not counted: a check, not the main path)."""
-    B, N, _ = boxes_o.shape
-    words = (N + pnms.NMS_TILE - 1) // pnms.NMS_TILE
-    mask = torch.zeros(B, N, words, dtype=torch.int64, device=boxes_o.device)
-    keep = torch.empty(B, N, dtype=torch.bool, device=boxes_o.device)
-    _build.launch("mtp_nms_rotated", boxes_o.data_ptr(), scores_o.data_ptr(),
-                  mask.data_ptr(), keep.data_ptr(), B, N, float(thr),
-                  _build.dtype_code(boxes_o))
-    shifts = torch.arange(64, device=mask.device)
-    bits = ((mask[..., None] >> shifts) & 1).bool().reshape(B, N, words * 64)[..., :N]
+    the mask form launched directly (`launch_keep`), with the words and the
+    keep mask of that launch."""
+    mask, keep = launch_keep("mtp_nms_rotated", boxes_o, scores_o, thr)
+    N = boxes_o.shape[1]
     j = torch.arange(N, device=mask.device)
-    return bits & (j[None, :] > j[:, None])
+    return unpack_words(mask, N) & (j[None, :] > j[:, None]), mask, keep
 
 
 def phase_rotated_iou_kernel() -> dict:
@@ -1786,14 +1923,16 @@ def phase_rotated_iou_kernel() -> dict:
     dense_dev = graph_ms(lambda: prb.rbox_overlaps(ga, pa))
     dense_plain = loop_ms(lambda: prb.rbox_overlaps_ref(ga, pa), reps=3, warmup=1)
     pairs = ga.shape[1] * pa.shape[1]
-    flops = r1_ops(ga, pa, ref64, upper=False)
+    flops, old_flops, exits = r1_ops(ga, pa, ref64, upper=False)
     nbytes = (ga.numel() + pa.numel()) * 4 + pairs * 4
     dense_bound, dense_by = r1_bound(flops, nbytes)
+    old_bound, old_by = r1_bound(old_flops, nbytes)
     log(f"[kernel] rbox_iou assigner: kernel {dense_ms:.4f} ms (CUDA graph: {dense_dev:.4f} "
         f"ms of device time a call)  plain (rbox_overlaps_ref on the card) "
         f"{dense_plain:.4f} ms  library none  bound {dense_bound:.4f} ms by {dense_by} "
-        f"({pairs} pairs, {int((ref64 > 0).sum())} overlapping, {flops / 1e9:.4f} GFLOP "
-        f"fp32, {nbytes / 1e6:.3f} MB)")
+        f"({pairs} pairs, {exits} taken by the early exit, {int((ref64 > 0).sum())} "
+        f"overlapping, {flops / 1e9:.4f} GFLOP fp32, {nbytes / 1e6:.3f} MB; counted "
+        f"without the exit: {old_bound:.4f} ms by {old_by}, {old_flops / 1e9:.4f} GFLOP)")
 
     # the predict: 2 × 2,000 candidates of 20 classes, shifted by class
     B = 2
@@ -1808,7 +1947,9 @@ def phase_rotated_iou_kernel() -> dict:
     tol = R1_TOL[torch.float32]
     upper = torch.ones(ROT_CAND, ROT_CAND, dtype=torch.bool, device=boxes_o.device).triu(1)
     near = ((ref64 - ROT_THR).abs() <= tol) & upper
-    bits = r1_mask_bits(boxes_o, scores_o, ROT_THR)
+    bits, words, keep_k = r1_mask_bits(boxes_o, scores_o, ROT_THR)
+    check_scan(f"R1 predict {B}x{ROT_CAND}", words, keep_k, scores_o)
+    del words, keep_k
     plain_bits = (prb.rbox_overlaps_ref(boxes_o, boxes_o) > ROT_THR) & upper
     off_bits = bits != plain_bits
     if (off_bits & ~near).any():
@@ -1881,17 +2022,21 @@ def phase_rotated_iou_kernel() -> dict:
     plain_ms = loop_ms(lambda: pnms.nms_keep_ref(boxes_o, valid, ROT_THR), reps=3, warmup=1)
     whole = loop_ms(lambda: pnms.batched_nms(boxes.cuda(), scores.cuda(), labels.cuda(),
                                              ROT_THR, 200))
+    split = kernel_split_ms(lambda: pnms.nms_keep(boxes_o, scores_o, ROT_THR))
     pairs = B * ROT_CAND * (ROT_CAND - 1) // 2
-    flops = r1_ops(boxes_o, boxes_o, ref64 * upper, upper=True)
+    flops, old_flops, exits = r1_ops(boxes_o, boxes_o, ref64 * upper, upper=True)
     nbytes = B * ROT_CAND * (20 + 4) + B * ROT_CAND
     bound_ms, bound_by = r1_bound(flops, nbytes)
+    old_bound, old_by = r1_bound(old_flops, nbytes)
     log(f"[kernel] nms_rotated predict {B}x{ROT_CAND}: kernel {ms:.4f} ms (CUDA graph: "
         f"{dev:.4f} ms of device time a call; mask and N1's scan)  plain (nms_keep_ref "
         f"on the card) {plain_ms:.4f} ms  library none (mmcv's nms_rotated is absent)  "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({pairs} pairs, "
-        f"{int(((ref64 > 0) & upper).sum())} overlapping, {flops / 1e9:.4f} GFLOP fp32, "
-        f"{nbytes / 1e6:.3f} MB); batched_nms whole (offset, sort, R1, top 200) "
-        f"{whole:.4f} ms")
+        f"bound {bound_ms:.4f} ms by {bound_by} ({pairs} pairs, {exits} taken by the early "
+        f"exit, {int(((ref64 > 0) & upper).sum())} overlapping, {flops / 1e9:.4f} GFLOP fp32, "
+        f"{nbytes / 1e6:.3f} MB; counted without the exit: {old_bound:.4f} ms by {old_by}, "
+        f"{old_flops / 1e9:.4f} GFLOP); batched_nms whole (offset, sort, R1, top 200) "
+        f"{whole:.4f} ms; split (torch.profiler, device ms a call): mask "
+        f"{split.get('R1 mask', 0.0):.4f}, scan {split.get('NMS scan (N1, R1)', 0.0):.4f}")
     return {"rotated_iou": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                                 bound_ms=bound_ms, bound_by=bound_by),
             "rotated_iou_dense": dict(max_abs_err=dense_err, ms=dense_ms,

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy primitives of the bf16 attention
 // kernels (K2 csrc/flash_attn_fwd.cu, K5 csrc/flash_attn_bwd.cu, K1L
 // csrc/window_attn_fwd_large.cu, K7 csrc/window_attn_bwd_qblk.cu, and K1
-// and K4 through csrc/window_tile.cuh):
+// and K4 through csrc/window_tile.cuh; the NMS scan's prefetch of its lists,
+// csrc/nms_scan.cuh):
 // `cp.async` copies from device to shared memory (bf16 rows, fp32 bias
 // tiles), `ldmatrix` loads of 8×8 bf16 tiles into the operand fragments of
 // `mma.sync.m16n8k16` (bf16 inputs, fp32 accumulators).

@@ -50,13 +50,14 @@ SIGNATURES = {
     "mtp_flash_attn_bwd": [_P] * 14 + [_I] * 5 + [_F],
     # img, py, px, m, g, dimg (fp32), dpy, dpx, dm, BG, H, W, C, HWo, P, body
     "mtp_bilinear_sample_bwd": [_P] * 9 + [_I] * 7,
-    # boxes, scores (score order), mask (scratch), keep, B, N, iou_thr (N1)
-    "mtp_nms": [_P] * 4 + [_I, _I, _F],
+    # boxes, scores (score order), mask (scratch), lists (int32 scratch),
+    # keep, B, N, iou_thr (N1)
+    "mtp_nms": [_P] * 5 + [_I, _I, _F],
     # a, b, out, B, N, M, iof (R1, dense)
     "mtp_rbox_iou": [_P] * 3 + [_I] * 4,
-    # boxes, scores (score order), mask (scratch), keep, B, N, iou_thr (R1,
-    # mask form, then N1's scan)
-    "mtp_nms_rotated": [_P] * 4 + [_I, _I, _F],
+    # boxes, scores (score order), mask (scratch), lists (int32 scratch),
+    # keep, B, N, iou_thr (R1, mask form, then N1's scan)
+    "mtp_nms_rotated": [_P] * 5 + [_I, _I, _F],
 }
 
 # storage types the kernels are instantiated for (csrc/common.cuh DType)

@@ -13,9 +13,12 @@ On CPU tensors `nms_ref` runs: the blocked scan of `_nms_single_lane` in
 PyTorch.  On CUDA tensors the wrapper launches a kernel, which raises on
 what it cannot take and never falls back: N1 (csrc/nms.cu) for horizontal
 boxes, R1's mask form (csrc/rotated_iou.cu) for rotated ones; both write
-the suppression bitmask and run the same one-block-per-image scan
-(csrc/nms_scan.cuh).  The sort and the top-`max_out` gather run in
-PyTorch on either device.
+the suppression bitmask and run the same one-warp-per-image scan
+(csrc/nms_scan.cuh).  The two halves have plain versions of their own,
+`nms_mask_ref` (the bitmask, in the kernels' layout) and `nms_scan_ref`
+(the keep mask from those words, in the scan's order), which together are
+`nms_keep_ref`.  The sort and the top-`max_out` gather run in PyTorch on
+either device.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from mtp_tpu_torch.kernels import _build
@@ -35,6 +39,8 @@ NEG_INF = -1e10
 # removed bit per box in shared memory)
 NMS_TILE = 64
 NMS_MAX_BOXES = 1 << 16
+# the later boxes a row's list holds (kListCap)
+NMS_LIST_CAP = 32
 
 LAUNCHES = {"nms": 0, "nms_rotated": 0}
 # coordinates a box → (kernel, its launcher, its counter): N1 for x1y1x2y2
@@ -92,6 +98,59 @@ def nms_keep_ref(boxes_o: torch.Tensor, valid: torch.Tensor, iou_thr: float,
     return alive[:, :n] & valid[:, :n]
 
 
+def nms_mask_ref(boxes_o: torch.Tensor, iou_thr: float, rows: int = 1024) -> torch.Tensor:
+    """The suppression bitmask of boxes (B, N, 4 or 5) in score order, in the
+    kernels' layout (csrc/nms_scan.cuh): (B, N, ⌈N/64⌉) int64 words, bit t
+    of word w of row i set iff w·64 + t > i and IoU(i, w·64 + t) > iou_thr
+    (`bbox_overlaps`, or `rbox_overlaps_ref` of rotated boxes); the words
+    before a row's own tile, which the kernels neither write nor read, 0.
+    `rows` rows of IoUs at a time."""
+    B, N, D = boxes_o.shape
+    iou = rbox_overlaps_ref if D == 5 else bbox_overlaps
+    words = (N + NMS_TILE - 1) // NMS_TILE
+    col = torch.arange(N, device=boxes_o.device)
+    shifts = torch.arange(NMS_TILE, device=boxes_o.device)
+    parts = []
+    for r0 in range(0, N, rows):
+        r1 = min(N, r0 + rows)
+        over = (iou(boxes_o[:, r0:r1], boxes_o) > iou_thr) & (col > col[r0:r1, None])
+        over = torch.cat([over, over.new_zeros(B, r1 - r0, words * NMS_TILE - N)], -1)
+        # distinct powers of two add up to their OR; bit 63 is the sign
+        parts.append((over.view(B, r1 - r0, words, NMS_TILE).long() << shifts).sum(-1))
+    return torch.cat(parts, 1)
+
+
+def nms_scan_ref(mask: torch.Tensor, scores_o: torch.Tensor) -> torch.Tensor:
+    """The keep mask (B, N) bool from a suppression bitmask (B, N, ⌈N/64⌉)
+    in the kernels' layout and the scores in score order (B, N), in
+    csrc/nms_scan.cuh's order, on the host: tile by tile, the live rows
+    (valid, score > NEG_INF / 2, and not removed) taken lowest first, each
+    kept row removing the rows its diagonal word names; then the tile's
+    kept rows' later words ORed into the removed bits of the later tiles
+    (the kernel reads the same bits from the rows' lists).  Returned on
+    `mask`'s device."""
+    B, N, words = mask.shape
+    m = mask.cpu().numpy().view(np.uint64)
+    valid = (scores_o > NEG_INF / 2).cpu().numpy()
+    keep = np.zeros((B, N), dtype=bool)
+    for b in range(B):
+        removed = np.zeros(words, dtype=np.uint64)
+        for w in range(words):
+            r0 = w * NMS_TILE
+            rows = range(r0, min(N, r0 + NMS_TILE))
+            live = sum(1 << (i - r0) for i in rows if valid[b, i]) & ~int(removed[w])
+            kept = []
+            while live:
+                r = (live & -live).bit_length() - 1
+                kept.append(r0 + r)
+                live &= live - 1
+                live &= ~int(m[b, r0 + r, w])
+            keep[b, kept] = True
+            if kept and w + 1 < words:
+                removed[w + 1:] |= np.bitwise_or.reduce(m[b, kept, w + 1:], axis=0)
+    return torch.from_numpy(keep).to(mask.device)
+
+
 def nms_ref(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
             max_out: int, block: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of `nms_batched`: boxes (B, N, 4 or 5), scores
@@ -101,12 +160,28 @@ def nms_ref(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     return _top(order, scores_o, keep_o, max_out)
 
 
+def keep_scratch(B: int, N: int, device) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """(scratch, lists_at, keep) of a launch of N1 or R1's mask form: one
+    int64 allocation that holds the suppression words (B, N, ⌈N/64⌉) from
+    its start and, from element `lists_at` (16-byte aligned, for the scan's
+    cp.async), the scan's int32 lists of later boxes and their counts
+    (csrc/nms_scan.cuh: NMS_LIST_CAP + 1 ints a box, the tiles' rows rounded
+    up to 64); and the keep mask (B, N) bool."""
+    words = (N + NMS_TILE - 1) // NMS_TILE
+    n_mask = B * N * words
+    lists_at = n_mask + n_mask % 2
+    n_lists = B * words * NMS_TILE * (NMS_LIST_CAP + 1) // 2
+    return (torch.empty(lists_at + n_lists, dtype=torch.int64, device=device), lists_at,
+            torch.empty(B, N, dtype=torch.bool, device=device))
+
+
 def nms_keep(boxes_o: torch.Tensor, scores_o: torch.Tensor,
              iou_thr: float) -> torch.Tensor:
     """The greedy keep mask (B, N) of fp32 boxes (B, N, 4 or 5) in score
     order with their scores (B, N), on the card: N1 (x1y1x2y2 boxes) or R1's
-    mask form (rotated) writes the suppression bitmask, bit (i, j) set iff
-    j > i and IoU(i, j) > iou_thr, and N1's scan reads it."""
+    mask form (rotated) writes the suppression bitmask (the layout of
+    `nms_mask_ref`), bit (i, j) set iff j > i and IoU(i, j) > iou_thr, and
+    N1's scan reads it (as `nms_scan_ref` does)."""
     B, N, D = boxes_o.shape
     kernel, launcher, counter = KEEP_KERNELS[D]
     _build.check_on_card(kernel, boxes_o, scores_o)
@@ -116,10 +191,9 @@ def nms_keep(boxes_o: torch.Tensor, scores_o: torch.Tensor,
     _build.check_launchable(boxes=boxes_o, scores=scores_o)
     if D == 4:  # N1 reads a box as one float4
         _build.check_aligned(boxes=boxes_o)
-    words = (N + NMS_TILE - 1) // NMS_TILE
-    mask = torch.empty(B, N, words, dtype=torch.int64, device=boxes_o.device)
-    keep = torch.empty(B, N, dtype=torch.bool, device=boxes_o.device)
-    _build.launch(launcher, boxes_o.data_ptr(), scores_o.data_ptr(), mask.data_ptr(),
+    scratch, lists_at, keep = keep_scratch(B, N, boxes_o.device)
+    at = scratch.data_ptr()
+    _build.launch(launcher, boxes_o.data_ptr(), scores_o.data_ptr(), at, at + 8 * lists_at,
                   keep.data_ptr(), B, N, float(iou_thr), _build.dtype_code(boxes_o))
     LAUNCHES[counter] += 1
     return keep

@@ -18,7 +18,10 @@ runs, chunked over the pair grid; on CUDA tensors kernel R1
 (csrc/rotated_iou.cu) launches, one thread a pair, in its dense form: the
 (B, N, M) matrix (`rbox_iou`).  Its mask form, N1's suppression bitmask
 with N1's scan, is the rotated NMS (`ops.nms.nms_keep`).  R1 raises on
-what it cannot take and never falls back.
+what it cannot take and never falls back.  R1 gives IoU 0 at once to a
+pair that `rbox_apart` (the plain version of its test) marks: both boxes
+of positive area, their centres farther apart than their half-diagonals
+reach plus a margin, so that the full computation would return 0 too.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ PI = math.pi
 PAIRS_PER_CHUNK = 1 << 16
 # the floor of an IoU's denominator (JAX's default eps)
 EPS = 1e-6
+# R1's early exit: the gap past both half-diagonals that marks a pair apart,
+# relative to |dx| + |dy| + the half-diagonals (csrc/rotated_iou.cu
+# kApartMargin): ~1,700 fp32 ulps of the scale of the pair's coordinates
+APART_MARGIN = 1e-4
 
 LAUNCHES = {"rbox_iou": 0}
 
@@ -205,6 +212,30 @@ def rbox_overlaps_ref(a: torch.Tensor, b: torch.Tensor, mode: str = "iou") -> to
     else:
         denom = area_a + (b[..., 2] * b[..., 3])[..., None, :] - inter
     return inter / denom.clamp(min=EPS)
+
+
+def rbox_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The pairs of a (..., N, 5) × b (..., M, 5) → (..., N, M) bool that R1
+    gives IoU 0 without forming them (csrc/rotated_iou.cu `apart`, the same
+    operations, each rounded in the inputs' dtype): both boxes of positive
+    area (w > 0 and h > 0; a box of zero area passes the inside test all
+    along its line), and dx² + dy² > gap², gap = reach + APART_MARGIN ·
+    (|dx| + |dy| + reach), where (dx, dy) is b's centre less a's and reach
+    the sum of their half-diagonals, ½·√(w² + h²).  The boxes are then
+    disjoint by at least the margin, many times the rounding of their
+    corners, and their rotated IoU is 0."""
+    def reach(r):
+        return 0.5 * torch.sqrt(r[..., 2] * r[..., 2] + r[..., 3] * r[..., 3])
+
+    def positive(r):
+        return (r[..., 2] > 0) & (r[..., 3] > 0)
+
+    dx = b[..., None, :, 0] - a[..., :, None, 0]
+    dy = b[..., None, :, 1] - a[..., :, None, 1]
+    both = reach(a)[..., :, None] + reach(b)[..., None, :]
+    gap = both + APART_MARGIN * (dx.abs() + dy.abs() + both)
+    return (positive(a)[..., :, None] & positive(b)[..., None, :]
+            & (dx * dx + dy * dy > gap * gap))
 
 
 def quad_overlaps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -156,7 +156,9 @@ def test_nms_kernel_wrapper_takes_only_the_card():
     """N1's wrapper launches on CUDA tensors only: CPU tensors go to `nms_ref`
     through `nms_batched`, and called directly on them it raises, as it
     does on boxes that are not fp32 or past its limit; its limits are
-    csrc/nms.cu's and the shared scan's (csrc/nms_scan.cuh) constants."""
+    csrc/nms.cu's and the shared scan's (csrc/nms_scan.cuh) constants; the
+    mask kernel launches only the upper triangle's tiles, and the scan one
+    warp an image with no block barrier in its walk."""
     boxes, scores = torch.zeros(2, 70, 4), torch.zeros(2, 70)
     with pytest.raises(ValueError, match="CUDA"):
         port_nms.nms_keep(boxes, scores, 0.7)
@@ -170,4 +172,9 @@ def test_nms_kernel_wrapper_takes_only_the_card():
     assert const("kTile") == str(port_nms.NMS_TILE)
     assert const("kMaxBoxes") == "1 << 16" and port_nms.NMS_MAX_BOXES == 1 << 16
     assert float(const("kValidMin").rstrip("f")) == port_nms.NEG_INF / 2
-    assert _build.SIGNATURES["mtp_nms"] == [_build._P] * 4 + [_build._I, _build._I, _build._F]
+    assert const("kListCap") == str(port_nms.NMS_LIST_CAP)
+    assert _build.SIGNATURES["mtp_nms"] == [_build._P] * 5 + [_build._I, _build._I, _build._F]
+    assert "<<<dim3(nms::upper_tiles(words), B), kTile" in src
+    assert "nms::nms_scan_kernel<<<B, nms::kWarp," in src
+    scan = src[src.index("nms_scan_kernel(const u64*"):]
+    assert "__syncthreads" not in scan and "__syncwarp" in scan

@@ -403,7 +403,10 @@ def test_r1_refusals_on_the_card_side(monkeypatch):
     """With the device check passed (the card stood in for), R1 still
     refuses fp64 boxes, more than NMS_MAX_BOXES boxes and mismatched
     batches, and never launches for them; a legal call launches once and
-    counts once."""
+    counts once.  The source: the shared scan and its constants, the mask
+    form over the upper triangle's tiles, the pairs its early exit lets
+    through queued for the block, and the exit's margin equal to
+    `rbox_apart`'s."""
     launched = []
 
     def dtype_only(kernel, *tensors):
@@ -439,8 +442,12 @@ def test_r1_refusals_on_the_card_side(monkeypatch):
     assert const(scan, "kTile") == str(pnms.NMS_TILE)
     assert const(scan, "kMaxBoxes") == "1 << 16" and pnms.NMS_MAX_BOXES == 1 << 16
     assert float(const(scan, "kValidMin").rstrip("f")) == pnms.NEG_INF / 2
+    assert float(const(src, "kApartMargin").rstrip("f")) == prb.APART_MARGIN
+    assert "apart(sa, bj) ? 0.f :" in src and "!apart(rows[r], cols[c])" in src
+    assert "<<<dim3(nms::upper_tiles(words), B), kMaskThreads" in src
+    assert "atomicAdd(&queued, __popc(votes))" in src and "atomicOr(&bits[r]" in src
     assert _build.SIGNATURES["mtp_rbox_iou"] == [_build._P] * 3 + [_build._I] * 4
     assert _build.SIGNATURES["mtp_nms_rotated"] == _build.SIGNATURES["mtp_nms"]
-    for name, args in (("mtp_rbox_iou", 7), ("mtp_nms_rotated", 7)):
+    for name, args in (("mtp_rbox_iou", 7), ("mtp_nms_rotated", 8)):
         sig = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)[1]
         assert len(sig.split(",")) == args + 2, name   # + dtype and stream
