@@ -19,7 +19,8 @@ at 800² (the same, and R1, the port's rotated-IoU kernel), the Mask R-CNN
 recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1), and the
 multitask pretraining recipe mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
 3 datasets × semantic segmentation, Mask R-CNN and Oriented R-CNN: K1-K6,
-N1 and R1).
+N1 and R1), and the ViT recipe again through the CLI, trained, resumed and
+evaluated from PNG files on disk (K1-K6).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
@@ -227,6 +228,23 @@ Phases; any failure raises, so the exit code is non-zero:
    `evaluate`'s 9-way metrics and a predict's launches; the exported
    encoder loaded into the ViT-L segmentation recipe at 384² and run; a
    fixed-batch sanity run.
+24. The CLI from disk (`phase_cli`): rvsa-l-upernet-384-mae-mtp-spacenetv1
+   trained and evaluated from a SpaceNet-layout dataset this phase writes
+   (16 train and 4 val RGB PNG tiles of 512², labels in {0, 1}) through
+   `mtp_tpu_torch.cli.train` / `cli.test`'s `main(argv)` in this process:
+   6 steps at batch 8 with 4 fork workers (forked after CUDA is up),
+   checkpoints every 3 steps, the encoder export and --eval-after;
+   --resume to 8 steps (exactly 2 trained); `cli.test --ckpt` on the
+   step-6 checkpoint (its mIoU equal to --eval-after's) with --save-pred;
+   the training again with 0 workers; the native host library built and
+   loaded.  Launches exact in each run; step_time, data_time (4 and 0
+   workers), the checkpoint saves' and each run's wall times.
+Registry recipes only: every path takes its recipe through
+`mtp_tpu_torch.configs.get` under the JAX package's name.  Phase 3f also
+holds the kernels at the shapes of the registry's OSCD 96² recipes
+(`phase_oscd_kernels`: the ViT's 6² grid, one padded 7² window an image,
+full attention over N = 36; XL's K8 on 24², 12², 6² and 3² stage maps),
+not timed, with controls.
 The last lines are the total time, the kernels' JSON record, the card, and
 the result line.
 """
@@ -237,6 +255,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
@@ -254,26 +273,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mtp_tpu_torch import configs
 from mtp_tpu_torch.ckpt.from_jax import init_weights
 from mtp_tpu_torch.ckpt.store import CheckpointStore, load_encoder, save_encoder
 from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
+from mtp_tpu_torch.cli import test as cli_test
+from mtp_tpu_torch.cli import train as cli_train
 from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
 from mtp_tpu_torch.core.train import create_state
 from mtp_tpu_torch.config import (SAMRS_CLASSES, ScheduleConfig, SlideConfig, TaskConfig,
-                                  faster_rcnn_intern_xl_800_dior,
-                                  faster_rcnn_rvsa_l_800_dior,
-                                  intern_xl_224_eurosat,
-                                  intern_xl_unet_256_levir,
-                                  intern_xl_upernet_512_loveda,
-                                  internimage_config, is_internimage,
-                                  mask_rcnn_rvsa_l_1024_coco,
-                                  mtp_vit_l_rvsa_448_samrs,
-                                  oriented_rcnn_intern_xl_800_diorr,
-                                  oriented_rcnn_rvsa_l_800_diorr,
-                                  retinanet_rvsa_l_416_xview,
-                                  rvsa_l_unet_256_levir,
-                                  rvsa_l_upernet_384_spacenetv1,
-                                  vit_rvsa_l_224_eurosat)
+                                  internimage_config, is_internimage)
+from mtp_tpu_torch.data.parsers import mask_to_rle, rle_to_mask
 from mtp_tpu_torch.eval.masks import mask_probabilities, paste_masks, paste_masks_device
 from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.heads.rpn import gen_proposals
@@ -297,6 +307,7 @@ from mtp_tpu_torch.tasks._fit import to_device
 from mtp_tpu_torch.tasks.detection_task import DetectionTask, build_detector, det_config
 from mtp_tpu_torch.tasks.multitask import MultiTaskPretrainTask
 from mtp_tpu_torch.tasks.segmentation import SegmentationTask
+from mtp_tpu_torch.utils import native
 
 SEED = 0
 
@@ -419,8 +430,14 @@ class Path:
         return GRAD_RTOL_STOCHASTIC if self.grad_stochastic else GRAD_RTOL
 
 
-RVSA = rvsa_l_upernet_384_spacenetv1()
-XL = intern_xl_upernet_512_loveda()
+def recipe(name: str) -> TaskConfig:
+    """The registry's recipe `name` (`mtp_tpu_torch.configs`): every path
+    here runs a recipe the registry holds, under the JAX package's name."""
+    return configs.get(name).task
+
+
+RVSA = recipe("rvsa-l-upernet-384-mae-mtp-spacenetv1")
+XL = recipe("intern-xl-upernet-512-imp-mtp-loveda")
 # the ViT recipe at 2080² crops (2080 = 16·130: a 130² token grid, over the
 # 128-per-axis gate of K2) with the JAX field remat on, batch 1, one crop a
 # tile: no new recipe, the JAX configs express all of it
@@ -1194,13 +1211,18 @@ def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) 
                                              f"the same inputs differ: {same}")
                     log(f"[kernel] {kname} {label} {dtype}: two launches bitwise equal "
                         f"in all {len(same)} outputs (digest of the bits)")
+                flops = case.flops(args)
+                nbytes = _nbytes(args) + out_bytes
+                t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+                bound_ms = max(t_ops, t_bytes) * 1e3
+                bound_by = "operations" if t_ops > t_bytes else "bytes"
                 if dtype != torch.bfloat16 or not timed:
                     log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                         f"shape {tuple(args[0].shape)} max_abs_err "
                         f"{' '.join(f'{e:.3e}' for e in errs)} of max |ref| "
                         f"{' '.join(f'{m:.3e}' for m in scales)} ‖Δ‖/‖ref‖ "
                         f"{' '.join(f'{r:.3e}' for r in rels)} (atol, rtol, limit {tols}); "
-                        f"not timed")
+                        f"not timed; bound {bound_ms:.4f} ms by {bound_by}")
                     continue
                 timed_ms = lambda fn: loop_ms(fn, reps=case.reps,
                                               warmup=min(3, case.reps // 4))
@@ -1220,11 +1242,6 @@ def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) 
                     lib_prof = graph_note(call)
                     del call
                     free()
-                flops = case.flops(args)
-                nbytes = _nbytes(args) + out_bytes
-                t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-                bound_ms = max(t_ops, t_bytes) * 1e3
-                bound_by = "operations" if t_ops > t_bytes else "bytes"
                 lib = "—" if library_ms is None else f"{library_ms:.4f} ms{lib_prof}"
                 log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                     f"shape {tuple(args[0].shape)} max_abs_err "
@@ -1648,11 +1665,19 @@ def phase_path_kernels() -> None:
     4,096 tokens, K3/K6 on 70² maps.  RetinaNet at 416²: the 26² grid,
     padded to 28² (16 windows an image), N = 676, 28² maps.  The multitask
     step at 448²: the 28² grid (16 windows an image, W = 48), K2/K5 over 48
-    heads of N = 784, K3/K6 on 48 maps of 28²."""
+    heads of N = 784, K3/K6 on 48 maps of 28².  Only the 1024² rows are
+    timed (K5 there trails SDPA's gradient); the 416² and 448² rows are
+    held, not timed (PERF.md §6 keeps their times)."""
+    for shapes, timed in ((((1024, 64, 70, 81, 2),), True),
+                          (((416, 26, 28, 91, 2), (448, 28, 28, 101, 3)), False)):
+        check_kernels(path_cases(shapes), record_label=None, timed=timed)
+
+
+def path_cases(shapes) -> dict:
+    """K1-K6 cases at (hw, grid, padded grid, seed, images) shapes."""
     cases = {k: [] for k in ("window", "window_bwd", "flash", "flash_bwd",
                              "bilinear_sample", "bilinear_sample_bwd")}
-    for hw, grid, padded, seed, n in ((1024, 64, 70, 81, 2), (416, 26, 28, 91, 2),
-                                      (448, 28, 28, 101, 3)):
+    for hw, grid, padded, seed, n in shapes:
         W, BH = n * (padded // 7) ** 2, 16 * n
         cases["window"].append((f"{hw}² W={W}", window_case(W, 16, 49, 64, seed,
                                                             device_time=True)))
@@ -1666,7 +1691,45 @@ def phase_path_kernels() -> None:
             BH, padded, padded, 64, padded ** 2, 1, seed + 4, edge=False)))
         cases["bilinear_sample_bwd"].append((f"{hw}² {padded}x{padded}", sample_case(
             BH, padded, padded, 64, padded ** 2, 1, seed + 5, edge=False, bwd=True)))
-    check_kernels(cases, record_label=None)
+    return cases
+
+
+# the OSCD recipes' batch on one card: the recipes' 4 pairs a GPU × 8 ranks,
+# one rank's 4 pairs, 8 images through the backbone
+OSCD_IMAGES = 8
+
+
+def phase_oscd_kernels() -> None:
+    """Phases 3c/3f, continued: the shapes the registry's OSCD recipes
+    (`*-unet-96-*_oscd_rgb`, 96² pairs) give the kernels, held against the
+    plain versions in fp32 and bf16 (not timed), each with the 0.9
+    controls.  ViT-L: the 6² token grid, padded to one 7² window an image
+    (K1/K4 over 8 windows × 16 heads of 49 tokens), full attention over N =
+    36 (K2/K5 over 128 heads of the 6×6 grid), K3/K6 sampling K and V on
+    128 maps of the padded 7² grid.  InternImage-XL: K8 forward and
+    backward on its four stage maps, 24², 12², 6² and 3² (12, 24, 48 and 96
+    groups of 16 channels), random offsets; 6² and 3² are smaller than one
+    16×16 tile of K6's tiled body."""
+    W, BH = OSCD_IMAGES, OSCD_IMAGES * 16
+    check_kernels({
+        "window": [("96² W=8", window_case(W, 16, 49, 64, 111, controls=True))],
+        "window_bwd": [("96² W=8", window_case(W, 16, 49, 64, 112, bwd=True,
+                                               controls=True))],
+        "flash": [("96² 6x6", dataclasses.replace(flash_case(BH, (6, 6), 64, 113),
+                                                  controls=True))],
+        "flash_bwd": [("96² 6x6", dataclasses.replace(
+            flash_case(BH, (6, 6), 64, 114, bwd=True), controls=True))],
+        "bilinear_sample": [("96² 7x7", sample_case(BH, 7, 7, 64, 49, 1, 115,
+                                                    edge=False))],
+        "bilinear_sample_bwd": [("96² 7x7", sample_case(BH, 7, 7, 64, 49, 1, 116,
+                                                        edge=False, bwd=True))],
+        "dcnv3_fwd": [(f"96² stage{s} {hw}²", dcnv3_case(OSCD_IMAGES, hw, G, 16, 117 + s,
+                                                         "random", record=True))
+                      for s, (hw, G) in enumerate(((24, 12), (12, 24), (6, 48), (3, 96)))],
+        "dcnv3_bwd": [(f"96² stage{s} {hw}²", dcnv3_case(OSCD_IMAGES, hw, G, 16, 121 + s,
+                                                         "random", bwd=True, record=True))
+                      for s, (hw, G) in enumerate(((24, 12), (12, 24), (6, 48), (3, 96)))],
+    }, record_label=None, timed=False)
 
 
 # ------------------------------------------------------------ phase 3g --
@@ -2450,8 +2513,10 @@ VIT_STEP = launches(window=20, flash=4, bilinear_sample=40, window_bwd=20, flash
                     bilinear_sample_bwd=40)
 XL_FWD = launches(bilinear_sample=39)
 XL_STEP = launches(bilinear_sample=78, bilinear_sample_bwd=39)  # remat: K3 twice
-CLS_VIT, CLS_XL = vit_rvsa_l_224_eurosat(), intern_xl_224_eurosat()
-CD_VIT, CD_XL = rvsa_l_unet_256_levir(), intern_xl_unet_256_levir()
+CLS_VIT = recipe("vit-rvsa-l-224-mae-mtp_eurosat")
+CLS_XL = recipe("intern-xl-224-imp-mtp_eurosat")
+CD_VIT = recipe("rvsa-l-unet-256-mae-mtp_levir")
+CD_XL = recipe("intern-xl-unet-256-imp-mtp_levir")
 # batch 8 of 224²: the recipes' 8 a GPU × 8 ranks, on one rank (BASELINE.md's
 # ViT-L datum is at this batch); batch 4 pairs of 256²: the recipes' 4 a GPU
 # × 8 ranks, on one rank (data parallel is not ported)
@@ -2861,7 +2926,8 @@ class DetPath:
                              det_overrides=self.overrides or None, **kw)
 
 
-DET_VIT, DET_XL = faster_rcnn_rvsa_l_800_dior(), faster_rcnn_intern_xl_800_dior()
+DET_VIT = recipe("faster_rcnn_rvsa_l_800_mae_mtp_dior")
+DET_XL = recipe("faster_rcnn_intern_xl_800_imp_mtp_dior")
 DET_PATHS = {
     # ViT-L+RVSA at 800², the last block tapped 4 times → simple FPN → FPN →
     # Faster R-CNN, 20 classes; no remat: K1-K6 as the segmentation ViT, N1
@@ -2880,7 +2946,8 @@ DET_PATHS = {
 }
 
 
-ROT_VIT, ROT_XL = oriented_rcnn_rvsa_l_800_diorr(), oriented_rcnn_intern_xl_800_diorr()
+ROT_VIT = recipe("oriented_rcnn_rvsa_l_800_mae_mtp_diorr")
+ROT_XL = recipe("oriented_rcnn_intern_xl_800_imp_mtp_diorr")
 ROT_PATHS = {
     # phase 20: Oriented R-CNN on DIOR-R's 20 classes at 800², batch 1; a
     # step adds N1 once (the oriented RPN's horizontal NMS) and R1's dense
@@ -2906,7 +2973,8 @@ ROT_PATHS = {
 # both tasks take score_thr 0.001 through `det_overrides`, as JAX's
 # DetectionTask takes it; nothing else of the recipes changes
 SCORE_THR = 0.001
-MASK_VIT, RETINA_VIT = mask_rcnn_rvsa_l_1024_coco(), retinanet_rvsa_l_416_xview()
+MASK_VIT = recipe("mask_rcnn_rvsa_l_1024_mae_mtp_coco")
+RETINA_VIT = recipe("retinanet_rvsa_l_416_mae_mtp_xview")
 INST_PATHS = {
     # phase 21: Mask R-CNN on COCO's 80 classes at 1024², batch 2 (the
     # recipe's 16 = 2 a GPU × 8): the ViT's 64² grid; a step adds N1 once
@@ -3430,7 +3498,7 @@ def run_det_path(path: DetPath, card: str) -> dict:
 
 # ------------------------------------------------------------- phase 23 --
 
-MTP = mtp_vit_l_rvsa_448_samrs()
+MTP = recipe("mtp_vit_l_rvsa_448_samrs")
 MTP_STRIP = (448, 128)  # card vs CPU: a 28×8 token grid, one image a dataset
 MTP_G, MTP_VALID = 24, 12  # bench.py's synthetic pretraining batch
 MTP_STEPS = 6           # timed steps after 3
@@ -3835,6 +3903,220 @@ def run_mtp_path(card: str) -> dict:
         return phase_mtp_train(card)
 
 
+# ------------------------------------------------------------- phase 24 --
+
+CLI_RECIPE = "rvsa-l-upernet-384-mae-mtp-spacenetv1"
+CLI_TILE, CLI_TRAIN, CLI_VAL = 512, 16, 4  # bench.py's tile; tiles a split
+CLI_BATCH, CLI_STEPS, CLI_RESUME_TO, CLI_CKPT_EVERY, CLI_WORKERS = 8, 6, 8, 3, 4
+# --eval-after and cli.test slide over each 512² val tile in 4 crops of 384²
+# at stride 256, one forward a crop; cli.test's --save-pred predicts the
+# first tile once more
+CLI_CROPS = len(slide_origins(CLI_TILE, CLI_TILE, 384, 256))
+CLI_EVAL_FORWARDS = CLI_VAL * CLI_CROPS
+
+
+def write_spacenet(root: str, seed: int) -> None:
+    """SpaceNet v1's on-disk layout (`data/bindings.py`): img_dir/{train,val}
+    RGB PNG tiles of 512² and ann_dir/{train,val} PNG labels in {0, 1}, made
+    from `seed`: a dark noisy ground (class 0) with 25-39 brighter
+    rectangles of 16-96 px a tile (class 1, buildings; ~30% of the pixels,
+    a dense urban tile, so that most crops pass the recipe's cat_max_ratio
+    of 0.75 at once)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", CLI_TRAIN), ("val", CLI_VAL)):
+        for sub in ("img_dir", "ann_dir"):
+            os.makedirs(os.path.join(root, sub, split))
+        for i in range(n):
+            img = rng.integers(0, 120, (CLI_TILE, CLI_TILE, 3), dtype=np.uint8)
+            lab = np.zeros((CLI_TILE, CLI_TILE), np.uint8)
+            for _ in range(int(rng.integers(25, 40))):
+                y, x = (int(v) for v in rng.integers(0, CLI_TILE - 16, 2))
+                h, w = (int(v) for v in rng.integers(16, 97, 2))
+                lab[y:y + h, x:x + w] = 1
+            img[lab == 1] += 100
+            Image.fromarray(img).save(os.path.join(root, "img_dir", split, f"{i}.png"))
+            Image.fromarray(lab).save(os.path.join(root, "ann_dir", split, f"{i}.png"))
+
+
+def cli_run(main, argv, **kw):
+    """`main(argv)` of a port CLI in this process (the kernels built earlier
+    serve it): (its return value, the JSON result line it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv, **kw)
+    lines = buf.getvalue().strip().splitlines()
+    log(f"[cli] {' '.join(argv[:1] + [a for a in argv[1:] if a.startswith('--')])} → "
+        f"{lines[-1] if lines else '(nothing printed)'}")
+    return ret, json.loads(lines[-1])
+
+
+def read_jsonl(path: str) -> List[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+@contextlib.contextmanager
+def timed_saves(saves: list, writes: list):
+    """The wall time of each `CheckpointStore.save` call (the host snapshot,
+    plus the write where the call waits for it) and of each background
+    write (`_commit`: torch.save, fsync, rename)."""
+    save, commit = CheckpointStore.save, CheckpointStore._commit
+
+    def timed(fn, into):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                into.append(time.perf_counter() - t0)
+        return run
+
+    with mock.patch.object(CheckpointStore, "save", timed(save, saves)), \
+            mock.patch.object(CheckpointStore, "_commit", timed(commit, writes)):
+        yield
+
+
+def expect_launches(what: str, steps: int, forwards: int) -> Dict[str, int]:
+    """Read the launch counts of the run just driven (set to 0 before it)
+    and hold them to `steps` ViT train steps and `forwards` ViT forwards."""
+    torch.cuda.synchronize()
+    launched = counters()
+    want = {k: steps * VIT_STEP[k] + forwards * VIT_FWD[k] for k in COUNTERS}
+    log(f"[cli] {what} launches: {launched}, expected {want} ({steps} train steps, "
+        f"{forwards} forwards)")
+    if launched != want:
+        raise AssertionError(f"{what}: launch counts {launched} != {want}")
+    return launched
+
+
+def train_readings(path: str, steps: int, what: str) -> Tuple[float, float]:
+    """The JSONL log's `steps` records, each loss and grad norm finite:
+    (median step_time, median data_time) in ms."""
+    recs = read_jsonl(path)
+    if len(recs) != steps or not all(math.isfinite(r["loss"]) and
+                                     math.isfinite(r["grad_norm"]) for r in recs):
+        raise AssertionError(f"{what}: {len(recs)} records, expected {steps} with finite "
+                             f"losses: {recs}")
+    losses = " ".join(f"{r['loss']:.4f}" for r in recs)
+    step_each = [r["step_time"] * 1e3 for r in recs]
+    data_each = [r["data_time"] * 1e3 for r in recs]
+    step_ms, data_ms = statistics.median(step_each), statistics.median(data_each)
+    log(f"[cli] {what}: losses {losses}; step_time median {step_ms:.2f} ms (each "
+        f"{' '.join(f'{t:.1f}' for t in step_each)}), data_time median {data_ms:.3f} ms "
+        f"(each {' '.join(f'{t:.2f}' for t in data_each)})")
+    return step_ms, data_ms
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 24: the ViT-L recipe trained and evaluated from files on disk
+    through the port's CLI, `main(argv)` in this process.  A SpaceNet-layout
+    dataset (`write_spacenet`); `cli.train` for 6 steps at batch 8 with 4
+    fork workers (forked after this process has initialised CUDA), a
+    checkpoint every 3 steps, the encoder export and --eval-after; the
+    step-6 checkpoint linked aside; `--resume` to 8, which must train
+    exactly 2 steps; `cli.test --ckpt` on the step-6 checkpoint, whose mIoU
+    must equal --eval-after's; the training again with 0 workers (the
+    prefetch thread); the native host library built and loaded.  Launches
+    exact in each run."""
+    free()
+    saves, writes = [], []
+    common = [CLI_RECIPE, "--batch-size", str(CLI_BATCH), "--log-every", "1"]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_cli_") as tmp, \
+            timed_saves(saves, writes):
+        root, ck, eval_ck = (os.path.join(tmp, d) for d in ("spacenet", "ckpt", "ckpt6"))
+        enc = os.path.join(tmp, "encoder.pth")
+        t0 = time.perf_counter()
+        write_spacenet(root, SEED + 240)
+        log(f"[cli] SpaceNet layout: {CLI_TRAIN} train + {CLI_VAL} val RGB PNG tiles of "
+            f"{CLI_TILE}², labels in {{0, 1}}, written in {time.perf_counter() - t0:.1f} s")
+        data = common + ["--data-root", root]
+
+        wd = os.path.join(tmp, "wd")
+        reset_counters()
+        t0 = time.perf_counter()
+        _, out = cli_run(cli_train.main, data + [
+            "--steps", str(CLI_STEPS), "--num-workers", str(CLI_WORKERS), "--ckpt-dir", ck,
+            "--ckpt-every", str(CLI_CKPT_EVERY), "--encoder-out", enc, "--eval-after",
+            "--work-dir", wd])
+        t_train = time.perf_counter() - t0
+        launched = expect_launches("cli.train", CLI_STEPS, CLI_EVAL_FORWARDS)
+        step_ms, data_ms = train_readings(os.path.join(wd, CLI_RECIPE + ".jsonl"),
+                                          CLI_STEPS, f"cli.train {CLI_WORKERS} workers")
+        eval_miou = out["eval"]["mIoU"]
+        steps = CheckpointStore(ck).steps()
+        if steps != [CLI_CKPT_EVERY, CLI_STEPS] or not os.path.isfile(enc) or \
+                not math.isfinite(eval_miou):
+            raise AssertionError(f"cli.train: checkpoints {steps}, encoder "
+                                 f"{os.path.isfile(enc)}, eval {out.get('eval')}")
+        os.makedirs(eval_ck)  # step 6 alone, for cli.test (a hard link, no copy)
+        os.link(os.path.join(ck, f"{CLI_STEPS}.pt"), os.path.join(eval_ck, f"{CLI_STEPS}.pt"))
+        log(f"[cli] train {t_train:.1f} s: checkpoints {steps}, encoder "
+            f"{os.path.getsize(enc) / 2 ** 20:.1f} MiB, --eval-after mIoU {eval_miou!r} | "
+            f"card {card}")
+        free()
+
+        wd_resume = os.path.join(tmp, "wd_resume")
+        reset_counters()
+        t0 = time.perf_counter()
+        cli_run(cli_train.main, data + ["--steps", str(CLI_RESUME_TO), "--resume",
+                                         "--ckpt-dir", ck, "--work-dir", wd_resume])
+        t_resume = time.perf_counter() - t0
+        expect_launches("cli.train --resume", CLI_RESUME_TO - CLI_STEPS, 0)
+        train_readings(os.path.join(wd_resume, CLI_RECIPE + ".jsonl"),
+                       CLI_RESUME_TO - CLI_STEPS, "cli.train --resume")
+        if CheckpointStore(ck).latest_step() != CLI_RESUME_TO:
+            raise AssertionError(f"resume: latest step {CheckpointStore(ck).latest_step()}")
+        log(f"[cli] resume {t_resume:.1f} s: step {CLI_STEPS} → {CLI_RESUME_TO}")
+        free()
+
+        pred = os.path.join(tmp, "pred")
+        reset_counters()
+        t0 = time.perf_counter()
+        res, _ = cli_run(cli_test.main, [CLI_RECIPE, "--ckpt", eval_ck, "--data-root", root,
+                                         "--save-pred", pred], return_metrics=True)
+        t_test = time.perf_counter() - t0
+        expect_launches("cli.test", 0, CLI_EVAL_FORWARDS + CLI_CROPS)
+        log(f"[cli] cli.test {t_test:.1f} s on the step-{CLI_STEPS} checkpoint: mIoU "
+            f"{res['mIoU']!r} against --eval-after's {eval_miou!r}; predictions "
+            f"{sorted(os.listdir(pred))}")
+        if res["mIoU"] != eval_miou or not os.listdir(pred):
+            raise AssertionError(f"cli.test mIoU {res['mIoU']!r} != --eval-after's "
+                                 f"{eval_miou!r}, or no prediction saved")
+        free()
+
+        wd0 = os.path.join(tmp, "wd0")
+        reset_counters()
+        t0 = time.perf_counter()
+        cli_run(cli_train.main, data + ["--steps", str(CLI_STEPS), "--num-workers", "0",
+                                         "--work-dir", wd0])
+        t_train0 = time.perf_counter() - t0
+        expect_launches("cli.train 0 workers", CLI_STEPS, 0)
+        step0_ms, data0_ms = train_readings(os.path.join(wd0, CLI_RECIPE + ".jsonl"),
+                                            CLI_STEPS, "cli.train 0 workers")
+        free()
+
+    lib = native.get_lib()
+    if lib is None or not native.LIB.is_file():
+        raise AssertionError("the native host library did not build or load")
+    m = (np.random.default_rng(SEED).uniform(size=(37, 41)) < 0.3).astype(np.uint8)
+    if not np.array_equal(rle_to_mask(mask_to_rle(m)), m):
+        raise AssertionError("native RLE round trip")
+    wall = time.perf_counter() - t_phase
+    log(f"[cli] native host library {native.LIB.name} loaded, RLE round trip equal")
+    log(f"[cli] phase 24: {CLI_RECIPE} batch {CLI_BATCH} of 384² crops from {CLI_TILE}² "
+        f"PNG tiles: step_time median {step_ms:.2f} ms with {CLI_WORKERS} workers, "
+        f"{step0_ms:.2f} ms with 0; data_time median {data_ms:.3f} ms with {CLI_WORKERS} "
+        f"workers, {data0_ms:.3f} ms with 0; checkpoint saves (call wall s) "
+        f"{' '.join(f'{t:.2f}' for t in saves)}, background writes (s) "
+        f"{' '.join(f'{t:.2f}' for t in writes)}; runs: train {t_train:.1f} s, resume "
+        f"{t_resume:.1f} s, test {t_test:.1f} s, train with 0 workers {t_train0:.1f} s; "
+        f"wall {wall:.1f} s | card {card}")
+    return {"train": launched}
+
+
 @contextlib.contextmanager
 def phase_time(what: str):
     """Logs the wall time the block took."""
@@ -3891,6 +4173,8 @@ def main() -> None:
         phase_800_kernels()
     with phase_time("kernels 3f, phases 21-22's shapes"):
         phase_path_kernels()
+    with phase_time("kernels 3c/3f, the OSCD 96² shapes"):
+        phase_oscd_kernels()
     runs = {name: run_path(path, card) for name, path in PATHS.items()}
     for name, path in TASK_PATHS.items():
         trained = run_task_path(path, card)
@@ -3903,6 +4187,8 @@ def main() -> None:
     for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
         runs[name] = run_det_path(path, card)
     runs["mtp_vit"] = run_mtp_path(card)
+    with phase_time("cli"):
+        runs["cli"] = phase_cli(card)
     kernels = []
     for key, meta in KERNELS.items():
         path, kind, counter = LAUNCHED_IN[key]

@@ -140,8 +140,13 @@ def save_encoder(path: str, encoder: nn.Module) -> None:
     `last_*_pretrn_model_encoder.pth`): the backbone's state dict in the
     reference names, which `mtp_tpu.ckpt.torch_convert` reads as it reads a
     released `.pth`.  Written atomically."""
+    save_state_dict(path, encoder.state_dict())
+
+
+def save_state_dict(path: str, sd: Dict[str, torch.Tensor]) -> None:
+    """A state dict, copied to the host, written atomically to `path`."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    _write(_host(encoder.state_dict()), os.path.abspath(path))
+    _write(_host(sd), os.path.abspath(path))
 
 
 def _unflatten(path: str) -> dict:

@@ -47,7 +47,8 @@
 // ldmatrix, bf16 operands, fp32 accumulators in registers): (a) S = Q·K^T,
 // dP = dO·V^T, dQ += dS·K; (b) S^T = K·Q^T, dP^T = V·dO^T, dV += P^T·dO,
 // dK += dS^T·Q.  P and dS are fp32 in registers and rounded to bf16 only as
-// the A operand of the next product.  In (a) the fp32 dS of two key tiles
+// the A operand of the next product; for dQ, dS is that bf16 part plus the
+// bf16 of its rest, two products (`a_split_from_c`).  In (a) the fp32 dS of two key tiles
 // goes to shared memory (in the memory q and dO came through), where each
 // (row, key-row bin) and (row, key-column bin) has one owning thread that
 // adds its sum into the block's d(rel_h)/d(rel_w) rows, kept in shared
@@ -529,17 +530,22 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // dQ += dS·K on the tensor cores
+    // dQ += dS·K on the tensor cores, dS as its bf16 part and the bf16 of
+    // its rest (two products): dS is P·(dP − delta) with |dP| ~ ‖dO‖·‖V‖, and
+    // rounded once to bf16 it put dQ two bf16 ulps off the fp32 product at
+    // short rows (N = 36, the OSCD 96² recipes' grid)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      mtp::a_from_c(a, s[2 * kk], s[2 * kk + 1]);
+      uint32_t a[4], rest[4];
+      mtp::a_split_from_c(a, rest, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         uint32_t b[4];
         mtp::ldmatrix_x4_trans(b, kt + mtp::b_frag_offset_kn(lane, kk * 16, nd * 8, LD));
         mtp::mma_bf16(dqa[nd], a, b[0], b[1]);
+        mtp::mma_bf16(dqa[nd], rest, b[0], b[1]);
         mtp::mma_bf16(dqa[nd + 1], a, b[2], b[3]);
+        mtp::mma_bf16(dqa[nd + 1], rest, b[2], b[3]);
       }
     }
 

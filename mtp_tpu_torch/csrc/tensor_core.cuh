@@ -93,6 +93,25 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// What the bf16 pair `hi` (from pack_bf16(x0, x1)) leaves of x0 and x1, as
+// a bf16 pair: hi + rest carries each value to ~16 significant bits.
+__device__ __forceinline__ uint32_t pack_bf16_rest(float x0, float x1, uint32_t hi) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  return pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// `a_from_c` and the fragment of its rest (`pack_bf16_rest`): a product
+// taken as a·b + rest·b rounds the fp32 left operand ~2^8 more finely than
+// a·b alone.
+__device__ __forceinline__ void a_split_from_c(uint32_t (&a)[4], uint32_t (&rest)[4],
+                                               const float (&c0)[4], const float (&c1)[4]) {
+  a_from_c(a, c0, c1);
+  rest[0] = pack_bf16_rest(c0[0], c0[1], a[0]);
+  rest[1] = pack_bf16_rest(c0[2], c0[3], a[1]);
+  rest[2] = pack_bf16_rest(c1[0], c1[1], a[2]);
+  rest[3] = pack_bf16_rest(c1[2], c1[3], a[3]);
+}
+
 // ldmatrix addresses in a row-major bf16 tile of row stride ld (elements),
 // for the thread of `lane`:
 // the A fragment of rows r0..r0+15, columns c0..c0+15;

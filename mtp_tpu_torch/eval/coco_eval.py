@@ -9,8 +9,9 @@ maxDets sweep, 101-point interpolated precision, and the standard 12-stat
 summary (AP, AP50, AP75, AP_s/m/l, AR@1/10/100, AR_s/m/l).
 
 Inputs are per-image dicts of unpadded numpy arrays (the framework's eval
-interchange format) rather than COCO json.  Mask IoU is the dense float64
-product; the JAX package's packed-popcount native fast path is not ported.
+interchange format) rather than COCO json.  Mask IoU goes through the
+native host library's packed popcount (`utils/native.mask_iou_native`), as
+in JAX, and is the dense float64 product where the library is absent.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from mtp_tpu_torch.utils.native import mask_iou_native
 
 # pycocotools defaults
 IOU_THRS = np.linspace(0.5, 0.95, 10)
@@ -49,13 +52,18 @@ def _bbox_iou_crowd(dt: np.ndarray, gt: np.ndarray,
 
 def _mask_iou_crowd(dt: np.ndarray, gt: np.ndarray, crowd: np.ndarray):
     """(IoU (D, G), det areas (D,), gt areas (G,)) for binary masks
-    dt (D, H, W), gt (G, H, W): intersections as one float64 product."""
+    dt (D, H, W), gt (G, H, W).  Fast path: the packed-popcount C++ kernel
+    (native/mtp_native.cc mask_iou_packed); areas come from the same
+    popcounts.  Without the library: intersections as one float64 product."""
     if len(dt) == 0 or len(gt) == 0:
         ad = dt.sum(axis=(1, 2)).astype(np.float64) \
             if dt.ndim == 3 else np.zeros(len(dt))
         ag = gt.sum(axis=(1, 2)).astype(np.float64) \
             if gt.ndim == 3 else np.zeros(len(gt))
         return np.zeros((len(dt), len(gt)), np.float64), ad, ag
+    native = mask_iou_native(dt, gt, crowd)
+    if native is not None:
+        return native
     d = dt.reshape(len(dt), -1).astype(np.float64)
     g = gt.reshape(len(gt), -1).astype(np.float64)
     inter = d @ g.T

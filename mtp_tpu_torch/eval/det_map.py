@@ -3,8 +3,10 @@ copy of `mtp_tpu/eval/det_map.py`: `np_bbox_iou`, `np_rbox_iou`,
 `np_quad_iou`, `average_precision`, `tpfp`, `eval_map` (VOC-style, for
 horizontal and rotated boxes), `parse_patch_id`, `merge_dota_patches`,
 `rbox_to_quad_np` and the DOTA and FAIR1M submission writers).  Rotated
-and quadrilateral IoU are the port's plain versions on CPU tensors; the
-COCO protocol is `eval/coco_eval.py`."""
+and quadrilateral IoU go through the native host library's clipping
+(`utils/native`), as in JAX, and are the port's plain versions on CPU
+tensors where the library is absent; the COCO protocol is
+`eval/coco_eval.py`."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from mtp_tpu_torch.ops.rotated_boxes import quad_overlaps, rbox_overlaps_ref
+from mtp_tpu_torch.utils.native import quad_iou_native, rbox_iou_native
 
 
 def np_bbox_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -35,20 +38,28 @@ def np_bbox_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def _on_cpu(fn, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     if len(a) == 0 or len(b) == 0:
         return np.zeros((len(a), len(b)), np.float32)
-    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32))
     return fn(t(a), t(b)).numpy()
 
 
 def np_rbox_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Rotated IoU of (N, 5) and (M, 5) rboxes on the host, fp32 (the plain
-    `rbox_overlaps`)."""
-    return _on_cpu(rbox_overlaps_ref, a, b)
+    """Rotated IoU of (N, 5) and (M, 5) rboxes on the host, fp32: the C++
+    clipping kernel (native/mtp_native.cc) when built, else the plain
+    `rbox_overlaps`."""
+    if len(a) == 0 or len(b) == 0:
+        return np.zeros((len(a), len(b)), np.float32)
+    native = rbox_iou_native(a, b)
+    return native if native is not None else _on_cpu(rbox_overlaps_ref, a, b)
 
 
 def np_quad_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """IoU of convex quadrilaterals (N, 8) and (M, 8) on the host, fp32 (the
-    nms_quadri path of the reference merge, rotated_detection/metric.py:533)."""
-    return _on_cpu(quad_overlaps, a, b)
+    nms_quadri path of the reference merge, rotated_detection/metric.py:533):
+    the C++ clipping kernel when built, else the plain `quad_overlaps`."""
+    if len(a) == 0 or len(b) == 0:
+        return np.zeros((len(a), len(b)), np.float32)
+    native = quad_iou_native(a, b)
+    return native if native is not None else _on_cpu(quad_overlaps, a, b)
 
 
 def average_precision(recall: np.ndarray, precision: np.ndarray,

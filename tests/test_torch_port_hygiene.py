@@ -67,6 +67,21 @@ SLICE_MODULES = [
     "mtp_tpu_torch.models.retinanet",
     "mtp_tpu_torch.models.multitask",
     "mtp_tpu_torch.tasks.multitask",
+    "mtp_tpu_torch.configs",
+    "mtp_tpu_torch.utils.log",
+    "mtp_tpu_torch.utils.native",
+    "mtp_tpu_torch.data.transforms",
+    "mtp_tpu_torch.data.parsers",
+    "mtp_tpu_torch.data.pipelines",
+    "mtp_tpu_torch.data.datasets",
+    "mtp_tpu_torch.data.loader",
+    "mtp_tpu_torch.data.bindings",
+    "mtp_tpu_torch.eval.host_masks",
+    "mtp_tpu_torch.eval.coco_results",
+    "mtp_tpu_torch.eval.tta",
+    "mtp_tpu_torch.cli.train",
+    "mtp_tpu_torch.cli.test",
+    "mtp_tpu_torch.cli.convert",
     "chip_smoke",
 ]
 
@@ -85,7 +100,10 @@ def test_imports_without_jax_flax_or_the_jax_package():
         for name in {SLICE_MODULES!r}:
             importlib.import_module(name)
         from mtp_tpu_torch.kernels import _build
+        from mtp_tpu_torch.utils import native
         assert _build._lib is None, "a kernel library was loaded at import"
+        assert native._lib is None and not native._tried, \
+            "the native host library was loaded at import"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "mtp_tpu", "triton")
                      and sys.modules[m] is not None)
@@ -119,48 +137,29 @@ def test_config_copies_match_the_jax_package():
         for kw in ({}, {"out_indices": (1, 2, 3, 4), "drop_path_rate": 0.3}):
             assert dataclasses.asdict(getattr(pc, factory)(384, **kw)) == \
                 dataclasses.asdict(getattr(jc, factory)(384, **kw))
-    recipe = pc.rvsa_l_upernet_384_spacenetv1()
+    # the recipes that chip_smoke.py runs, each with its other init tag
+    from mtp_tpu_torch import configs as precipes
     for name in ("rvsa-l-upernet-384-mae-mtp-spacenetv1",
-                 "rvsa-l-upernet-384-mae-spacenetv1"):
-        assert dataclasses.asdict(recipe) == \
+                 "rvsa-l-upernet-384-mae-spacenetv1",
+                 "vit-rvsa-l-224-mae-mtp_eurosat", "vit-rvsa-l-224-mae_eurosat",
+                 "intern-xl-224-imp-mtp_eurosat", "intern-xl-224-imp_eurosat",
+                 "rvsa-l-unet-256-mae-mtp_levir", "rvsa-l-unet-256-mae_levir",
+                 "intern-xl-unet-256-imp-mtp_levir", "intern-xl-unet-256-imp_levir",
+                 "faster_rcnn_rvsa_l_800_mae_mtp_dior", "faster_rcnn_rvsa_l_800_mae_dior",
+                 "faster_rcnn_intern_xl_800_imp_mtp_dior",
+                 "faster_rcnn_intern_xl_800_imp_dior",
+                 "oriented_rcnn_rvsa_l_800_mae_mtp_diorr",
+                 "oriented_rcnn_rvsa_l_800_mae_diorr",
+                 "oriented_rcnn_intern_xl_800_imp_mtp_diorr",
+                 "oriented_rcnn_intern_xl_800_imp_diorr",
+                 "mask_rcnn_rvsa_l_1024_mae_mtp_coco", "mask_rcnn_rvsa_l_1024_mae_coco",
+                 "mask_rcnn_intern_xl_1024_imp_mtp_coco",
+                 "mask_rcnn_intern_xl_1024_imp_coco",
+                 "retinanet_rvsa_l_416_mae_mtp_xview", "retinanet_rvsa_l_416_mae_xview",
+                 "retinanet_intern_xl_416_imp_mtp_xview",
+                 "retinanet_intern_xl_416_imp_xview"):
+        assert dataclasses.asdict(precipes.get(name).task) == \
             dataclasses.asdict(jrecipes.get(name).task), name
-    for factory, names in (
-            (pc.vit_rvsa_l_224_eurosat, ("vit-rvsa-l-224-mae-mtp_eurosat",
-                                         "vit-rvsa-l-224-mae_eurosat")),
-            (pc.intern_xl_224_eurosat, ("intern-xl-224-imp-mtp_eurosat",
-                                        "intern-xl-224-imp_eurosat")),
-            (pc.rvsa_l_unet_256_levir, ("rvsa-l-unet-256-mae-mtp_levir",
-                                        "rvsa-l-unet-256-mae_levir")),
-            (pc.intern_xl_unet_256_levir, ("intern-xl-unet-256-imp-mtp_levir",
-                                           "intern-xl-unet-256-imp_levir"))):
-        for name in names:
-            assert dataclasses.asdict(factory()) == \
-                dataclasses.asdict(jrecipes.get(name).task), name
-    for factory, names in (
-            (pc.faster_rcnn_rvsa_l_800_dior, ("faster_rcnn_rvsa_l_800_mae_mtp_dior",
-                                              "faster_rcnn_rvsa_l_800_mae_dior")),
-            (pc.faster_rcnn_intern_xl_800_dior, ("faster_rcnn_intern_xl_800_imp_mtp_dior",
-                                                 "faster_rcnn_intern_xl_800_imp_dior")),
-            (pc.oriented_rcnn_rvsa_l_800_diorr, ("oriented_rcnn_rvsa_l_800_mae_mtp_diorr",
-                                                 "oriented_rcnn_rvsa_l_800_mae_diorr")),
-            (pc.oriented_rcnn_intern_xl_800_diorr,
-             ("oriented_rcnn_intern_xl_800_imp_mtp_diorr",
-              "oriented_rcnn_intern_xl_800_imp_diorr"))):
-        for name in names:
-            assert dataclasses.asdict(factory()) == \
-                dataclasses.asdict(jrecipes.get(name).task), name
-    for factory, names in (
-            (pc.mask_rcnn_rvsa_l_1024_coco, ("mask_rcnn_rvsa_l_1024_mae_mtp_coco",
-                                             "mask_rcnn_rvsa_l_1024_mae_coco")),
-            (pc.mask_rcnn_intern_xl_1024_coco, ("mask_rcnn_intern_xl_1024_imp_mtp_coco",
-                                                "mask_rcnn_intern_xl_1024_imp_coco")),
-            (pc.retinanet_rvsa_l_416_xview, ("retinanet_rvsa_l_416_mae_mtp_xview",
-                                             "retinanet_rvsa_l_416_mae_xview")),
-            (pc.retinanet_intern_xl_416_xview, ("retinanet_intern_xl_416_imp_mtp_xview",
-                                                "retinanet_intern_xl_416_imp_xview"))):
-        for name in names:
-            assert dataclasses.asdict(factory()) == \
-                dataclasses.asdict(jrecipes.get(name).task), name
     from mtp_tpu.models.retinanet import RetinaConfig as JaxRetinaConfig
     assert [(f.name, f.type, f.default) for f in dataclasses.fields(pc.RetinaConfig)] == \
         [(f.name, f.type, f.default) for f in dataclasses.fields(JaxRetinaConfig)]
@@ -194,8 +193,9 @@ def test_multitask_recipes_match_the_jax_package(factory):
     from mtp_tpu import configs as jrecipes
     from mtp_tpu.models.multitask import SAMRS_CLASSES
     from mtp_tpu_torch import config as pc
+    from mtp_tpu_torch import configs as precipes
 
-    assert dataclasses.asdict(getattr(pc, factory)()) == \
+    assert dataclasses.asdict(precipes.get(factory).task) == \
         dataclasses.asdict(jrecipes.get(factory).task)
     assert pc.SAMRS_CLASSES == SAMRS_CLASSES
 

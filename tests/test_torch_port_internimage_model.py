@@ -92,7 +92,9 @@ def test_config_and_recipe_copies_match_the_jax_package():
             # the InternImage config the JAX factory builds from the shell
             assert dataclasses.asdict(pc.internimage_config(shell)) == \
                 dataclasses.asdict(jb.build_backbone(shell).cfg)
-    recipe = pc.intern_xl_upernet_512_loveda()
+    from mtp_tpu_torch import configs as precipes
+
+    recipe = precipes.get("intern-xl-upernet-512-imp-mtp-loveda").task
     for name in ("intern-xl-upernet-512-imp-mtp-loveda",
                  "intern-xl-upernet-512-imp-loveda"):
         assert dataclasses.asdict(recipe) == \

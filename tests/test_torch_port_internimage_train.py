@@ -205,7 +205,9 @@ def test_second_step_from_converted_optax_state(jax_two_steps):
 def test_task_defaults_to_the_card():
     """`SegmentationTask` runs on the card unless the caller asks for the
     CPU (the attribute only: nothing is moved, no card is needed)."""
-    cfg = pc.intern_xl_upernet_512_loveda()
+    from mtp_tpu_torch import configs
+
+    cfg = configs.get("intern-xl-upernet-512-imp-mtp-loveda").task
     model = torch.nn.Linear(1, 1)  # the task only holds it here
     assert SegmentationTask(cfg, model=model).device == torch.device("cuda")
     assert SegmentationTask(cfg, model=model, device="cpu").device.type == "cpu"
