@@ -144,8 +144,9 @@ Phases; any failure raises, so the exit code is non-zero:
 12-15. The same four for the ViT recipe at 2080² with remat (backbone
    img_size 2080, remat on, batch 1, slide crop 2080): logits and fp32
    gradients (remat, dropout and drop-path on, the masks drawn on the CPU
-   for both runs) card vs CPU at a 2080×112 strip (grid 130×7, N = 910:
-   K1L and K7 on the card); serving one 2080² tile (one crop); the train
+   for both runs; the gradients on the first 6 blocks, one of them full)
+   card vs CPU at a 2080×112 strip (grid 130×7, N = 910: K1L and K7 on the
+   card); serving one 2080² tile (one crop); the train
    step, batch 1 of 2080², bf16 autocast, 1 warm-up and 3 timed steps.
 16. Classification, ViT-L and InternImage-XL at 224²: fp32 logits of 2
    images card vs CPU; the recipe's train step (batch 8, bf16, drop-path,
@@ -159,8 +160,8 @@ Phases; any failure raises, so the exit code is non-zero:
    the train step at 4 pairs through `ChangeDetectionTask` (one backbone
    pass over the 8 stacked images), `predict_fn` and `evaluate`
    (F1_change), as phase 16.
-18. Checkpointing on the XL classifier: `fit` 3 steps with a
-   `CheckpointStore` (ckpt_every 2) and the encoder export; step 2 restored
+18. Checkpointing on the XL classifier: `fit` 2 steps with a
+   `CheckpointStore` (its final save) and the encoder export; step 2 restored
    into a fresh task bit for bit; the next step from it against one from
    an in-process copy of step 2 (by their updates, RESUME_RTOL), with a
    control whose Adam moments are zeroed; the ViT-L classifier's encoder
@@ -239,6 +240,26 @@ Phases; any failure raises, so the exit code is non-zero:
    the training again with 0 workers; the native host library built and
    loaded.  Launches exact in each run; step_time, data_time (4 and 0
    workers), the checkpoint saves' and each run's wall times.
+25. Data parallel (`phase_ddp`, after phase 7, from its state): the DDP
+   step (`parallel.mesh`) of rvsa-l-upernet-384-mae-mtp-spacenetv1, batch 8
+   of 384²: (a) in this process, in an NCCL group of one rank over a
+   FileStore, the bf16 step's ms with and without the process group, the
+   all-reduce's ms and bytes, then 2 fp32 steps through the DDP step
+   against 2 through the plain one (phase 6's rule; launches exact) at
+   identity RVSA sampling without dropout; (b) two spawned processes on
+   the card over gloo, 4 rows each of the same global batches, from a
+   checkpoint this process writes as rank 0: the ranks' states bit for bit
+   equal, rank 0's first gradients within phase 6's rule of (b)'s
+   arithmetic emulated in one process (`split_grads`, whose distance from
+   (a) is printed), within phase 6's stochastic rule of (a)'s
+   (`two_ranks_rule`), and a control in which rank 1 keeps its own
+   gradients, which must fail.  25c
+   (`phase_carafe`): `MaskHead(upsample="carafe")` at 512 RoIs × 256 × 14²,
+   card vs CPU, logits and gradients.  25d (`phase_patch8`): the patch-8
+   ViT-B+RVSA at a 384×128 strip, card vs CPU, levels and gradients, K1-K6
+   launches exact.
+Every path runs its recipe's backbone at full depth but phase 14's
+gradients, on the first 6 blocks of the 2080² ViT-L.
 Registry recipes only: every path takes its recipe through
 `mtp_tpu_torch.configs.get` under the JAX package's name.  Phase 3f also
 holds the kernels at the shapes of the registry's OSCD 96² recipes
@@ -264,13 +285,17 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 from pathlib import Path as FilePath
 from unittest import mock
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, ClassVar, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mtp_tpu_torch import configs
@@ -280,19 +305,23 @@ from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
 from mtp_tpu_torch.cli import test as cli_test
 from mtp_tpu_torch.cli import train as cli_train
 from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
-from mtp_tpu_torch.core.train import create_state
+from mtp_tpu_torch.core import train as core_train
+from mtp_tpu_torch.core.train import create_state, make_train_step
 from mtp_tpu_torch.config import (SAMRS_CLASSES, ScheduleConfig, SlideConfig, TaskConfig,
+                                  vit_b_rvsa,
                                   internimage_config, is_internimage)
 from mtp_tpu_torch.data.parsers import mask_to_rle, rle_to_mask
 from mtp_tpu_torch.eval.masks import mask_probabilities, paste_masks, paste_masks_device
 from mtp_tpu_torch.eval.slide import slide_origins
+from mtp_tpu_torch.heads import upernet as pupernet
+from mtp_tpu_torch.heads.roi_heads import MaskHead
 from mtp_tpu_torch.heads.rpn import gen_proposals
 from mtp_tpu_torch.kernels import _build
 from mtp_tpu_torch.models import retinanet as pretina
 from mtp_tpu_torch.models.internimage import internimage_flops
 from mtp_tpu_torch.models.multitask import MultiTaskPretrainModel
 from mtp_tpu_torch.models.segmentor import Segmentor
-from mtp_tpu_torch.models.vit_rvsa import backbone_flops
+from mtp_tpu_torch.models.vit_rvsa import ViTRVSA, backbone_flops
 from mtp_tpu_torch.ops import dcnv3_sample as dcn
 from mtp_tpu_torch.ops import fused_attn
 from mtp_tpu_torch.ops import nms as pnms
@@ -300,6 +329,7 @@ from mtp_tpu_torch.ops import rotated_boxes as prb
 from mtp_tpu_torch.ops.assign import SampleResult
 from mtp_tpu_torch.ops.boxes import bbox_overlaps
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
+from mtp_tpu_torch.parallel import mesh as pmesh
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
 from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
@@ -424,10 +454,25 @@ class Path:
     warm_steps: int                      # phases 7 / 11 / 15: after the counted step
     train_steps: int                     # timed steps
     eval_tiles: Tuple[int, int]          # (count, size) for `evaluate`
+    grad_depth: int = 0                  # phase 14: the model's first
+                                         # blocks only (0: all), launching
+    grad_per_step: Optional[Dict[str, int]] = None  # these in the card's run
 
     @property
     def grad_rtol(self) -> Dict[str, float]:
         return GRAD_RTOL_STOCHASTIC if self.grad_stochastic else GRAD_RTOL
+
+    def gradient_path(self) -> "Path":
+        """The path whose model the gradient phase checks: this one, or with
+        `grad_depth` the recipe's backbone cut to its first blocks (taps
+        spread over them, every `interval`-th still full attention) and
+        `grad_per_step` as its launches."""
+        if not self.grad_depth:
+            return self
+        d, bb = self.grad_depth, self.recipe.backbone
+        cut = dataclasses.replace(bb, depth=d, out_indices=(d // 4, d // 2, 3 * d // 4, d - 1))
+        return dataclasses.replace(self, recipe=dataclasses.replace(self.recipe, backbone=cut),
+                                   per_step=self.grad_per_step, grad_depth=0)
 
 
 def recipe(name: str) -> TaskConfig:
@@ -482,8 +527,9 @@ PATHS = {
     # other paths (at batch 1 the PSP pooling branches' BatchNorm sees 1-9
     # values of one image per channel, which makes the gradients more
     # sensitive to rounding), and the gradients at identity sampling (see
-    # `phase_gradients`) and GRAD_RTOL_STOCHASTIC.  1 warm-up step (the
-    # counted one) and 3 timed steps.
+    # `phase_gradients`) and GRAD_RTOL_STOCHASTIC, on the first 6 blocks
+    # (5 RVSA, 1 full: every kernel of the path; remat runs each forward
+    # twice).  1 warm-up step (the counted one) and 3 timed steps.
     "rvsa_hr": Path(
         name="rvsa_hr", recipe=RVSA_HR,
         flops=lambda crop: backbone_flops(RVSA_HR.backbone, (crop, crop)),
@@ -492,7 +538,9 @@ PATHS = {
                           window_bwd=20, window_bwd_qblk=4, bilinear_sample_bwd=40),
         cpu_hw=(HR_CROP, 112), tile=HR_CROP, tiles=1, serve_iters=3, grad_batch=2,
         grad_stochastic=True, head_prefixes=("backbone.fpn", "decode_head."),
-        warm_steps=0, train_steps=3, eval_tiles=(1, HR_CROP)),
+        warm_steps=0, train_steps=3, eval_tiles=(1, HR_CROP), grad_depth=6,
+        grad_per_step=launches(window=10, window_large=2, bilinear_sample=20,
+                               window_bwd=5, window_bwd_qblk=1, bilinear_sample_bwd=10)),
 }
 
 KERNELS = {
@@ -1709,9 +1757,14 @@ def phase_oscd_kernels() -> None:
     128 maps of the padded 7² grid.  InternImage-XL: K8 forward and
     backward on its four stage maps, 24², 12², 6² and 3² (12, 24, 48 and 96
     groups of 16 channels), random offsets; 6² and 3² are smaller than one
-    16×16 tile of K6's tiled body."""
+    16×16 tile of K6's tiled body.  `tools/time_oscd.py` times these rows."""
+    check_kernels(oscd_cases(), record_label=None, timed=False)
+
+
+def oscd_cases() -> dict:
+    """The cases of `phase_oscd_kernels`, by kernel."""
     W, BH = OSCD_IMAGES, OSCD_IMAGES * 16
-    check_kernels({
+    return {
         "window": [("96² W=8", window_case(W, 16, 49, 64, 111, controls=True))],
         "window_bwd": [("96² W=8", window_case(W, 16, 49, 64, 112, bwd=True,
                                                controls=True))],
@@ -1729,7 +1782,7 @@ def phase_oscd_kernels() -> None:
         "dcnv3_bwd": [(f"96² stage{s} {hw}²", dcnv3_case(OSCD_IMAGES, hw, G, 16, 121 + s,
                                                          "random", bwd=True, record=True))
                       for s, (hw, G) in enumerate(((24, 12), (12, 24), (6, 48), (3, 96)))],
-    }, record_label=None, timed=False)
+    }
 
 
 # ------------------------------------------------------------ phase 3g --
@@ -2376,8 +2429,9 @@ def cycle(batches):
         yield from batches
 
 
-def phase_train(path: Path, card: str) -> dict:
-    """The recipe's train step through the task's entry points."""
+def phase_train(path: Path, card: str, ranks: Optional["DdpRanks"] = None) -> dict:
+    """The recipe's train step through the task's entry points; with `ranks`
+    phase 25 from its state, then 25c and 25d."""
     recipe = path.recipe
     crop, K = recipe.backbone.img_size, recipe.num_classes
     batch_size = recipe.train.batch_size
@@ -2444,6 +2498,16 @@ def phase_train(path: Path, card: str) -> dict:
     if not all(0.0 <= metrics[k] <= 100.0 for k in ("mIoU", "mAcc", "aAcc")):
         raise AssertionError(f"bad evaluate metrics {metrics}")
 
+    if ranks is not None:  # phase 25 takes phase 7's state
+        with phase_time("ddp (with 25c-d's CPU references on a thread)"):
+            refs = phase_ddp(state, path, card, ranks,
+                             lambda: (carafe_reference(), patch8_reference()))["extra"]
+        free()
+        with phase_time("carafe and patch 8 on the card"):
+            phase_carafe(refs[0])
+            phase_patch8(refs[1])
+        del refs
+        free()
     sanity_run(task, batches[0], tag, initial)
     return launched
 
@@ -2475,6 +2539,627 @@ def sanity_run(task, batch, tag: str, initial: Dict[str, torch.Tensor]) -> None:
         f"steps, loss {' '.join(f'{x:.4f}' for x in losses)}")
     if not min(losses[-3:]) < losses[0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {losses}")
+
+
+# --------------------------------------------------------------- phase 25 --
+
+# the ViT recipe's DDP step (`parallel.mesh`) from phase 7's state.  The
+# comparisons run in fp32, TF32 off: two worlds split the batch into GEMMs of
+# other sizes, which bf16 would round apart; the times run in the recipe's
+# bf16.
+DDP_FP32 = dataclasses.replace(RVSA, backbone=dataclasses.replace(RVSA.backbone,
+                                                                  dtype="float32"))
+DDP_STEPS = 2          # steps compared, each on its own global batch of 8
+DDP_TIMED = 4          # steps in each timed block (A B B A)
+DDP_WAIT = 600.0       # s a rank waits for the go, the parent for the ranks
+DDP_WAIT_CHECKPOINT = 1200.0  # s a rank, spawned before phase 6, waits for phase 7's state
+
+
+def _ddp_batches(path: Path) -> List[dict]:
+    """The compared steps' global batches of 8; row 0 (rank 0's) ignores a
+    block of pixels more, so that the loss's normaliser counts over both
+    ranks."""
+    crop, K = path.recipe.backbone.img_size, path.recipe.num_classes
+    out = []
+    for i in range(DDP_STEPS):
+        b = synthetic_batch(path.recipe.train.batch_size, (crop, crop), K, SEED + 60 + i)
+        b["label"][0, 96:192, 64:320] = 255
+        out.append(b)
+    return out
+
+
+def _ddp_steps(step_fn, state, batches, device, keep=lambda t: t.detach().cpu()) -> dict:
+    """`step_fn` over `batches`: each step's metrics, the gradients of the
+    first step (as it applied them), and the model's state dict after, each
+    tensor through `keep` (a copy on the host unless told otherwise)."""
+    out = {"metrics": [], "grads": None}
+    for b in batches:
+        state, m = step_fn(state, to_device(b, device))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if out["grads"] is None:
+            out["grads"] = {n: keep(p.grad) for n, p in state.model.named_parameters()}
+    out["state"] = {k: keep(v) for k, v in state.model.state_dict().items()}
+    return out
+
+
+
+
+
+def _ddp_verdict(path: Path, got: dict, ref: dict, start: Dict[str, torch.Tensor],
+                 adam: Dict[str, float]) -> Tuple[bool, str]:
+    """(within, summary) of a run of the compared steps against another from
+    the same state `start`: the first step's loss and gradients by phase 6's
+    rule (`_grad_verdict`); each step's loss (LOSS_RTOL) and grad_norm (the
+    backbone's rtol); after the steps the BatchNorm running statistics and
+    the parameters by phase 6's rule (each within rtol·‖x‖ + GRAD_ATOL·‖all‖,
+    the "convs" rtol), and each parameter elementwise within `adam[name]`
+    (2·Σ lr·scale over the steps: Adam moves a parameter whose gradient is
+    rounding residue, as the conv biases before train-mode BatchNorm are,
+    by ±lr·scale either way) plus two fp32 ulps of its largest element.
+    The updates' ‖Δu‖/‖u‖ is reported: those biases' sign flips dominate
+    it."""
+    ok, summary = _grad_verdict(path, (ref["metrics"][0]["loss"], ref["grads"]),
+                                (got["metrics"][0]["loss"], got["grads"]))
+    bad = []
+    for i, (m, r) in enumerate(zip(got["metrics"], ref["metrics"])):
+        if not abs(m["loss"] - r["loss"]) <= LOSS_RTOL * abs(r["loss"]):
+            bad.append(f"step {i + 1} loss {m['loss']} vs {r['loss']}")
+        if not abs(m["grad_norm"] - r["grad_norm"]) <= GRAD_RTOL["backbone"] * r["grad_norm"]:
+            bad.append(f"step {i + 1} grad_norm {m['grad_norm']} vs {r['grad_norm']}")
+    rtol = path.grad_rtol["convs"]
+    params = list(ref["grads"])
+    for names in ([n for n in ref["state"] if "running_" in n], params):
+        total = math.sqrt(sum(float(ref["state"][n].double().square().sum()) for n in names))
+        bad += [n for n in names if not float((got["state"][n] - ref["state"][n]).norm())
+                <= rtol * float(ref["state"][n].norm()) + GRAD_ATOL * total]
+    u_ref = torch.cat([(ref["state"][n] - start[n]).reshape(-1) for n in params])
+    u_got = torch.cat([(got["state"][n] - start[n]).reshape(-1) for n in params])
+    u_rel = float((u_got - u_ref).norm() / u_ref.norm())
+    eps = torch.finfo(torch.float32).eps
+    worst = max(((float((got["state"][n] - ref["state"][n]).abs().max())
+                  / (adam[n] + 2 * eps * float(ref["state"][n].abs().max())), n)
+                 for n in params), default=(0.0, ""))
+    if not worst[0] <= 1.0:
+        bad.append(f"{worst[1]} at {worst[0]:.2f}× its Adam bound")
+    losses = " ".join(f"{m['loss']:.6f}/{r['loss']:.6f}" for m, r in zip(got["metrics"],
+                                                                      ref["metrics"]))
+    norms = " ".join(f"{m['grad_norm']:.6f}/{r['grad_norm']:.6f}"
+                     for m, r in zip(got["metrics"], ref["metrics"]))
+    return ok and not bad, (f"losses {losses}; grad_norm {norms}; after "
+                            f"{len(ref['metrics'])} steps the parameters' largest |Δ| "
+                            f"{worst[0]:.3f} of their Adam bound at {worst[1]}, updates "
+                            f"‖Δu‖/‖u‖ {u_rel:.3e}; first step's {summary}"
+                            + (f"; outside: {bad[:6]}" if bad else ""))
+
+
+def identity_sampling(model) -> None:
+    """Zero the RVSA sampling regressors: every K/V tap on the identity grid,
+    whose coordinates both sides compute bit for bit (phase 14's device)."""
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if ".attn.sampling_" in name:
+                prm.zero_()
+
+
+class _PairSum(torch.autograd.Function):
+    """The all-reduce of two emulated ranks (`split_grads`): x0 + x1 for
+    each (gloo's sum of two), and the gradient of either copy flows to both
+    summands (the all-reduce's backward)."""
+
+    @staticmethod
+    def forward(ctx, x0: torch.Tensor, x1: torch.Tensor):
+        s = x0 + x1
+        return s, s.clone()
+
+    @staticmethod
+    def backward(ctx, g0: torch.Tensor, g1: torch.Tensor):
+        g = g0 + g1
+        return g, g.clone()
+
+
+def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """(the ranks' mean loss, the averaged gradients) of a world of two
+    ranks emulated in this process, with no process group: rank r's copy of
+    `model` takes rank r's half of `batch` on a thread of its own, the two
+    taking turns; at each all-reduce of the loss (BatchNorm's sums, the loss
+    normalizers) the second rank joins both halves' tensors in one
+    `_PairSum`, so one backward over the two losses carries the gradient
+    across as the all-reduce's backward does; each copy's gradients are the
+    rank's, and their fp32 sum halved is `reduce_gradients`' average.  The
+    same arithmetic as phase 25(b)'s two processes at the same shapes, in
+    one process; against the whole batch's step it differs in the order of
+    fp32 summation only (GEMMs, convolutions and reductions over 4 rows
+    twice, not 8 once)."""
+    models = [copy.deepcopy(model) for _ in range(2)]
+    halves = [{k: v[r * len(v) // 2:(r + 1) * len(v) // 2] for k, v in batch.items()}
+              for r in range(2)]
+    local = threading.local()
+    cv = threading.Condition()
+    st = {"turn": 0, "slots": [None, None], "out": None, "failed": False}
+    losses: List[Optional[torch.Tensor]] = [None, None]
+    errors: List[BaseException] = []
+
+    def wait_turn(r: int) -> None:  # with cv held
+        if not cv.wait_for(lambda: st["turn"] == r or st["failed"], timeout=DDP_WAIT):
+            raise TimeoutError("the other emulated rank never reached the all-reduce")
+        if st["failed"]:
+            raise RuntimeError("the other emulated rank failed")
+
+    def pair_sum(x: torch.Tensor) -> torch.Tensor:
+        r = getattr(local, "rank", None)
+        if r is None:  # another thread of this process (phase 25's background work)
+            return real["sum"](x)
+        with cv:
+            st["slots"][r] = x
+            if r == 1:
+                st["out"] = _PairSum.apply(*st["slots"])
+            st["turn"] = 1 - r
+            cv.notify_all()
+            wait_turn(r)
+            return st["out"][r]
+
+    def body(r: int) -> None:
+        local.rank = r
+        try:
+            with cv:
+                wait_turn(r)
+            losses[r] = loss_fn(models[r], halves[r])
+        except BaseException as e:  # noqa: BLE001 -- re-raised by the caller
+            errors.append(e)
+            with cv:
+                st["failed"] = True
+                cv.notify_all()
+            return
+        with cv:
+            st["turn"] = 1 - r
+            cv.notify_all()
+
+    real = {"sum": pmesh.all_reduce_sum, "world": pmesh.world_size, "rank": pmesh.rank}
+    emulated = lambda name, value: (lambda: value(local.rank) if hasattr(local, "rank")
+                                    else real[name]())
+    with mock.patch.object(pmesh, "all_reduce_sum", pair_sum), \
+            mock.patch.object(pupernet, "all_reduce_sum", pair_sum), \
+            mock.patch.object(pmesh, "world_size", emulated("world", lambda r: 2)), \
+            mock.patch.object(pmesh, "rank", emulated("rank", lambda r: r)):
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    torch.autograd.backward(losses)
+    rank_grad = lambda p: torch.zeros_like(p) if p.grad is None else p.grad.float()
+    grads = {n: (rank_grad(p0) + rank_grad(p1)) / 2 for (n, p0), p1 in
+             zip(models[0].named_parameters(), models[1].parameters())}
+    return float((losses[0].detach() + losses[1].detach()) / 2), grads
+
+
+def two_ranks_rule(path: Path) -> Path:
+    """The rule (b) holds the two ranks' run to (a)'s by: phase 6's at
+    GRAD_RTOL_STOCHASTIC, as phase 14 holds its identity-sampling strip.
+    The compared steps run without dropout and drop-path (the CPU tests hold
+    the global-row draws, world 2 against world 1 within 1e-5) and with the
+    RVSA regressors zeroed (`identity_sampling`): a tap within rounding of
+    an integer takes the other one-sided derivative and moves its
+    regressor's gradient by percents (readings with the recipe's
+    regressors and dropout on, backbone max: 6.1e-4 to 4.3e-2 over runs).
+    The rest is the order of fp32 summation: (b) runs its GEMMs,
+    convolutions and reductions over 4 rows, (a) over 8.  `split_grads`
+    runs (b)'s arithmetic in (a)'s process, with no process group, and
+    phase 25 prints its distance from (a) beside (b)'s, and holds (b) to it
+    by phase 6's own rule.  (a)'s DDP and plain runs, one computation,
+    agree within 1e-5."""
+    return dataclasses.replace(path, grad_stochastic=True)
+
+
+def _state_digest(model) -> List[tuple]:
+    """Each tensor of the state dict, as `bits_digest` or its values."""
+    return [bits_digest(v) if v.is_floating_point() else tuple(v.reshape(-1).tolist())
+            for v in model.state_dict().values()]
+
+
+def _skip_reduction(params, *args, **kwargs):
+    """The control's gradient reduction on rank 1: it takes part in the
+    all-reduce (rank 0 would wait for it otherwise) and keeps its own
+    gradients."""
+    local = [None if p.grad is None else p.grad.clone() for p in params]
+    n = pmesh.reduce_gradients(params, *args, **kwargs)
+    for p, g in zip(params, local):
+        p.grad = torch.zeros_like(p) if g is None else g
+    return n
+
+
+def _wait_for(cond, what: str, limit: float = DDP_WAIT) -> None:
+    deadline = time.monotonic() + limit
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"waited {limit} s for {what}")
+        time.sleep(0.1)
+
+
+class DdpRanks:
+    """Phase 25(b)'s two rank processes (`_ddp_rank`), spawned before phase 6
+    so that their imports, model construction and copy to the card run
+    beside phase 6's CPU-bound reference and not on phase 25's path: they
+    then wait, idle through phase 7's timed steps, for the checkpoint of
+    phase 7's state.  `close()` stops them and removes their directory."""
+
+    def __init__(self, path: Path):
+        self._dir = tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_ddp_")
+        self.tmp = self._dir.name
+        self.batches = _ddp_batches(path)
+        np.savez(os.path.join(self.tmp, "batches.npz"),
+                 **{f"{k}{i}": b[k] for i, b in enumerate(self.batches) for k in b})
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.procs = [ctx.Process(target=_ddp_rank, args=(r, self.tmp), daemon=True)
+                      for r in range(2)]
+        for p in self.procs:
+            p.start()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    def close(self) -> None:
+        try:
+            self.kill()
+        finally:
+            self._dir.cleanup()
+
+
+def _ddp_rank(rank: int, tmp: str) -> None:
+    """Phase 25(b)'s rank `rank` of 2, a spawned process on the one card:
+    the task in fp32 (`DDP_FP32`) in a gloo world of 2 (NCCL takes one rank
+    a card), phase 7's state restored from the checkpoint rank 0 of the
+    parent's world wrote; after the parent's "go", the control (one step in
+    which rank 1 keeps its own gradients), then the state again and the
+    compared steps on this rank's 4 rows of each global batch.  Writes
+    rank{r}.json (the digests of the state after the control and after the
+    steps, the metrics, times) and, rank 0, rank0.pt (the first step's
+    gradients and the state after); a failure writes rank{r}.err."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "gloo"), 2),
+                                rank=rank, world_size=2)
+        task = SegmentationTask(DDP_FP32, device="cuda:0")
+        # no random weights: the checkpoint overwrites every tensor of the state
+        with mock.patch("mtp_tpu_torch.tasks._fit.init_weights", lambda model, gen: model):
+            state = task.init_state(_gen(SEED))
+        with np.load(os.path.join(tmp, "batches.npz")) as f:
+            batches = [{k: f[f"{k}{i}"] for k in ("image", "label")} for i in range(DDP_STEPS)]
+        local = [pmesh.shard_batch(task.mesh, b) for b in batches]
+        store = CheckpointStore(os.path.join(tmp, "ckpt"))
+        with open(os.path.join(tmp, f"idle{rank}"), "w"):  # set up; idle from here
+            pass
+        _wait_for(lambda: store.steps(), "the checkpoint", DDP_WAIT_CHECKPOINT)
+        t0 = time.perf_counter()
+        store.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        start = _state_snapshot(state)
+        with open(os.path.join(tmp, f"ready{rank}"), "w"):
+            pass
+        _wait_for(lambda: os.path.exists(os.path.join(tmp, "go")), "the parent's go")
+        step_fn = task.train_step_fn(deterministic=True)
+        skip = (mock.patch.object(core_train, "reduce_gradients", _skip_reduction)
+                if rank == 1 else contextlib.nullcontext())
+        with skip:
+            state, _ = step_fn(state, to_device(local[0], task.device))
+        control = _state_digest(state.model)
+        _load_snapshot(state, start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _ddp_steps(step_fn, state, local, task.device)
+        steps_s = time.perf_counter() - t0
+        if rank == 0:
+            torch.save({"grads": out["grads"], "state": out["state"]},
+                       os.path.join(tmp, "rank0.pt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"control": control, "digest": _state_digest(state.model),
+                       "metrics": out["metrics"], "rows": len(local[0]["image"]),
+                       "restore_s": restore_s, "steps_s": steps_s}, f)
+        store.close()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _time_steps(task, state, snap: dict, batches: List[dict]) -> dict:
+    """The recipe's bf16 step with the process group (the task's DDP step)
+    and without (the plain step), A B B A blocks of DDP_TIMED steps after a
+    warm-up step each, from `snap`: each step's ms."""
+    fns = {"ddp": task.train_step_fn(),
+           "plain": make_train_step(lambda m, b, g: task.loss_fn(m, b, g))}
+    on_card = [to_device(b, task.device) for b in batches]
+    _load_snapshot(state, snap)
+    times = {"ddp": [], "plain": []}
+    for name in ("plain", "ddp", "ddp", "plain"):
+        fns[name](state, on_card[0])
+        torch.cuda.synchronize()
+        for i in range(DDP_TIMED):
+            t0 = time.perf_counter()
+            fns[name](state, on_card[i % DDP_STEPS])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
+              background: Callable = lambda: None) -> dict:
+    """Phase 25, the DDP step (`parallel.mesh`, `core.train.make_train_step`
+    with a process group) of the ViT recipe at full width and depth, from
+    phase 7's state (batch 8 of 384²: each compared step on its own global
+    batch; drop-path and dropout on, drawn from the state's generator).
+    (a) In this process, an NCCL group of one rank (a FileStore, no TCP):
+    the recipe's bf16 step with and without the process group (A B B A
+    blocks of DDP_TIMED steps), the all-reduce alone and the bytes it
+    reduces a step; then, from the state at identity RVSA sampling and
+    without dropout or drop-path (`two_ranks_rule`), DDP_STEPS fp32 steps
+    through the DDP step and through the plain one, each from a copy of the
+    state, held by `_ddp_verdict`, the DDP step's launches exact; and the
+    witness `split_grads`, the first batch as two ranks of 4 rows emulated
+    in this process, against the whole batch (printed).  (b) `ranks`, two
+    processes on the card in a gloo group (NCCL refuses two ranks on one
+    card), each on its 4 rows of the same global batches, from the
+    checkpoint of the state that this process writes as rank 0
+    (`CheckpointStore`; they restore it while (a) compares): the ranks'
+    states bit for bit equal after the steps, rank 0's first gradients
+    against the witness's by phase 6's rule, rank 0's run against (a)'s
+    DDP run by `_ddp_verdict` under `two_ranks_rule`; and a control, one
+    step in which rank 1 keeps its own gradients, whose states must differ.
+    A rank that fails fails the phase.  `background()` runs on a thread of
+    this process from the end of (a)'s timed steps (CPU work beside the
+    card's untimed fp32 steps and while this process waits for the ranks:
+    phases 25c and 25d's CPU references); returns {"snap", "batches", "a",
+    "b", "extra": what it returned}."""
+    tag, tmp, batches = "[ddp]", ranks.tmp, ranks.batches
+    snap = _state_snapshot(state, "cuda")
+    start = snap["model"]
+    opt = state.optimizer
+    lr_sum = sum(opt.schedule(snap["count"] + i) for i in range(DDP_STEPS))
+    adam = {opt.names[p]: 2 * lr_sum * g["lr_scale"]
+            for g in opt.adamw.param_groups for p in g["params"]}
+    per_step = {k: v * DDP_STEPS for k, v in path.per_step.items()}
+    on_card = lambda t: t.detach().clone()
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+                                rank=0, world_size=1)
+        # (a) times, the recipe's bf16 (the ranks wait, idle, for the checkpoint)
+        t16 = SegmentationTask(path.recipe, model=state.model)
+        if not t16.mesh.distributed:
+            raise AssertionError("no process group under the task's mesh")
+        times = _time_steps(t16, state, snap, batches)
+        params = [p for p in state.model.parameters() if p in state.optimizer.names]
+        nbytes = pmesh.reduce_gradients(params)
+        reduce_ms = loop_ms(lambda: pmesh.reduce_gradients(params), reps=5, warmup=1)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"{tag} (a) times, bf16 recipe step (batch 8 of 384²), A B B A blocks of "
+            f"{DDP_TIMED}: with the process group (NCCL, one rank) median "
+            f"{med['ddp']:.2f} ms (each {' '.join(f'{t:.1f}' for t in times['ddp'])}), "
+            f"without {med['plain']:.2f} ms (each "
+            f"{' '.join(f'{t:.1f}' for t in times['plain'])}), ratio "
+            f"{med['ddp'] / med['plain']:.3f}; the gradient all-reduce alone "
+            f"{reduce_ms:.3f} ms for {nbytes / 2 ** 20:.1f} MiB a step in "
+            f"{-(-nbytes // (4 * pmesh.BUCKET_ELEMENTS))} fp32 buckets of "
+            f"{pmesh.BUCKET_ELEMENTS * 4 / 2 ** 20:.0f} MiB ({len(params)} parameters) "
+            f"| card {card}")
+        del t16, params
+        _load_snapshot(state, snap)
+        del snap
+        identity_sampling(state.model)  # the compared steps' state (see two_ranks_rule)
+        snap = _state_snapshot(state, "cuda")
+        start = snap["model"]
+        pool = ThreadPoolExecutor(max_workers=1)
+        extra = pool.submit(background)  # from here on nothing of this phase is timed
+        pool.shutdown(wait=False)
+        store = CheckpointStore(os.path.join(tmp, "ckpt"))
+        t0 = time.perf_counter()
+        store.save(state.step, state)  # rank 0 writes; in the background
+        save_s = time.perf_counter() - t0
+
+        # (a) one rank: the DDP step against the plain one, fp32
+        t32 = SegmentationTask(DDP_FP32, model=state.model)
+        runs = {}
+        loss_fn = lambda m, b, g: t32.loss_fn(m, b, g, deterministic=True)
+        for name, step_fn in (("ddp", t32.train_step_fn(deterministic=True)),
+                              ("plain", make_train_step(loss_fn))):
+            _load_snapshot(state, snap)
+            torch.cuda.synchronize()
+            reset_counters()
+            runs[name] = _ddp_steps(step_fn, state, batches, t32.device, on_card)
+            if name == "ddp" and counters() != per_step:
+                raise AssertionError(f"DDP step launches {counters()} != {per_step}")
+        ok, summary = _ddp_verdict(path, runs["ddp"], runs.pop("plain"), start, adam)
+        log(f"{tag} (a) NCCL, one rank: {DDP_STEPS} fp32 DDP steps vs the plain step from "
+            f"phase 7's state (step {snap['step']}), batch {len(batches[0]['image'])} of "
+            f"384², identity RVSA sampling, no dropout or drop-path: {summary}; "
+            f"launches {per_step}")
+        if not ok:
+            raise AssertionError(f"the DDP step differs from the plain step: {summary}")
+        # the witness: (b)'s arithmetic in this process against the whole batch's
+        _load_snapshot(state, snap)
+        split = split_grads(lambda m, b: t32.loss_fn(m, b, None, deterministic=True)[0],
+                            state.model, to_device(batches[0], t32.device))
+        _, summary = _grad_verdict(path, (runs["ddp"]["metrics"][0]["loss"],
+                                          runs["ddp"]["grads"]), split)
+        log(f"{tag} (a) the same state's first compared batch as two emulated ranks of 4 "
+            f"rows in this process (`split_grads`, no process group) against the whole "
+            f"batch of 8 (the DDP run above): {summary} | card {card}")
+        store.close()
+        del t32
+    except BaseException:
+        ranks.kill()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    free()
+
+    # (b) two ranks, gloo, on the one card
+    procs = ranks.procs
+    t0 = time.perf_counter()
+    try:
+        _wait_for(lambda: all(os.path.exists(os.path.join(tmp, f"ready{r}"))
+                              or not p.is_alive() for r, p in enumerate(procs)),
+                  "the ranks' restore")
+        ranks_wait = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        deadline = time.monotonic() + DDP_WAIT
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        t_join = time.perf_counter() - t0
+    finally:
+        ranks.kill()
+    errors = [f"rank {r} exit {p.exitcode}: " + (
+        open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+        if os.path.exists(os.path.join(tmp, f"rank{r}.err")) else "no traceback")
+        for r, p in enumerate(procs) if p.exitcode != 0]
+    if errors:
+        raise AssertionError("phase 25(b): " + "\n".join(errors))
+    ranks_out = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+    got = torch.load(os.path.join(tmp, "rank0.pt"), map_location="cuda", weights_only=True)
+    got["metrics"] = ranks_out[0]["metrics"]
+    equal = ranks_out[0]["digest"] == ranks_out[1]["digest"]
+    control_equal = ranks_out[0]["control"] == ranks_out[1]["control"]
+    ok, summary = _ddp_verdict(two_ranks_rule(path), got, runs["ddp"], start, adam)
+    split_ok, split_summary = _grad_verdict(path, split, (got["metrics"][0]["loss"],
+                                                          got["grads"]))
+    t_extra = time.perf_counter()
+    extra = extra.result()  # the background work's, or its error
+    t_extra = time.perf_counter() - t_extra
+    log(f"{tag} (b) gloo, 2 processes on the card, {ranks_out[0]['rows']} rows each of the "
+        f"same global batches: ranks' states after {DDP_STEPS} steps bit for bit equal "
+        f"{equal}; rank 0's first gradients vs the two ranks emulated in one process: "
+        f"{split_summary}; rank 0 vs (a)'s one-process DDP step: {summary}; control, rank 1 keeping "
+        f"its own gradients for one step: states equal {control_equal} (must differ); "
+        f"checkpoint snapshot for the ranks {save_s:.1f} s, their restore waited for "
+        f"{ranks_wait:.1f} s after (a); restore {ranks_out[0]['restore_s']:.1f} / "
+        f"{ranks_out[1]['restore_s']:.1f} s, {DDP_STEPS} fp32 steps "
+        f"{ranks_out[0]['steps_s']:.1f} / {ranks_out[1]['steps_s']:.1f} s, the ranks after "
+        f"the go {t_join:.1f} s; the background work waited for {t_extra:.1f} s more")
+    if not equal:
+        raise AssertionError("the two ranks' states differ after the DDP steps")
+    if not split_ok:
+        raise AssertionError(f"the two-rank step differs from its arithmetic in one "
+                             f"process: {split_summary}")
+    if not ok:
+        raise AssertionError(f"the two-rank step differs from the one-rank step: {summary}")
+    if control_equal:
+        raise AssertionError("the control (rank 1 without the reduction) passed")
+    _load_snapshot(state, snap)
+    return {"snap": snap, "batches": batches, "a": runs["ddp"], "b": got, "extra": extra}
+
+
+def _run_grads(model, x: torch.Tensor, cots, device: str):
+    """(outputs on the host, (value, gradients on the host), seconds) of one
+    forward on `device` and the backward of Σ output · cot over the outputs
+    (random cotangents: every gradient a sum of terms of both signs, as a
+    loss's are).  The value compared is ½ Σ output² in float64, whose terms
+    are all positive: Σ output · cot itself is a sum whose terms cancel, so
+    its relative rounding says nothing."""
+    t0 = time.perf_counter()
+    out = model(x.to(device))
+    out = out if isinstance(out, tuple) else (out,)
+    sum((o * c.to(o.device)).sum() for o, c in zip(out, cots)).backward()
+    value = sum(0.5 * float(o.detach().double().square().sum()) for o in out)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return [o.detach().cpu() for o in out], (value, grads), time.perf_counter() - t0
+
+
+def _card_vs_cpu(tag: str, what: str, model_cpu, x, cots, ref, rule, expected=None) -> None:
+    """The card's run of `model_cpu` against its CPU run `ref` (from
+    `_run_grads`): each output within SLICE_TOL of its max |ref|, the
+    gradients by phase 6's rule (`_grad_verdict`, `rule`), the TF32 control,
+    and, with `expected`, the card's launches."""
+    card_model = copy.deepcopy(model_cpu).cuda()
+    torch.cuda.synchronize()
+    reset_counters()
+    got, got_g, t_gpu = _run_grads(card_model, x, cots, "cuda")
+    torch.cuda.synchronize()
+    launched = counters()
+    rels = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref[0])]
+    ok, summary = _grad_verdict(rule, ref[1], got_g)
+    _tf32(True)
+    try:
+        control_ok, control = _grad_verdict(rule, ref[1],
+                                            _run_grads(card_model, x, cots, "cuda")[1])
+    finally:
+        _tf32(False)
+    log(f"{tag} {what}, fp32, card vs CPU: outputs {[tuple(g.shape) for g in got]} max |Δ| / "
+        f"max |ref| {' '.join(f'{r:.3e}' for r in rels)} (tol {SLICE_TOL}); gradients of "
+        f"Σ out·cot (the value compared ½Σout²): {summary}; launches {launched}, "
+        f"expected {expected}; "
+        f"forward+backward CPU {ref[2]:.1f} s, card {t_gpu:.1f} s; control, TF32: {control}")
+    if expected is not None and launched != expected:
+        raise AssertionError(f"launch counts {launched} != {expected}")
+    if not max(rels) <= SLICE_TOL or not ok:
+        raise AssertionError(f"{tag} card disagrees with the CPU: {rels}; {summary}")
+    if control_ok:
+        raise AssertionError(f"{tag} the TF32 control passed the gradient tolerance")
+
+
+def carafe_reference():
+    """Phase 25c's model, inputs and CPU run: `MaskHead(upsample="carafe")`
+    (`ops/carafe.py`, plain PyTorch on both devices) at Mask R-CNN's shapes,
+    512 RoIs × 256 channels × 14², 80 classes, fp32, cotangents 28²."""
+    head = init_weights(MaskHead(80, 256, 256, upsample="carafe"), _gen(SEED + 70))
+    x = torch.randn((512, 256, 14, 14), generator=_gen(SEED + 71))
+    cots = [torch.randn((512, 80, 28, 28), generator=_gen(SEED + 72))]
+    return head, x, cots, _run_grads(head, x, cots, "cpu")
+
+
+def phase_carafe(reference) -> None:
+    """Phase 25c: `carafe_reference()`'s mask head on the card against its
+    CPU run: the logits (SLICE_TOL of max |ref|), the gradients by phase 6's
+    rule (the mask head in the 1e-2 group, as phase 21 holds it) and the
+    TF32 control."""
+    head, x, cots, ref = reference
+    rule = dataclasses.make_dataclass("Rule", ["grad_rtol", "head_prefixes"])(
+        {"convs": GRAD_RTOL["convs"]}, ("",))
+    _card_vs_cpu("[carafe]", "MaskHead(upsample='carafe'), 512 RoIs × 256 × 14²", head, x,
+                 cots, ref, rule)
+
+
+# the patch-8 ViT-B+RVSA (no registered recipe uses it): a 384×128 strip is a
+# 48×16 token grid, 21 windows of 7×7 an image, full attention over 768
+P8_CFG = vit_b_rvsa(384, patch_size=8, dtype="float32", drop_path_rate=0.0)
+P8_STRIP = (384, 128)
+P8_STEP = launches(window=8, flash=4, bilinear_sample=16, window_bwd=8, flash_bwd=4,
+                   bilinear_sample_bwd=16)
+
+
+def patch8_reference():
+    """Phase 25d's model, inputs and CPU run: the patch-8 ViT-B+RVSA (embed
+    768, 12 blocks; the simple FPN's patch-8 branch) at batch 2 of a
+    384×128 strip, fp32, a cotangent for each of its four levels."""
+    model = init_weights(ViTRVSA(P8_CFG, input_hw=P8_STRIP), _gen(SEED + 80))
+    x = torch.randn((2, *P8_STRIP, 3), generator=_gen(SEED + 81))
+    cots = [torch.randn((2, P8_STRIP[0] // s, P8_STRIP[1] // s, 768),
+                        generator=_gen(SEED + 82 + i)) for i, s in enumerate((4, 8, 16, 32))]
+    return model, x, cots, _run_grads(model, x, cots, "cpu")
+
+
+def phase_patch8(reference) -> None:
+    """Phase 25d: `patch8_reference()`'s backbone on the card against its CPU
+    run: the four levels (SLICE_TOL of each one's max |ref|, phase 21's
+    strip rule), the gradients by phase 6's rule (backbone rtol) with the
+    TF32 control, and K1-K6's launches in the forward and backward exact."""
+    model, x, cots, ref = reference
+    rule = dataclasses.make_dataclass("Rule", ["grad_rtol", "head_prefixes"])(
+        {"backbone": GRAD_RTOL["backbone"]}, ())
+    _card_vs_cpu("[patch8]", f"ViT-B+RVSA at patch 8, 2 images of {P8_STRIP[0]}×"
+                 f"{P8_STRIP[1]} (token grid {P8_STRIP[0] // 8}×{P8_STRIP[1] // 8})", model, x,
+                 cots, ref, rule, expected=P8_STEP)
 
 
 # ------------------------------------------------------- phases 16-18 --
@@ -2712,11 +3397,13 @@ def run_task_path(path: TaskPath, card: str):
     return model
 
 
-def _state_snapshot(state) -> dict:
-    """Everything a checkpoint holds, copied to the host."""
+def _state_snapshot(state, device="cpu") -> dict:
+    """Everything a checkpoint holds, copied to `device` (phase 25 keeps its
+    copies on the card, which has room for them beside its steps)."""
+    copy_ = lambda t: t.detach().to(device, copy=True)
     return {"step": state.step, "count": state.optimizer.count,
-            "model": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
-            "moments": {n: tuple(t.detach().cpu().clone() for t in mv)
+            "model": {k: copy_(v) for k, v in state.model.state_dict().items()},
+            "moments": {n: tuple(copy_(t) for t in mv)
                         for n, mv in state.optimizer.moments().items()},
             "generator": state.generator.get_state().clone()}
 
@@ -2741,8 +3428,9 @@ def _update(task, state, batch: dict) -> torch.Tensor:
 
 def phase_checkpoint(vit_cls_backbone, card: str) -> None:
     """Phase 18 on the XL classification path, whose step runs K6's fp32
-    atomics: `fit` 3 steps with a CheckpointStore (ckpt_every 2) and an
-    encoder path; step 2 restored into a fresh task equals, bit for bit,
+    atomics: `fit` 2 steps with a CheckpointStore (ckpt_every 2: the one,
+    final save; phase 24 saves mid-run and resumes) and an encoder path;
+    step 2 restored into a fresh task equals, bit for bit,
     the state the run held at step 2 (the model's parameters and buffers,
     the Adam moments, count, step and generator); one step from the
     restored state against one from a second in-process copy of the step-2
@@ -2760,20 +3448,23 @@ def phase_checkpoint(vit_cls_backbone, card: str) -> None:
         snap = {}
         keep = lambda i, m: snap.setdefault("s", _state_snapshot(state)) if i == 1 else None
         t0 = time.perf_counter()
-        state, _ = task.fit(state, cycle(batches), 3, log_every=1, log_fn=keep, ckpt=store,
+        state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=keep, ckpt=store,
                             ckpt_every=2, encoder_path=os.path.join(tmp, "encoder.pth"))
         steps = store.steps()
-        log(f"{tag} fit 3 steps with saves at {steps} and the encoder artifact "
+        log(f"{tag} fit 2 steps with saves at {steps} and the encoder artifact "
             f"({os.path.getsize(os.path.join(tmp, 'encoder.pth')) / 2 ** 20:.1f} MiB): "
             f"{time.perf_counter() - t0:.1f} s")
-        if steps != [2, 3]:
-            raise AssertionError(f"checkpoints at {steps}, expected [2, 3]")
+        if steps != [2]:
+            raise AssertionError(f"checkpoints at {steps}, expected [2]")
         snap = snap["s"]
         del task, state
         free()
         fresh = ClassificationTask(path.recipe)
         t0 = time.perf_counter()
-        restored = store.restore(fresh.init_state(_gen(SEED + 99)), step=2)
+        # no random weights: the restore overwrites every tensor of the state
+        with mock.patch("mtp_tpu_torch.tasks._fit.init_weights", lambda model, gen: model):
+            fresh_state = fresh.init_state(_gen(SEED + 99))
+        restored = store.restore(fresh_state, step=2)
         got = _state_snapshot(restored)
         bad = [k for k in snap["model"] if not torch.equal(got["model"][k], snap["model"][k])]
         bad += [n for n in snap["moments"] if not all(
@@ -4150,12 +4841,21 @@ def run_path(path: Path, card: str) -> dict:
         served = phase_serving(path, model, card)
     del model
     free()
-    with phase_time(f"{path.name} gradients"):
-        phase_gradients(path, model_cpu)
-    del model_cpu
-    free()
-    with phase_time(f"{path.name} train"):
-        trained = phase_train(path, card)
+    # phase 25's ranks start beside phase 6's CPU-bound reference
+    ranks = DdpRanks(path) if path.name == "rvsa" else None
+    try:
+        with phase_time(f"{path.name} gradients"):
+            gpath = path.gradient_path()
+            if gpath is not path:
+                model_cpu = build_model(gpath, path.cpu_hw)
+            phase_gradients(gpath, model_cpu)
+        del model_cpu
+        free()
+        with phase_time(f"{path.name} train"):
+            trained = phase_train(path, card, ranks)
+    finally:
+        if ranks is not None:
+            ranks.close()
     return {"serve": served, "train": trained}
 
 
@@ -4175,7 +4875,9 @@ def main() -> None:
         phase_path_kernels()
     with phase_time("kernels 3c/3f, the OSCD 96² shapes"):
         phase_oscd_kernels()
-    runs = {name: run_path(path, card) for name, path in PATHS.items()}
+    runs = {}
+    for name, path in PATHS.items():
+        runs[name] = run_path(path, card)  # phase 25 inside phase 7
     for name, path in TASK_PATHS.items():
         trained = run_task_path(path, card)
         if name == "cls_vit":  # phase 18 exports its encoder

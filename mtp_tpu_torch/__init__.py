@@ -12,12 +12,15 @@ features, `(W, nH, N, D)` / `(BH, N, D)` attention tensors) and the modules
 use the reference torch parameter names, so `mtp_tpu.ckpt` converters read a
 port `state_dict()` unchanged.
 
-Ported so far: semantic segmentation with UperNet on ViT-B/L+RVSA or
-InternImage (DCNv3), sliding-window inference and the finetune step; scene
-classification and Siamese change detection (UNet) on the same backbones;
-checkpoints (save, resume, the encoder export) and released-style `.pth`
-or JAX `.npz` encoders loaded at another grid.  Nothing here imports jax
-or flax.
+Ported: semantic segmentation with UperNet on ViT-B/L+RVSA (patch 16 or 8)
+or InternImage (DCNv3), sliding-window inference and the finetune step;
+scene classification and Siamese change detection (UNet); Faster, Oriented
+and Mask R-CNN (with CARAFE's upsample) and RetinaNet; multitask
+pretraining; checkpoints, released-style `.pth` or JAX `.npz` encoders
+loaded at another grid; the recipe registry, the CLI and the disk data
+path; data parallel over processes (`parallel.mesh`, under torchrun).
+Not ported: tensor parallelism over the model axis.  Nothing here imports
+jax or flax.
 """
 
 __version__ = "0.1.0"

@@ -203,9 +203,10 @@ def backbone_from_jax(params: dict, cfg: BackboneConfig) -> StateDict:
     if "fpn" in p:  # a ViT applied `features_only` has none
         fpn = p["fpn"]
         _deconv(sd, "fpn1.0", fpn["fpn1_deconv1"])
-        _norm(sd, "fpn1.1.ln", fpn["fpn1_norm"]["ln"])
-        _deconv(sd, "fpn1.3", fpn["fpn1_deconv2"])
-        _deconv(sd, "fpn2.0", fpn["fpn2_deconv1"])
+        if cfg.patch_size != 8:  # the patch-8 pyramid has its one deconv only
+            _norm(sd, "fpn1.1.ln", fpn["fpn1_norm"]["ln"])
+            _deconv(sd, "fpn1.3", fpn["fpn1_deconv2"])
+            _deconv(sd, "fpn2.0", fpn["fpn2_deconv1"])
     return sd
 
 
@@ -323,13 +324,18 @@ def _neck(sd: dict, neck: dict, prefix: str = "neck.") -> None:
 
 
 def _mask_trunk(sd: dict, trunk: dict, prefix: str) -> None:
-    """`FCNMaskTrunk` params → `{prefix}convs.{i}.conv` and `{prefix}upsample`."""
+    """`FCNMaskTrunk` params → `{prefix}convs.{i}.conv` and `{prefix}upsample`
+    (the deconvolution, or CARAFE's `channel_compressor` and
+    `content_encoder`)."""
     i = 0
     while f"conv_{i}" in trunk:
         _conv(sd, f"{prefix}convs.{i}.conv", trunk[f"conv_{i}"])
         i += 1
     if "upsample" in trunk:
         _deconv(sd, prefix + "upsample", trunk["upsample"])
+    if "upsample_carafe" in trunk:
+        for name in ("channel_compressor", "content_encoder"):
+            _conv(sd, f"{prefix}upsample.{name}", trunk["upsample_carafe"][name])
 
 
 def _two_stage(sd: dict, prefix: str, neck: dict, rpn: dict, bbox_trunk: dict,

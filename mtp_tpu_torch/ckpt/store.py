@@ -18,6 +18,11 @@ after the tensors are copied to the host; `save(wait=True)`, the next
 `save`, `latest_step`, `restore` and `close` wait for it and raise what it
 raised.  Checkpoints hold tensors and plain values only and load with
 `weights_only=True`.
+
+Under data parallel (`parallel.mesh`) every rank holds the same state:
+rank 0 alone writes, and every rank restores the same file after a
+barrier, so the restored state, generator included, is the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 
 from mtp_tpu_torch.ckpt.torch_convert import load_torch_checkpoint
 from mtp_tpu_torch.core.train import TrainState
+from mtp_tpu_torch.parallel.mesh import barrier, is_main
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
@@ -86,6 +92,10 @@ class CheckpointStore:
                       if m)
 
     def save(self, step: int, state: TrainState, wait: bool = False) -> None:
+        """Snapshot the state to the host and write it in the background
+        (rank 0; the other ranks write nothing)."""
+        if not is_main():
+            return
         self._wait()
         snapshot = {
             "step": int(state.step),
@@ -114,7 +124,9 @@ class CheckpointStore:
         """Load checkpoint `step` (default the latest) into `state_like` (a
         state of the same model and optimizer, e.g. a fresh task's
         `init_state`) in place and return it; None when there is nothing to
-        restore."""
+        restore.  Every rank calls it: a barrier waits for rank 0's writes."""
+        self._wait()
+        barrier()
         step = self.latest_step() if step is None else step
         if step is None:
             return None

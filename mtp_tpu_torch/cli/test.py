@@ -9,7 +9,9 @@ SegVisualizationHook / DetVisualizationHook / CDVisualizationHook
 capability (segmentation PNGs and box overlays).  `--ckpt` takes the port's
 checkpoint directory, the port's variables or encoder file, or a JAX `.npz`
 (full variables or an encoder), which carries weights across.  It runs on
-the card unless `--device cpu` is given.
+the card unless `--device cpu` is given; under torchrun (one process a card,
+as `cli.train`) each rank evaluates every W-th batch and rank 0 prints the
+world's metrics.
 """
 
 from __future__ import annotations
@@ -264,7 +266,8 @@ def main(argv=None, return_metrics=False):
     p.add_argument("--ckpt", default=None,
                    help="the port's checkpoint dir, variables or encoder "
                         "file, or a JAX .npz (full variables or encoder)")
-    p.add_argument("--mesh-data", type=int, default=-1)
+    p.add_argument("--mesh-data", type=int, default=-1,
+                   help="-1 (the world size) or torchrun's world size")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--data-root", default=None,
                    help="evaluate the recipe's val/test split on disk "
@@ -310,15 +313,30 @@ def main(argv=None, return_metrics=False):
                    help="torch device to run on (default the card)")
     args = p.parse_args(argv)
 
+    from mtp_tpu_torch.parallel.mesh import init_distributed, initialized
+
+    started = not initialized()
+    device = init_distributed(args.device)
+    try:
+        return _test(args, str(device), return_metrics)
+    finally:
+        if started and initialized():
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _test(args, device: str, return_metrics: bool):
+    """`main` after the process group: one rank's evaluation."""
     from mtp_tpu_torch import configs
     from mtp_tpu_torch.cli.train import (build_task, init_or_restore,
                                          shrink_recipe, synthetic_data)
+    from mtp_tpu_torch.parallel.mesh import is_main
 
     recipe = shrink_recipe(configs.get(args.recipe), args.img_size)
     det_overrides = (json.loads(args.det_overrides)
                      if args.det_overrides else None)
     task, cfg = build_task(recipe, args.mesh_data, 1, det_overrides,
-                           device=args.device)
+                           device=device)
     batch_size = args.batch_size or cfg.train.batch_size
     state = init_or_restore(task, args.ckpt)
 
@@ -354,13 +372,14 @@ def main(argv=None, return_metrics=False):
     kw = {"coco": True} if cfg.task == "instseg" else {}
     res = task.evaluate(state, iter(batches), **kw)
 
-    if args.save_pred:
+    if args.save_pred and is_main():
         save_predictions(task, cfg, batches[0], args)
 
-    print(json.dumps({"recipe": recipe.name,
-                      "results": {k: (round(v, 4) if isinstance(v, float) else v)
-                                  for k, v in res.items()
-                                  if not isinstance(v, list)}}))
+    if is_main():
+        print(json.dumps({"recipe": recipe.name,
+                          "results": {k: (round(v, 4) if isinstance(v, float) else v)
+                                      for k, v in res.items()
+                                      if not isinstance(v, list)}}))
     if return_metrics:
         return {k: v for k, v in res.items() if not isinstance(v, list)}
     return 0

@@ -3,10 +3,18 @@
 The port's copy of `mtp_tpu/cli/train.py`: one recipe-registry entry point in
 place of the reference's per-suite `tools/train.py <config> --launcher
 slurm` entry points and the pretraining `main_pretrain.py` argparse CLI.
-It runs on one device, the card unless `--device cpu` is given; a mesh axis
-over 1 raises, as data parallel is not ported yet.  `--pallas` and `--scan`
-are accepted and have no effect: the port picks its kernels by the tensors'
-device and has one layout.
+It runs on the card unless `--device cpu` is given.  Data parallel runs it
+under torchrun, one process a card (NCCL) or a CPU process each (gloo):
+
+    torchrun --nproc_per_node=N -m mtp_tpu_torch.cli.train <recipe> ...
+
+Each rank loads its rows of every global batch (`--batch-size` is global);
+rank 0 writes the logs and the checkpoints.  `--mesh-data` is -1 (the world
+size) or the world size, and `--mesh-model` over 1 raises (tensor
+parallelism is not ported).  Without torchrun's variables it runs as one
+process; with them and a failed rendezvous it raises.  `--pallas` and
+`--scan` are accepted and have no effect: the port picks its kernels by the
+tensors' device and has one layout.
 """
 
 from __future__ import annotations
@@ -251,9 +259,10 @@ def main(argv=None):
                    help="also export the encoder-only file at each save "
                         "(the finetune artifact)")
     p.add_argument("--mesh-data", type=int, default=-1,
-                   help="data-parallel width: 1 or -1 (one device; data "
-                        "parallel is not ported yet)")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help="data-parallel width: -1 (the world size) or the "
+                        "world size (torchrun's processes)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel width: 1 (not ported)")
     p.add_argument("--pretrained", default=None,
                    help="encoder checkpoint (.npz from save_encoder, the "
                         "port's encoder file or a torch .pth)")
@@ -296,8 +305,26 @@ def main(argv=None):
         print("\n".join(configs.available()))
         return 0
 
+    from mtp_tpu_torch.parallel.mesh import init_distributed, initialized
+
+    started = not initialized()
+    device = init_distributed(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if started and initialized():
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, device) -> int:
+    """`main` after the process group: one rank's run."""
+    import logging
+
     import torch
 
+    from mtp_tpu_torch import configs
+    from mtp_tpu_torch.parallel.mesh import is_main
     from mtp_tpu_torch.utils.log import JsonlLogger, make_logger
 
     recipe = configs.get(args.recipe)
@@ -344,10 +371,14 @@ def main(argv=None):
     det_overrides = json.loads(args.det_overrides) if args.det_overrides else None
     task, cfg = build_task(recipe, args.mesh_data, args.mesh_model,
                            det_overrides, tasks=tuple(args.tasks),
-                           device=args.device)
-    logger = make_logger(log_file=f"{args.work_dir}/{recipe.name}.log")
-    jsonl = JsonlLogger(f"{args.work_dir}/{recipe.name}.jsonl")
-    logger.info("recipe %s on %s", recipe.name, task.device)
+                           device=str(device))
+    main_rank = is_main()  # rank 0 logs and prints
+    logger = make_logger(log_file=f"{args.work_dir}/{recipe.name}.log"
+                         if main_rank else None)
+    logger.setLevel(logging.INFO if main_rank else logging.WARNING)
+    jsonl = JsonlLogger(f"{args.work_dir}/{recipe.name}.jsonl") if main_rank else None
+    logger.info("recipe %s on %s, %d process(es)", recipe.name, task.device,
+                task.mesh.data)
 
     pretrained = None
     if args.pretrained:
@@ -377,14 +408,16 @@ def main(argv=None):
                     int(state.step), total_steps, steps)
 
     batch_size = args.batch_size or cfg.train.batch_size
-    if args.synthetic:
+    fit_kw = {}
+    if args.synthetic:  # the global batch on every rank: fit keeps the rank's rows
         data = synthetic_data(cfg, batch_size)
+        fit_kw["global_batch"] = True
     elif args.data_root:
         from mtp_tpu_torch.data.bindings import build_train_data
         data, info = build_train_data(recipe, cfg, args.data_root,
                                       batch_size, max_gts=args.max_gts,
                                       num_workers=args.num_workers,
-                                      alloc=args.alloc)
+                                      alloc=args.alloc, mesh=task.mesh)
         logger.info("real data from %s: %s", args.data_root, info)
     else:
         raise SystemExit(
@@ -395,9 +428,8 @@ def main(argv=None):
         logger.info("iter %d %s", i, {k: round(v, 4) for k, v in m.items()})
         jsonl.log(i, m)
 
-    fit_kw = {}
     if store is not None:
-        fit_kw = dict(ckpt=store, ckpt_every=args.ckpt_every,
+        fit_kw.update(ckpt=store, ckpt_every=args.ckpt_every,
                       encoder_path=args.encoder_out)
     try:
         state, metrics = task.fit(state, data, steps,
@@ -409,8 +441,9 @@ def main(argv=None):
         close = getattr(data, "close", None)
         if close is not None:  # stops a loader's workers
             close()
-        jsonl.close()
-    if store is None and args.encoder_out:
+        if jsonl is not None:
+            jsonl.close()
+    if store is None and args.encoder_out and main_rank:
         from mtp_tpu_torch.ckpt.store import save_encoder
         save_encoder(args.encoder_out, _backbone_module(task))
     logger.info("final %s", metrics)
@@ -435,7 +468,8 @@ def main(argv=None):
     out = {"recipe": recipe.name, "final": metrics}
     if eval_metrics is not None:
         out["eval"] = eval_metrics
-    print(json.dumps(out))
+    if main_rank:
+        print(json.dumps(out))
     return 0
 
 

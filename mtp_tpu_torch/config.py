@@ -161,9 +161,10 @@ class ScheduleConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh shape of the JAX package.  The port runs on one device:
-    it carries the field so the copies stay equal, and raises on any mesh
-    other than data, model in {1, -1} (`check_single_device`)."""
+    """Device mesh shape: `data` processes, each a model shard of `model`
+    devices.  The port runs one process a card (`parallel.mesh.make_mesh`:
+    `data` is -1 or the world size; `model` over 1 raises, as tensor
+    parallelism is not ported)."""
 
     data: int = -1  # -1: all remaining devices
     model: int = 1
@@ -191,16 +192,6 @@ class TaskConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     slide: Optional[SlideConfig] = None
     ignore_index: int = 255
-
-
-def check_single_device(mesh: MeshConfig) -> None:
-    """The port runs on one device (data-parallel training is not ported
-    yet): any mesh axis other than 1 or -1 raises."""
-    for axis in ("data", "model"):
-        if getattr(mesh, axis) not in (1, -1):
-            raise NotImplementedError(
-                f"mesh {axis}={getattr(mesh, axis)}: the port runs on one "
-                f"device (DDP is not ported yet)")
 
 
 # SAMRS's class counts with the background: SOTA 18 + 1, SIOR 20 + 1, FAST

@@ -233,19 +233,30 @@ def _samrs_datasets(data_root: str, img_size: int, split: str, train: bool):
     return datasets
 
 
+def _rows(mesh, batch_size: int):
+    """The Loader's `batch_rows` under data parallel (`parallel.mesh`): this
+    rank's rows of each global batch; None on one process."""
+    if mesh is None or mesh.data == 1:
+        return None
+    from mtp_tpu_torch.parallel.mesh import process_batch_rows
+    return process_batch_rows(mesh, batch_size)
+
+
 def build_samrs_loaders(data_root: str, img_size: int, batch_size: int,
                         split: str = "train", train: bool = True,
                         max_gts: int = 100, alloc: str = "ratio",
-                        num_workers: int = 0):
+                        num_workers: int = 0, mesh=None):
     """The 3 SAMRS per-dataset loaders + per-dataset batch sizes (reference
-    main_pretrain.py batch allocation)."""
+    main_pretrain.py batch allocation); with a data-parallel `mesh`, each
+    loader loads this rank's rows of its dataset's global batch."""
     from mtp_tpu_torch.tasks.multitask import allocate_batch_sizes
 
     datasets = _samrs_datasets(data_root, img_size, split, train)
     sizes = allocate_batch_sizes(batch_size, [len(d) for d in datasets],
                                  mode=alloc)
     loaders = [Loader(d, bs, lambda ss: collate_multitask(ss, max_gts),
-                      shuffle=train, num_workers=num_workers)
+                      shuffle=train, num_workers=num_workers,
+                      batch_rows=_rows(mesh, bs))
                for d, bs in zip(datasets, sizes)]
     return datasets, loaders, sizes
 
@@ -281,12 +292,14 @@ def dataset_lengths_and_batches(recipe, cfg, data_root: str,
 
 def build_train_data(recipe, cfg, data_root: str, batch_size: int,
                      max_gts: int = 100, num_workers: int = 0,
-                     alloc: str = "ratio"):
-    """(forever-iterator, info dict) for the CLI train loop."""
+                     alloc: str = "ratio", mesh=None):
+    """(forever-iterator, info dict) for the CLI train loop; `batch_size` is
+    the global batch, of which a data-parallel `mesh`'s rank loads its rows
+    (`Loader(batch_rows=...)`)."""
     if cfg.task == "multitask":
         datasets, loaders, sizes = build_samrs_loaders(
             data_root, cfg.backbone.img_size, batch_size, max_gts=max_gts,
-            num_workers=num_workers, alloc=alloc)
+            num_workers=num_workers, alloc=alloc, mesh=mesh)
         info = {"datasets": [len(d) for d in datasets],
                 "batch_sizes": list(sizes)}
         return samrs_iterator(loaders), info
@@ -298,7 +311,7 @@ def build_train_data(recipe, cfg, data_root: str, batch_size: int,
             "(expected layout: see DATASETS.md / data/bindings.py)")
     ds, collate = built
     loader = Loader(ds, batch_size, collate, shuffle=True,
-                    num_workers=num_workers)
+                    num_workers=num_workers, batch_rows=_rows(mesh, batch_size))
     return loader.forever(), {"dataset": len(ds)}
 
 

@@ -144,12 +144,13 @@ class Loader:
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 2, num_workers: int = 0,
                  batch_rows: Optional[Sequence[int]] = None):
-        """batch_rows: multi-host feeding (reference DistributedSampler over
-        SLURM ranks, main_pretrain.py:236-251) — `batch_size` is the GLOBAL
-        batch; this process materializes only these row offsets of each
-        batch (one rank's rows; the port has no data parallel yet).  Every
-        process must use the same seed so the epoch permutation agrees;
-        coverage across processes is disjoint and complete by construction."""
+        """batch_rows: multi-process feeding (reference DistributedSampler
+        over SLURM ranks, main_pretrain.py:236-251) — `batch_size` is the
+        GLOBAL batch; this process materializes only these row offsets of
+        each batch (one rank's rows, `parallel.mesh.process_batch_rows`).
+        Every process must use the same seed so the epoch permutation
+        agrees; coverage across processes is disjoint and complete by
+        construction."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate

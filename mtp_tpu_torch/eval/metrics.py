@@ -11,6 +11,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from mtp_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                   ks: Tuple[int, ...] = (1, 5)) -> Dict[str, torch.Tensor]:
@@ -60,6 +62,15 @@ class SegAccumulator:
         self.u += u.cpu().numpy()
         self.p += p.cpu().numpy()
         self.l += l.cpu().numpy()
+
+    def all_reduce(self) -> "SegAccumulator":
+        """Sum the counts of every rank's accumulator (data parallel, each
+        rank having evaluated its share; a no-op without a process group).
+        The counts are integers in float64, so the sums are exact."""
+        if world_size() > 1:
+            sums = all_reduce_sum(torch.from_numpy(np.stack([self.i, self.u, self.p, self.l])))
+            self.i, self.u, self.p, self.l = sums.numpy()
+        return self
 
     def evaluate(self) -> Dict[str, float]:
         eps = 1e-12

@@ -23,7 +23,9 @@ from torch import nn
 
 from mtp_tpu_torch.heads.fpn import ConvBlock
 from mtp_tpu_torch.heads.rpn import _l1, fp32
+from mtp_tpu_torch.ops.carafe import CARAFEPack
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.parallel.mesh import global_count
 
 
 class Shared2FCTrunk(nn.Module):
@@ -68,12 +70,13 @@ def bbox_head_loss(cls_logits: torch.Tensor, reg_pred: torch.Tensor, sample,
     """Softmax CE over the classes and background (index num_classes) over
     the valid slots; L1 (or SmoothL1) over the positive slots of the gt
     class's deltas (all classes share them if agnostic); both over the
-    number of valid slots.  sample: a flat SampleResult (R,)."""
+    number of valid slots (over the global batch under data parallel,
+    `parallel.mesh.global_count`).  sample: a flat SampleResult (R,)."""
     R = cls_logits.shape[0]
     rows = torch.arange(R, device=cls_logits.device)
     labels = torch.where(sample.is_pos, sample.labels, num_classes)
     ce = -F.log_softmax(cls_logits, -1)[rows, labels]
-    n_valid = sample.valid.sum().clamp(min=1)
+    n_valid = global_count(sample.valid.sum())
     loss_cls = torch.where(sample.valid, ce, 0.0).sum() / n_valid
     acc = (sample.valid & (cls_logits.argmax(-1) == labels)).sum() / n_valid
     if reg_class_agnostic:
@@ -89,29 +92,29 @@ def bbox_head_loss(cls_logits: torch.Tensor, reg_pred: torch.Tensor, sample,
 
 class FCNMaskTrunk(nn.Module):
     """Four 3×3 convolutions with ReLU, then a 2× upsample: `deconv` (a 2×2
-    ConvTranspose at stride 2 and ReLU, the reference default), `nearest`
-    or `bilinear` (half-pixel centres, as `jax.image.resize`).  (R, C, s,
-    s) → (R, conv_out, 2s, 2s)."""
+    ConvTranspose at stride 2 and ReLU, the reference default), `carafe`
+    (mmcv's `CARAFEPack` and ReLU, `ops.carafe`; the reference
+    FCNMaskHead's option), `nearest` or `bilinear` (half-pixel centres, as
+    `jax.image.resize`).  (R, C, s, s) → (R, conv_out, 2s, 2s)."""
 
     def __init__(self, in_channels: int = 256, conv_out: int = 256,
                  upsample: str = "deconv"):
         super().__init__()
-        if upsample == "carafe":
-            raise NotImplementedError(
-                "mask_upsample='carafe' (mmcv CARAFEPack) is ROADMAP item 7")
-        if upsample not in ("deconv", "nearest", "bilinear"):
+        if upsample not in ("deconv", "carafe", "nearest", "bilinear"):
             raise ValueError(f"unknown upsample {upsample!r}")
         self.upsample_mode = upsample
         self.convs = nn.ModuleList(ConvBlock(in_channels if i == 0 else conv_out,
                                              conv_out, 3) for i in range(4))
         if upsample == "deconv":
             self.upsample = nn.ConvTranspose2d(conv_out, conv_out, 2, stride=2)
+        elif upsample == "carafe":
+            self.upsample = CARAFEPack(conv_out, scale=2)
 
     def trunk(self, roi_feats: torch.Tensor) -> torch.Tensor:
         x = roi_feats
         for conv in self.convs:
             x = F.relu(conv(x))
-        if self.upsample_mode == "deconv":
+        if self.upsample_mode in ("deconv", "carafe"):
             return F.relu(self.upsample(x))
         if self.upsample_mode == "nearest":
             return x.repeat_interleave(2, 2).repeat_interleave(2, 3)
@@ -145,5 +148,5 @@ def mask_head_loss(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
     z = mask_logits[torch.arange(R, device=mask_logits.device),
                     sample.labels.clamp(0, K - 1)]
     bce = z.clamp(min=0) - z * mask_targets + torch.log1p(torch.exp(-z.abs()))
-    n_pos = sample.is_pos.sum().clamp(min=1)
+    n_pos = global_count(sample.is_pos.sum())
     return {"loss_mask": torch.where(sample.is_pos, bce.mean((1, 2)), 0.0).sum() / n_pos}

@@ -24,6 +24,7 @@ from torch import nn
 
 from mtp_tpu_torch.ops.dropout import dropout
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
@@ -46,15 +47,26 @@ class BatchNorm(nn.BatchNorm2d):
     1×1 map is allowed (variance 0).  (torch's own BatchNorm updates the
     running variance with the unbiased one and raises on one value per
     channel.)  Otherwise it normalises with the running statistics.  The
-    output is fp32, as the JAX head's BatchNorm (dtype float32)."""
+    output is fp32, as the JAX head's BatchNorm (dtype float32).
+
+    Under data parallel (a world over 1, `parallel.mesh`) the batch
+    statistics are the global batch's, as JAX's over the mesh: an
+    all-reduce of the fp32 sums and the count gives the mean, a second one
+    of the centred squares the biased variance, and the gradient flows
+    back through both; every rank updates its running statistics with the
+    same global values.  (`torch.nn.SyncBatchNorm` raises on CPU tensors
+    and updates the running variance with the unbiased estimate.)"""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         xf = at_least_fp32(x)
-        mean = xf.mean((0, 2, 3))
-        var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), count]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        var = all_reduce_sum((xf - mean[:, None, None]).square().sum((0, 2, 3))) / n
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)

@@ -45,6 +45,7 @@ from mtp_tpu_torch.heads.upernet import UperNetHead, resize_bilinear
 from mtp_tpu_torch.models.backbones import build_backbone
 from mtp_tpu_torch.models.detector import DetConfig, oriented_rcnn_cfg
 from mtp_tpu_torch.ops.dropout import dropout2d
+from mtp_tpu_torch.parallel.mesh import batch_layout, concat_rows
 from mtp_tpu_torch.ops.precision import at_least_fp32
 from mtp_tpu_torch.ops.roi_align import multilevel_roi_align_fused
 from mtp_tpu_torch.tasks.detection import (det_loss_core, det_loss_multi,
@@ -211,7 +212,14 @@ class MultiTaskPretrainModel(nn.Module):
         r_gt_labels / r_gt_valid (rotated).  BatchNorm trains and dropout,
         drop-path and the samplers draw from `generator` unless
         `deterministic` (BatchNorm then normalises with its running
-        statistics, as JAX's `train=not deterministic`)."""
+        statistics, as JAX's `train=not deterministic`).  Under data parallel
+        each dataset's batch is the rank's rows of its global batch, and a
+        draw over the concatenated images keeps the rank's rows of each
+        dataset (`parallel.mesh.batch_layout`)."""
+        with batch_layout(*concat_rows([b["image"].shape[0] for b in batches])):
+            return self._loss(batches, generator, anchors, deterministic)
+
+    def _loss(self, batches, generator, anchors, deterministic):
         offs = np.cumsum([0] + [b["image"].shape[0] for b in batches])
         images = torch.cat([b["image"] for b in batches], 0)
         hw = tuple(images.shape[1:3])

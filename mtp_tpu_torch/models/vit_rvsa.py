@@ -26,6 +26,10 @@ package routes them, the window-attention function over one window of all
 H·W tokens with a materialised fp32 bias (K1L forward, K7 backward at every
 grid over 128 per axis).  Their backwards run K4, K6 (twice) and K5.
 
+Patch 8 (the reference's patch-8 variant, `mtp_tpu/models/vit_rvsa.py:402-407`)
+doubles the token grid per axis and takes the simple FPN's patch-8 branch:
+one deconvolution (`fpn1.0`), identity, 2×2 and 4×4 max-pools, no norm.
+
 Train mode follows the JAX meaning of `deterministic`: when False, each
 block's residual branches go through per-sample drop-path at the rates
 linspace(0, drop_path_rate, depth), and the patch tokens through dropout at
@@ -308,9 +312,9 @@ class ViTRVSA(nn.Module):
                  features_only: bool = False):
         super().__init__()
         self.features_only = features_only
-        if cfg.patch_size != 16:
-            raise NotImplementedError(
-                "the patch-8 simple-FPN variant is not ported yet")
+        if cfg.patch_size not in (8, 16):
+            raise ValueError(f"patch size {cfg.patch_size}: the simple FPN has "
+                             f"variants for 16 and 8")
         self.cfg = cfg
         H, W = input_hw or (cfg.img_size, cfg.img_size)
         p, D = cfg.patch_size, cfg.embed_dim
@@ -328,8 +332,14 @@ class ViTRVSA(nn.Module):
         if features_only:
             return
         # the simple feature pyramid (ViTDet-style, reference fpn1..fpn4):
-        # strides 4, 8, 16, 32 from the stride-16 grid, all D channels
+        # strides 4, 8, 16, 32 from the token grid, all D channels
         up = lambda: nn.ConvTranspose2d(D, D, 2, stride=2)
+        if p == 8:  # reference :655-668: one deconv, identity, two pools, no norm
+            self.fpn1 = nn.Sequential(up())
+            self.fpn2 = nn.Identity()
+            self.fpn3 = nn.MaxPool2d(2, stride=2)
+            self.fpn4 = nn.MaxPool2d(4, stride=4)
+            return
         self.fpn1 = nn.Sequential(up(), Norm2d(D), nn.GELU(), up())
         self.fpn2 = nn.Sequential(up())
         self.fpn3 = nn.Identity()

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mtp_tpu_torch.ops.boxes import bbox_overlaps
+from mtp_tpu_torch.parallel.mesh import global_rand
 
 
 class AssignResult(NamedTuple):
@@ -81,10 +82,12 @@ def max_iou_assign(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                             min_pos_iou, match_low_quality, neg_needs_nonneg=False)
 
 
-def _uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+def _uniform(shape, generator: torch.Generator, device,
+             batch_axis: int = 0) -> torch.Tensor:
     """U[0, 1) of `shape` drawn on the generator's device, placed on
-    `device`."""
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    `device`; under data parallel this rank's rows (on `batch_axis`) of the
+    global batch's draw (`parallel.mesh.global_rand`)."""
+    return global_rand(shape, generator, batch_axis).to(device)
 
 
 def _rank(key: torch.Tensor) -> torch.Tensor:
@@ -99,15 +102,16 @@ def random_sample(assign: AssignResult, generator: torch.Generator, num: int,
     """Exactly `num` slots: up to int(num·pos_fraction) positives drawn at
     random without replacement, the rest random negatives (mmdet
     RandomSampler with neg_pos_ub = -1), packed positives first, then
-    negatives, then invalid padding.  The draws come from `generator`, so
-    they are not JAX's bits; the rule and its invariants are the same."""
+    negatives, then invalid padding, for each row of the (B, A) assignment.
+    The draws come from `generator`, so they are not JAX's bits; the rule
+    and its invariants are the same."""
     gt_inds = assign.gt_inds
     A = gt_inds.shape[-1]
     if num > A:
         raise ValueError(f"cannot sample {num} slots from {A}")
     expected_pos = int(num * pos_fraction)
     pos_mask, neg_mask = gt_inds > 0, gt_inds == 0
-    u = _uniform((3,) + tuple(gt_inds.shape), generator, gt_inds.device)
+    u = _uniform((3,) + tuple(gt_inds.shape), generator, gt_inds.device, batch_axis=1)
     pos_sel = pos_mask & (_rank(torch.where(pos_mask, u[0], -1.0)) < expected_pos)
     n_neg = num - pos_sel.sum(-1, keepdim=True)
     neg_sel = neg_mask & (_rank(torch.where(neg_mask, u[1], -1.0)) < n_neg)

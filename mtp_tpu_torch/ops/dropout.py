@@ -5,13 +5,16 @@ generators: elementwise dropout (flax `nn.Dropout`), channel dropout
 `torch.Generator` it is given, on the generator's device, and uses it on the
 tensor's: the train state's generator lives on the card with the model, and
 a CPU generator drives a run on the card with the very masks it draws for a
-run on the CPU."""
+run on the CPU.  Under data parallel each mask is this rank's rows of the
+global batch's mask (`parallel.mesh.global_rand`)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from mtp_tpu_torch.parallel.mesh import global_rand
 
 
 def _keep(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
@@ -20,12 +23,12 @@ def _keep(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
 
 def _uniform(shape, generator: Optional[torch.Generator],
              device: torch.device) -> torch.Tensor:
-    """U[0, 1) numbers of `shape` drawn by `generator`, placed on `device`."""
+    """U[0, 1) numbers of `shape` (batch first) drawn by `generator`, placed
+    on `device`."""
     if generator is None:
         raise ValueError("a stochastic layer needs a generator when "
                          "deterministic=False")
-    return torch.rand(shape, generator=generator,
-                      device=generator.device).to(device)
+    return global_rand(shape, generator).to(device)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,

@@ -1,7 +1,9 @@
 """What the task drivers share (port of `mtp_tpu/tasks/_fit.py` and of the
 drivers' common `init_state`): the training loop `fit_loop`, with periodic
-checkpoints and the encoder export, and `Task`, the base of the
-segmentation, classification and change-detection drivers."""
+checkpoints and the encoder export, and `Task`, the base of every task
+driver.  Under data parallel (`parallel.mesh`: one process a card) each
+rank trains on its rows of every global batch; rank 0 alone logs and
+writes checkpoints."""
 
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ from torch import nn
 
 from mtp_tpu_torch.ckpt.from_jax import init_weights
 from mtp_tpu_torch.ckpt.store import save_encoder
-from mtp_tpu_torch.config import TaskConfig, check_single_device
+from mtp_tpu_torch.config import TaskConfig
 from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
 from mtp_tpu_torch.core.train import TrainState, create_state
+from mtp_tpu_torch.parallel.mesh import is_main, make_mesh, shard_batch
 
 
 def to_device(v, device):
@@ -32,9 +35,10 @@ def to_device(v, device):
 def _save(ckpt, state: TrainState, encoder_path: Optional[str],
           wait: bool = False) -> None:
     """A checkpoint of the state and, with `encoder_path`, the encoder
-    artifact: the model's `encoder` if it has one, else its `backbone`."""
+    artifact: the model's `encoder` if it has one, else its `backbone`
+    (rank 0 writes both)."""
     ckpt.save(state.step, state, wait=wait)
-    if encoder_path:
+    if encoder_path and is_main():
         encoder = getattr(state.model, "encoder", None)
         save_encoder(encoder_path,
                      state.model.backbone if encoder is None else encoder)
@@ -44,9 +48,14 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
              log_every: int = 50,
              log_fn: Optional[Callable[[int, dict], None]] = None,
              ckpt=None, ckpt_every: int = 1000,
-             encoder_path: Optional[str] = None) -> Tuple[TrainState, dict]:
+             encoder_path: Optional[str] = None,
+             global_batch: bool = False) -> Tuple[TrainState, dict]:
     """Run `steps` optimizer steps on batches from `data` (dicts of numpy
-    arrays or tensors, nested or not, moved to `task.device`).
+    arrays or tensors, nested or not, moved to `task.device`).  Under data
+    parallel a batch is the rank's rows (`data.loader.Loader(batch_rows=
+    parallel.mesh.process_batch_rows(...))`), or, with `global_batch`, the
+    whole global batch, of which the loop keeps the rank's rows
+    (`parallel.mesh.shard_batch`: each dataset's of the multitask batch).
 
     At step 0, every `log_every`-th step and the last one, `log_fn(i,
     metrics)` gets the step's metrics as floats plus `data_time` (host
@@ -58,15 +67,21 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
     With a `ckpt.store.CheckpointStore`, the state is saved every
     `ckpt_every` steps except after the last, and once at the end, waiting
     for the write; each save also writes the encoder artifact to
-    `encoder_path` when given (reference main_pretrain.py:821-829)."""
+    `encoder_path` when given (reference main_pretrain.py:821-829).  Rank 0
+    alone calls `log_fn` and writes (`CheckpointStore.save` is a no-op on
+    the other ranks)."""
     step_fn = task.train_step_fn()
+    log_fn = log_fn if is_main() else None
     metrics: dict = {}
     t_data = 0.0
     t_mark = time.perf_counter()
     n_since = 0
     for i in range(steps):
         t0 = time.perf_counter()
-        batch = to_device(next(data), task.device)
+        batch = next(data)
+        if global_batch:
+            batch = shard_batch(task.mesh, batch)
+        batch = to_device(batch, task.device)
         t_data += time.perf_counter() - t0
         state, metrics = step_fn(state, batch)
         n_since += 1
@@ -89,7 +104,10 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
 class Task:
     """A task driver on one device (`device`, the card unless the caller
     asks for another) for `model`, whose backbone is `model.encoder` (the
-    multitask model) or else `model.backbone`.
+    multitask model) or else `model.backbone`.  `mesh` is the config's
+    mesh in this world (`parallel.mesh.make_mesh`: `data` -1 or the world
+    size, no model axis); under data parallel the card is the rank's
+    (`cuda:LOCAL_RANK`).
 
     Compute precision follows the backbone config's `dtype`, as the JAX
     package's does: "bfloat16" runs the train step and evaluation under
@@ -97,10 +115,10 @@ class Task:
     the loss stay fp32), "float32" runs them in fp32."""
 
     def __init__(self, cfg: TaskConfig, model: nn.Module, device="cuda"):
-        check_single_device(cfg.train.mesh)
+        self.mesh = make_mesh(cfg.train.mesh)
         self.cfg = cfg
         self.model = model
-        self.device = torch.device(device)
+        self.device = self.mesh.device(device)
         self.num_classes = cfg.num_classes
 
     def autocast(self):
@@ -150,11 +168,11 @@ class Task:
     def fit(self, state: TrainState, data: Iterator[Dict[str, np.ndarray]],
             steps: int, log_every: int = 50,
             log_fn: Callable[[int, dict], None] = None,
-            **ckpt_kw) -> Tuple[TrainState, dict]:
-        """`fit_loop` over this task's train step; `ckpt_kw`: `ckpt`,
-        `ckpt_every`, `encoder_path`."""
+            **kw) -> Tuple[TrainState, dict]:
+        """`fit_loop` over this task's train step; `kw`: `ckpt`,
+        `ckpt_every`, `encoder_path`, `global_batch`."""
         return fit_loop(self, state, data, steps, log_every=log_every,
-                        log_fn=log_fn, **ckpt_kw)
+                        log_fn=log_fn, **kw)
 
     def _check_state(self, state: TrainState) -> None:
         if state.model is not self.model:

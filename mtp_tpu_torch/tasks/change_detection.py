@@ -2,8 +2,9 @@
 LEVIR / WHU / SVCD / OSCD recipe shape): SiamChangeDetector (one backbone
 pass over both epochs → fusion → UNet), pixel cross entropy with
 ignore_index, AdamW with layer decay (optionally a frozen backbone), and
-the change class's F1 with the mIoU family.  One device and the backbone's
-compute precision (`tasks._fit.Task`).
+the change class's F1 with the mIoU family.  One device a process and the backbone's
+compute precision (`tasks._fit.Task`; data parallel over processes,
+`parallel.mesh`).
 
 Batches: {"image_a", "image_b": (B, H, W, 3) float, "label": (B, H, W) int
 in {0, 1, ignore_index}}."""
@@ -22,6 +23,7 @@ from mtp_tpu_torch.eval.metrics import SegAccumulator
 from mtp_tpu_torch.heads.upernet import resize_bilinear
 from mtp_tpu_torch.models.change_detection import SiamChangeDetector
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.parallel.mesh import global_count, shard_items
 from mtp_tpu_torch.tasks._fit import Task
 
 
@@ -56,13 +58,13 @@ class ChangeDetectionTask(Task):
         loss = seg_xent(logits, labels, self.cfg.ignore_index)
         valid = labels != self.cfg.ignore_index
         hit = (logits.argmax(-1) == labels) & valid
-        acc = hit.sum() / valid.sum().clamp(min=1) * 100.0
+        acc = hit.sum() / global_count(valid.sum()) * 100.0
         return loss, {"acc": acc}
 
     def train_step_fn(self, deterministic: bool = False):
         """(state, batch) → (state, metrics {acc, loss, grad_norm})."""
         return make_train_step(
-            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic), self.mesh)
 
     def predict_fn(self) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
         """(image_a, image_b) → per-pixel change maps (B, H, W), eval mode, in
@@ -72,16 +74,18 @@ class ChangeDetectionTask(Task):
     def evaluate(self, state: TrainState,
                  data: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
         """mIoU/mAcc/aAcc/... (%) of the state's model over `data`, plus
-        `F1_change`, the change class's F1 (open-cd's headline metric)."""
+        `F1_change`, the change class's F1 (open-cd's headline metric).
+        Under data parallel each rank predicts every W-th batch and the
+        ranks' counts are summed."""
         self._check_state(state)
         predict = self.predict_fn()
         acc = SegAccumulator(self.cfg.num_classes, self.cfg.ignore_index)
-        for batch in data:
+        for _, batch in shard_items(data):
             a, b = (torch.as_tensor(batch[k]).to(self.device)
                     for k in ("image_a", "image_b"))
             with self.autocast():
                 pred = predict(a, b)
             acc.add(pred, batch["label"])
-        res = acc.evaluate()
+        res = acc.all_reduce().evaluate()
         res["F1_change"] = res["Fscore"][1] if len(res["Fscore"]) > 1 else 0.0
         return res

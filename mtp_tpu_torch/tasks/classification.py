@@ -1,8 +1,9 @@
 """Scene-classification task driver (port of `mtp_tpu/tasks/classification.py`;
 reference mmpretrain flow, RS_Tasks_Finetune/Scene_Classification):
 ImageClassifier (ViT+RVSA or InternImage → linear head), cross entropy,
-AdamW with layer decay, top-1 / top-5 evaluation.  One device and the
-backbone's compute precision (`tasks._fit.Task`)."""
+AdamW with layer decay, top-1 / top-5 evaluation.  One device a process
+(data parallel over processes, `parallel.mesh`) and the backbone's compute
+precision (`tasks._fit.Task`)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from mtp_tpu_torch.config import TaskConfig
 from mtp_tpu_torch.core.train import TrainState, make_train_step, softmax_xent
 from mtp_tpu_torch.eval.metrics import topk_accuracy
 from mtp_tpu_torch.models.classifier import ImageClassifier
+from mtp_tpu_torch.parallel.mesh import all_reduce_sum, shard_items, world_size
 from mtp_tpu_torch.tasks._fit import Task
 
 
@@ -47,16 +49,17 @@ class ClassificationTask(Task):
         {"image": (B, H, W, 3) float, "label": (B,) int} on the task's
         device."""
         return make_train_step(
-            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic), self.mesh)
 
     @torch.no_grad()
     def evaluate(self, state: TrainState,
                  data: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
         """top1 and top5 (%) of the state's model over `data`, each batch
-        weighted by its size."""
+        weighted by its size.  Under data parallel each rank predicts every
+        W-th batch and the ranks' counts are summed."""
         self._check_state(state)
         total, hits = 0, {"top1": 0.0, "top5": 0.0}
-        for batch in data:
+        for _, batch in shard_items(data):
             images = torch.as_tensor(batch["image"]).to(self.device)
             with self.autocast():
                 logits = self.model(images)
@@ -65,4 +68,8 @@ class ClassificationTask(Task):
             total += n
             for k in hits:
                 hits[k] += float(accs[k]) * n
+        if world_size() > 1:
+            sums = all_reduce_sum(torch.tensor([total, hits["top1"], hits["top5"]],
+                                               dtype=torch.float64)).tolist()
+            total, hits = sums[0], {"top1": sums[1], "top5": sums[2]}
         return {k: v / max(total, 1) for k, v in hits.items()}

@@ -5,8 +5,9 @@ shared `fit_loop`, checkpoints included) → `predict_fn` → `evaluate` (VOC
 AP50, the DIOR protocol and the rotated DIOR-R / DOTA one; with
 `coco=True` the COCO protocol, bbox and, for Mask R-CNN, segm).
 
-One device (the card unless the caller asks for another) and the
-backbone's compute precision, as every task driver (`tasks._fit.Task`);
+One device a process (the card unless the caller asks for another; data
+parallel over processes, `parallel.mesh`) and the backbone's compute
+precision, as every task driver (`tasks._fit.Task`);
 `predict_fn` runs in the caller's precision, `evaluate` in the backbone's.
 """
 
@@ -27,6 +28,7 @@ from mtp_tpu_torch.eval.masks import paste_masks
 from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector, oriented_rcnn_cfg
 from mtp_tpu_torch.models.retinanet import (RetinaNet, retina_anchors, retinanet_loss,
                                             retinanet_predict)
+from mtp_tpu_torch.parallel.mesh import all_gather_objects, gather_in_order, is_main, shard_items
 from mtp_tpu_torch.tasks._fit import Task
 from mtp_tpu_torch.tasks.detection import (Detections, anchors_for,
                                            det_loss_core, det_predict_core)
@@ -158,7 +160,7 @@ class DetectionTask(Task):
         "gt_valid": (B, G) bool, and for Mask R-CNN "gt_mask_crops" (B, G,
         56, 56) or "gt_masks" (B, G, H/4, W/4)} on the task's device."""
         return make_train_step(
-            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic), self.mesh)
 
     # -- inference ----------------------------------------------------------
     def predict_fn(self) -> Callable[[torch.Tensor], Detections]:
@@ -194,17 +196,27 @@ class DetectionTask(Task):
         also the 12 segm stats (keys `segm_*`): each detection's mask
         probabilities (sigmoid) pasted into the image at 0.5
         (`paste_masks`), against the gt crops pasted back or the stride-s
-        masks repeated up to the image."""
+        masks repeated up to the image.
+
+        Under data parallel each rank predicts every W-th batch; the records
+        are gathered in image order and scored once, on rank 0, and every
+        rank returns that result: the world-1 result."""
         self._check_state(state)
         predict = self.predict_fn()
-        per_image = []
-        for batch in data:
+        records = []
+        for bi, batch in shard_items(data):
             images = torch.as_tensor(batch["image"]).to(self.device)
             with self.autocast():
                 dets = host_detections(predict(images), batch,
                                        coco and self.head == "mask_rcnn")
-            per_image += [image_record(dets, i, batch, tuple(images.shape[1:3]))
-                          for i in range(images.shape[0])]
-        if coco and not self.rotated:
-            return evaluate_coco_bbox_segm(per_image, self.cfg.num_classes)
-        return eval_map(per_image, self.cfg.num_classes, iou_thr, rotated=self.rotated)
+            records.append((bi, [image_record(dets, i, batch, tuple(images.shape[1:3]))
+                                 for i in range(images.shape[0])]))
+        per_image = gather_in_order(records)
+        result = None
+        if is_main():
+            if coco and not self.rotated:
+                result = evaluate_coco_bbox_segm(per_image, self.cfg.num_classes)
+            else:
+                result = eval_map(per_image, self.cfg.num_classes, iou_thr,
+                                  rotated=self.rotated)
+        return all_gather_objects(result)[0]

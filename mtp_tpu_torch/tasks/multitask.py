@@ -4,8 +4,9 @@ the joint loss, AdamW with layer decay and the recipe's schedule, periodic
 checkpoints and the encoder-only export that every finetune recipe loads,
 and the 9-way validation.
 
-One device (the card unless the caller asks for another) and the encoder's
-compute precision, as every task driver (`tasks._fit.Task`).  A batch is
+One device a process (the card unless the caller asks for another; data
+parallel over processes, `parallel.mesh`) and the encoder's compute
+precision, as every task driver (`tasks._fit.Task`).  A batch is
 {"d0": {...}, "d1": {...}, "d2": {...}}, one dict a dataset as
 `MultiTaskPretrainModel.loss` takes them.
 """
@@ -13,6 +14,7 @@ compute precision, as every task driver (`tasks._fit.Task`).  A batch is
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -28,6 +30,8 @@ from mtp_tpu_torch.eval.coco_eval import evaluate_coco_bbox_segm
 from mtp_tpu_torch.eval.det_map import eval_map
 from mtp_tpu_torch.eval.metrics import SegAccumulator
 from mtp_tpu_torch.models.multitask import TASKS, MultiTaskPretrainModel
+from mtp_tpu_torch.parallel.mesh import (all_gather_objects, gather_in_order, is_main,
+                                         shard_items)
 from mtp_tpu_torch.tasks._fit import Task
 from mtp_tpu_torch.tasks.detection import anchors_for
 from mtp_tpu_torch.tasks.detection_task import host_detections, image_record
@@ -133,7 +137,7 @@ class MultiTaskPretrainTask(Task):
         grad_norm}); batch {"d0", "d1", "d2"} of tensors on the task's
         device."""
         return make_train_step(
-            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic), self.mesh)
 
     # -- validation ----------------------------------------------------------
     def predict_fn(self):
@@ -161,7 +165,10 @@ class MultiTaskPretrainTask(Task):
         "mtp_accuracy", and "eval_device_s" (predicts and their copies to
         the host) and "eval_host_s" (the host work not overlapped with
         them: each image's records, masks pasted, are built on a thread
-        pool while the next predict runs)."""
+        pool while the next predict runs).  Under data parallel each rank
+        predicts every W-th batch; the confusion counts are summed, the
+        records gathered in image order and scored once, on rank 0, and
+        every rank returns that result (the times are rank 0's)."""
         self._check_state(state)
         predict, tasks = self.predict_fn(), self.model.tasks
         classes = self.model.classes
@@ -172,9 +179,7 @@ class MultiTaskPretrainTask(Task):
         pending, max_pending = collections.deque(), 8 * pool._max_workers
         t_dev = t_host = 0.0
         try:
-            for bi, batch in enumerate(data):
-                if max_batches and bi >= max_batches:
-                    break
+            for bi, batch in shard_items(itertools.islice(data, max_batches or None)):
                 for d in range(3):
                     bd = batch[f"d{d}"]
                     images = torch.as_tensor(bd["image"]).to(self.device)
@@ -191,21 +196,26 @@ class MultiTaskPretrainTask(Task):
                         seg_acc[d].add(ss_pred, bd["ss_label"])
                     for i in range(images.shape[0]):
                         if dh is not None:
-                            h_futs[d].append(pool.submit(image_record, dh, i, bd, (H, W)))
-                            pending.append(h_futs[d][-1])
+                            h_futs[d].append((bi, pool.submit(image_record, dh, i, bd, (H, W))))
+                            pending.append(h_futs[d][-1][1])
                         if dr is not None:
-                            r_futs[d].append(pool.submit(image_record, dr, i, bd, (H, W),
-                                                         "r_"))
-                            pending.append(r_futs[d][-1])
+                            r_futs[d].append((bi, pool.submit(image_record, dr, i, bd, (H, W),
+                                                              "r_")))
+                            pending.append(r_futs[d][-1][1])
                     while len(pending) > max_pending:
                         pending.popleft().result()
                     t_host += time.perf_counter() - t0
             t0 = time.perf_counter()
-            h_imgs = [[f.result() for f in futs] for futs in h_futs]
-            r_imgs = [[f.result() for f in futs] for futs in r_futs]
+            # each dataset's records in image order, gathered from every rank
+            h_imgs = [gather_in_order((bi, [f.result()]) for bi, f in futs) for futs in h_futs]
+            r_imgs = [gather_in_order((bi, [f.result()]) for bi, f in futs) for futs in r_futs]
             t_host += time.perf_counter() - t0
         finally:
             pool.shutdown(cancel_futures=True)
+        for acc in seg_acc:
+            acc.all_reduce()
+        if not is_main():  # scored once, on rank 0
+            return all_gather_objects(None)[0]
 
         out: Dict[str, float] = {}
         accs = []
@@ -227,4 +237,4 @@ class MultiTaskPretrainTask(Task):
         out["mtp_accuracy"] = float(np.mean(accs))
         out["eval_device_s"] = round(t_dev, 3)
         out["eval_host_s"] = round(t_host, 3)
-        return out
+        return all_gather_objects(out)[0]

@@ -3,8 +3,8 @@ Segmentor (ViT+RVSA or InternImage → UperNet), pixel cross entropy with
 ignore_index, AdamW with layer decay (the backbone's layer-id map and
 depth), sliding-window evaluation with mIoU.
 
-One device and the backbone's compute precision, as every task driver
-(`tasks._fit.Task`); `predict_fn`/`slide_logits` run in the caller's
+One device a process (data parallel over processes, `parallel.mesh`) and
+the backbone's compute precision, as every task driver (`tasks._fit.Task`); `predict_fn`/`slide_logits` run in the caller's
 precision.
 """
 
@@ -23,6 +23,7 @@ from mtp_tpu_torch.eval.slide import slide_inference
 from mtp_tpu_torch.heads.upernet import resize_bilinear
 from mtp_tpu_torch.models.segmentor import Segmentor
 from mtp_tpu_torch.ops.precision import at_least_fp32
+from mtp_tpu_torch.parallel.mesh import global_count, shard_items
 from mtp_tpu_torch.tasks._fit import Task
 
 
@@ -52,7 +53,7 @@ class SegmentationTask(Task):
         loss = seg_xent(logits, labels, self.cfg.ignore_index)
         valid = labels != self.cfg.ignore_index
         hit = (logits.argmax(-1) == labels) & valid
-        acc = hit.sum() / valid.sum().clamp(min=1) * 100.0
+        acc = hit.sum() / global_count(valid.sum()) * 100.0
         return loss, {"acc": acc}
 
     def train_step_fn(self, deterministic: bool = False):
@@ -61,7 +62,7 @@ class SegmentationTask(Task):
         device.  `deterministic=True` turns dropout and drop-path off (for
         comparisons with a deterministic reference)."""
         return make_train_step(
-            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic))
+            lambda m, b, g: self.loss_fn(m, b, g, deterministic=deterministic), self.mesh)
 
     # -- inference ----------------------------------------------------------
     @torch.no_grad()
@@ -84,13 +85,15 @@ class SegmentationTask(Task):
                  data: Iterator[Dict[str, np.ndarray]],
                  slide: Optional[SlideConfig] = None) -> Dict[str, float]:
         """mIoU/mAcc/aAcc/... (%) of the state's model over `data`, with the
-        recipe's slide geometry (or `slide`)."""
+        recipe's slide geometry (or `slide`).  Under data parallel each rank
+        predicts every W-th batch and the ranks' counts are summed, so every
+        rank returns the world-1 result."""
         self._check_state(state)
         predict = self.predict_fn(slide)
         acc = SegAccumulator(self.cfg.num_classes, self.cfg.ignore_index)
-        for batch in data:
+        for _, batch in shard_items(data):
             images = torch.as_tensor(batch["image"]).to(self.device)
             with self.autocast():
                 pred = predict(images)
             acc.add(pred, batch["label"])
-        return acc.evaluate()
+        return acc.all_reduce().evaluate()

@@ -28,7 +28,7 @@ def test_cli_flags_without_effect_and_mesh(toy, tmp_path, capsys):
     assert port_train(argv) == 0
     assert math.isfinite(json.loads(capsys.readouterr().out.strip().splitlines()[-1])
                          ["final"]["loss"])
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="world"):  # data parallel needs torchrun's 2
         port_train(argv + ["--mesh-data", "2"])
     with pytest.raises(SystemExit):
         port_train([toy, "--device", "cpu", "--work-dir", str(tmp_path)])

@@ -82,6 +82,9 @@ SLICE_MODULES = [
     "mtp_tpu_torch.cli.train",
     "mtp_tpu_torch.cli.test",
     "mtp_tpu_torch.cli.convert",
+    "mtp_tpu_torch.parallel",
+    "mtp_tpu_torch.parallel.mesh",
+    "mtp_tpu_torch.ops.carafe",
     "chip_smoke",
 ]
 
@@ -178,9 +181,14 @@ def test_config_copies_match_the_jax_package():
     assert dataclasses.asdict(masked) == \
         dataclasses.asdict(JaxDetConfig(num_classes=80, with_mask=True))
     assert DetConfig(**dataclasses.asdict(masked)) == masked
-    with pytest.raises(NotImplementedError, match="one device"):
-        pc.check_single_device(pc.MeshConfig(data=4))
-    pc.check_single_device(pc.MeshConfig(data=1, model=-1))
+    # the mesh check (`parallel.mesh.make_mesh`): one process here, so data
+    # is -1 or 1, and the model axis is not ported
+    from mtp_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="world"):
+        make_mesh(pc.MeshConfig(data=4))
+    with pytest.raises(NotImplementedError, match="6d"):
+        make_mesh(pc.MeshConfig(data=1, model=2))
+    assert make_mesh(pc.MeshConfig(data=1, model=-1)).data == 1
 
 
 @pytest.mark.parametrize("factory", ["mtp_vit_b_rvsa_448_samrs", "mtp_vit_l_rvsa_448_samrs",

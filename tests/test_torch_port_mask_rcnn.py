@@ -247,8 +247,16 @@ def test_mask_trunk_matches_jax(upsample):
 
 
 def test_carafe_upsample_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FCNMaskTrunk(upsample="carafe")
+    """CARAFE, once a ROADMAP item, is ported (`ops/carafe.py`;
+    tests/test_torch_port_carafe_patch8.py holds it against JAX): the trunk
+    builds mmcv's `CARAFEPack` as its `upsample`, and an unknown upsample
+    raises."""
+    from mtp_tpu_torch.ops.carafe import CARAFEPack
+    trunk = FCNMaskTrunk(upsample="carafe")
+    assert isinstance(trunk.upsample, CARAFEPack)
+    assert trunk(torch.zeros(2, 256, 14, 14)).shape == (2, 256, 28, 28)
+    with pytest.raises(ValueError, match="unknown upsample"):
+        FCNMaskTrunk(upsample="pixel_shuffle")
 
 
 def test_mask_head_loss_and_its_gradient_match_jax():

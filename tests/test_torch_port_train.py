@@ -471,9 +471,14 @@ def test_fit_and_evaluate(tmp_path):
 
 
 def test_remat_and_meshes_are_refused():
-    """Meshes are refused: the port runs on one device.  Remat is no longer
+    """A mesh that does not fit the world is refused: data=2 in one process,
+    and any model axis over 1 (tensor parallelism is not ported;
+    tests/test_torch_port_ddp.py runs data=2 in two).  Remat is no longer
     refused (tests/test_torch_port_highres.py holds it against no remat and
     against the JAX module)."""
-    with pytest.raises(NotImplementedError, match="one"):
+    with pytest.raises(ValueError, match="world"):
         SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
             mesh=MeshConfig(data=2))), device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
+            mesh=MeshConfig(model=2))), device="cpu")
