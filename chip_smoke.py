@@ -258,6 +258,28 @@ Phases; any failure raises, so the exit code is non-zero:
    card vs CPU, logits and gradients.  25d (`phase_patch8`): the patch-8
    ViT-B+RVSA at a 384×128 strip, card vs CPU, levels and gradients, K1-K6
    launches exact.
+26. The model axis (`phase_tp`; `parallel.tensor`): phase 25's two rank
+   processes, after (b), as a data 1 × model 2 mesh over gloo on the card
+   (8 of the 16 heads a rank, qkv 1,536 rows, MLP 2,048), the recipe's task
+   built at `MeshConfig(data=1, model=2)` in fp32 while they sit idle and
+   phase 7's state restored from its whole-layout checkpoint (after (b)):
+   a gathered save of that state, before any step, bit for bit phase 7's
+   checkpoint; DDP_STEPS fp32 steps, the first held by phase 6's rule (the
+   gathered gradients and rank 1's partial ones) and grad_norm (1e-5) to
+   the model axis's arithmetic emulated in this process
+   (`emulated_model_axis`), and all against (a)'s one-rank steps from the
+   same state (losses 1e-5; the gradients, grad_norm and the whole state
+   after by `two_ranks_rule`, as 25(b): this state's gradients move ~1e-3
+   under any change of summation order, the emulation's distance printed);
+   launches a rank equal to one rank's; the loss on seeded row-parallel
+   biases against one rank's; controls that must fail (rank 1's partial
+   gradients before the model-group sum; the row-parallel bias added on
+   both ranks);
+   an fp32 sliding-window evaluate against one rank's (pixels may differ
+   only where the top two logits lie within TIE_GAP); peak memory and the
+   bf16 step's ms a rank beside (a)'s step without a group.  Gloo routes
+   each all-reduce through the host: no NCCL time is measured.  Phase 3
+   also holds K1 and K4 at this path's 128 windows × 8 heads.
 Every path runs its recipe's backbone at full depth but phase 14's
 gradients, on the first 6 blocks of the 2080² ViT-L.
 Registry recipes only: every path takes its recipe through
@@ -274,6 +296,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import filecmp
 import dataclasses
 import gc
 import io
@@ -307,10 +330,11 @@ from mtp_tpu_torch.cli import train as cli_train
 from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
 from mtp_tpu_torch.core import train as core_train
 from mtp_tpu_torch.core.train import create_state, make_train_step
-from mtp_tpu_torch.config import (SAMRS_CLASSES, ScheduleConfig, SlideConfig, TaskConfig,
-                                  vit_b_rvsa,
+from mtp_tpu_torch.config import (SAMRS_CLASSES, MeshConfig, ScheduleConfig, SlideConfig,
+                                  TaskConfig, vit_b_rvsa,
                                   internimage_config, is_internimage)
 from mtp_tpu_torch.data.parsers import mask_to_rle, rle_to_mask
+from mtp_tpu_torch.eval import metrics as pmetrics
 from mtp_tpu_torch.eval.masks import mask_probabilities, paste_masks, paste_masks_device
 from mtp_tpu_torch.eval.slide import slide_origins
 from mtp_tpu_torch.heads import upernet as pupernet
@@ -330,6 +354,7 @@ from mtp_tpu_torch.ops.assign import SampleResult
 from mtp_tpu_torch.ops.boxes import bbox_overlaps
 from mtp_tpu_torch.ops.dcnv3 import sampling_points
 from mtp_tpu_torch.parallel import mesh as pmesh
+from mtp_tpu_torch.parallel import tensor as ptensor
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
 from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
@@ -918,13 +943,15 @@ def window_cases(W, seed, bwd=False) -> list:
     of the wrapper at N = 49 takes longer on the host than the kernel on
     the card), a ragged edge (N = 25, D = 48), a full 64-token tile with
     nothing masked, D = 40 (the tensor-core wrapper pads it to 48), and
-    N = 100, which runs the CUDA-core body in bf16 too."""
+    N = 100, which runs the CUDA-core body in bf16 too; and phase 26's shape,
+    the train step's 128 windows at model 2 (8 of the 16 heads a rank)."""
     return [("slice", window_case(W, 16, 49, 64, seed, bwd, controls=True,
                                   device_time=True)),
             ("edge N=25 W=7", window_case(7, 3, 25, 48, seed + 1, bwd)),
             ("full N=64", window_case(16, 16, 64, 64, seed + 2, bwd)),
             ("D=40 padded", window_case(16, 16, 49, 40, seed + 3, bwd)),
-            ("N=100 cores", window_case(8, 16, 100, 64, seed + 4, bwd))]
+            ("N=100 cores", window_case(8, 16, 100, 64, seed + 4, bwd)),
+            ("model 2 nH=8", window_case(128, 8, 49, 64, seed + 5, bwd, device_time=True))]
 
 
 def large_window_case(W, nH, N, D, seed, bwd=False, path_inputs=None,
@@ -2339,7 +2366,7 @@ def _grad_verdict(path: Path, ref: tuple, got: tuple) -> Tuple[bool, str]:
         f"‖Δ‖/‖g‖ {global_rel:.3e} (‖g_all‖ {g_all:.3e}); per parameter ‖Δg‖/‖g‖ "
         f"min / median / max: " + ", ".join(
             f"{grp} {min(x)[0]:.3e} / {statistics.median(r for r, _ in x):.3e} / "
-            f"{max(x)[0]:.3e} at {max(x)[1]}" for grp, x in ratios.items())
+            f"{max(x)[0]:.3e} at {max(x)[1]}" for grp, x in ratios.items() if x)
         + "; largest where ‖g‖ > the floor: " + ", ".join(
             f"{grp} {r:.3e} at {n}" for r, grp, n in sorted(above, reverse=True)[:3])
         + f"; {len(bad)} of {len(g_ref)} parameters outside rtol·‖g‖ + "
@@ -2488,9 +2515,7 @@ def phase_train(path: Path, card: str, ranks: Optional["DdpRanks"] = None) -> di
         f"| card {card}")
 
     n, size = path.eval_tiles
-    tiles = {"image": np.random.default_rng(SEED + 20).standard_normal(
-        (n, size, size, 3)).astype(np.float32),
-        "label": np.random.default_rng(SEED + 21).integers(0, K, (n, size, size))}
+    tiles = eval_tiles(path)
     metrics = task.evaluate(state, iter([tiles]))
     log(f"{tag} evaluate (slide {recipe.slide}, {n} tile(s) of {size}²): "
         f"mIoU {metrics['mIoU']:.3f} mAcc {metrics['mAcc']:.3f} aAcc "
@@ -2510,6 +2535,15 @@ def phase_train(path: Path, card: str, ranks: Optional["DdpRanks"] = None) -> di
         free()
     sanity_run(task, batches[0], tag, initial)
     return launched
+
+
+def eval_tiles(path: Path) -> dict:
+    """The seeded tiles `evaluate` takes in phases 7 and 26."""
+    n, size = path.eval_tiles
+    K = path.recipe.num_classes
+    return {"image": np.random.default_rng(SEED + 20).standard_normal(
+        (n, size, size, 3)).astype(np.float32),
+        "label": np.random.default_rng(SEED + 21).integers(0, K, (n, size, size))}
 
 
 def host_copy(model) -> Dict[str, torch.Tensor]:
@@ -2714,13 +2748,17 @@ def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Ten
             st["turn"] = 1 - r
             cv.notify_all()
 
-    real = {"sum": pmesh.all_reduce_sum, "world": pmesh.world_size, "rank": pmesh.rank}
+    real = {"sum": pmesh.all_reduce_sum, "world_size": pmesh.world_size, "rank": pmesh.rank,
+            "data_size": pmesh.data_size, "data_rank": pmesh.data_rank}
     emulated = lambda name, value: (lambda: value(local.rank) if hasattr(local, "rank")
                                     else real[name]())
-    with mock.patch.object(pmesh, "all_reduce_sum", pair_sum), \
-            mock.patch.object(pupernet, "all_reduce_sum", pair_sum), \
-            mock.patch.object(pmesh, "world_size", emulated("world", lambda r: 2)), \
-            mock.patch.object(pmesh, "rank", emulated("rank", lambda r: r)):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(pmesh, "all_reduce_sum", pair_sum))
+        stack.enter_context(mock.patch.object(pupernet, "all_reduce_sum", pair_sum))
+        for name in ("world_size", "data_size"):
+            stack.enter_context(mock.patch.object(pmesh, name, emulated(name, lambda r: 2)))
+        for name in ("rank", "data_rank"):
+            stack.enter_context(mock.patch.object(pmesh, name, emulated(name, lambda r: r)))
         threads = [threading.Thread(target=body, args=(r,)) for r in range(2)]
         for t in threads:
             t.start()
@@ -2779,11 +2817,12 @@ def _wait_for(cond, what: str, limit: float = DDP_WAIT) -> None:
 
 
 class DdpRanks:
-    """Phase 25(b)'s two rank processes (`_ddp_rank`), spawned before phase 6
-    so that their imports, model construction and copy to the card run
-    beside phase 6's CPU-bound reference and not on phase 25's path: they
-    then wait, idle through phase 7's timed steps, for the checkpoint of
-    phase 7's state.  `close()` stops them and removes their directory."""
+    """Phase 25(b)'s and phase 26's two rank processes (`_ddp_rank`), spawned
+    before phase 6 so that their imports, model construction (both phases'
+    tasks) and copy to the card run beside phase 6's CPU-bound reference and
+    not on phase 25's path: they then wait, idle through phase 7's timed
+    steps, for the checkpoint of phase 7's state.  `close()` stops them and
+    removes their directory."""
 
     def __init__(self, path: Path):
         self._dir = tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_ddp_")
@@ -2791,6 +2830,8 @@ class DdpRanks:
         self.batches = _ddp_batches(path)
         np.savez(os.path.join(self.tmp, "batches.npz"),
                  **{f"{k}{i}": b[k] for i, b in enumerate(self.batches) for k in b})
+        self.tiles = eval_tiles(path)
+        np.savez(os.path.join(self.tmp, "tiles.npz"), **self.tiles)
         ctx = torch.multiprocessing.get_context("spawn")
         self.procs = [ctx.Process(target=_ddp_rank, args=(r, self.tmp), daemon=True)
                       for r in range(2)]
@@ -2816,10 +2857,12 @@ def _ddp_rank(rank: int, tmp: str) -> None:
     a card), phase 7's state restored from the checkpoint rank 0 of the
     parent's world wrote; after the parent's "go", the control (one step in
     which rank 1 keeps its own gradients), then the state again and the
-    compared steps on this rank's 4 rows of each global batch.  Writes
-    rank{r}.json (the digests of the state after the control and after the
-    steps, the metrics, times) and, rank 0, rank0.pt (the first step's
-    gradients and the state after); a failure writes rank{r}.err."""
+    compared steps on this rank's 4 rows of each global batch.  Writes,
+    on a thread beside phase 26 (`_tp_rank`, which follows on the same two
+    processes), rank 0's rank0.pt (the first step's gradients and the state
+    after) and then rank{r}.json (the digests of the state after the
+    control and after the steps, the metrics, times).  A failure writes
+    rank{r}.err."""
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -2828,8 +2871,13 @@ def _ddp_rank(rank: int, tmp: str) -> None:
                                 rank=rank, world_size=2)
         task = SegmentationTask(DDP_FP32, device="cuda:0")
         # no random weights: the checkpoint overwrites every tensor of the state
-        with mock.patch("mtp_tpu_torch.tasks._fit.init_weights", lambda model, gen: model):
+        no_init = lambda: mock.patch("mtp_tpu_torch.tasks._fit.init_weights",
+                                     lambda model, gen: model)
+        with no_init():
             state = task.init_state(_gen(SEED))
+        with no_init():  # phase 26's task, sharded over the model axis
+            tp_task = SegmentationTask(TP_FP32, device="cuda:0")
+            tp_state = tp_task.init_state(_gen(SEED))
         with np.load(os.path.join(tmp, "batches.npz")) as f:
             batches = [{k: f[f"{k}{i}"] for k in ("image", "label")} for i in range(DDP_STEPS)]
         local = [pmesh.shard_batch(task.mesh, b) for b in batches]
@@ -2856,13 +2904,26 @@ def _ddp_rank(rank: int, tmp: str) -> None:
         t0 = time.perf_counter()
         out = _ddp_steps(step_fn, state, local, task.device)
         steps_s = time.perf_counter() - t0
-        if rank == 0:
-            torch.save({"grads": out["grads"], "state": out["state"]},
-                       os.path.join(tmp, "rank0.pt"))
-        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-            json.dump({"control": control, "digest": _state_digest(state.model),
-                       "metrics": out["metrics"], "rows": len(local[0]["image"]),
-                       "restore_s": restore_s, "steps_s": steps_s}, f)
+        result = {"control": control, "digest": _state_digest(state.model),
+                  "metrics": out["metrics"], "rows": len(local[0]["image"]),
+                  "restore_s": restore_s, "steps_s": steps_s}
+
+        def write_result():  # beside phase 26: rank0.pt first, then the file the parent awaits
+            if rank == 0:
+                torch.save({"grads": out["grads"], "state": out["state"]},
+                           os.path.join(tmp, "rank0.pt"))
+            done = os.path.join(tmp, f"rank{rank}.json")
+            with open(done + ".tmp", "w") as f:
+                json.dump(result, f)
+            os.replace(done + ".tmp", done)
+
+        writer = ThreadPoolExecutor(max_workers=1)
+        written = writer.submit(write_result)
+        del state, start, task, step_fn
+        free()
+        _tp_rank(rank, tmp, tp_task, tp_state, batches, store)
+        written.result()
+        writer.shutdown()
         store.close()
         dist.destroy_process_group()
     except BaseException:
@@ -3002,7 +3063,7 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
             dist.destroy_process_group()
     free()
 
-    # (b) two ranks, gloo, on the one card
+    # (b) two ranks, gloo, on the one card; then phase 26 on the same processes
     procs = ranks.procs
     t0 = time.perf_counter()
     try:
@@ -3013,18 +3074,48 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
         t0 = time.perf_counter()
         with open(os.path.join(tmp, "go"), "w"):
             pass
+        _wait_for(lambda: all(os.path.exists(os.path.join(tmp, f"rank{r}.json"))
+                              or not p.is_alive() for r, p in enumerate(procs)),
+                  "the ranks' steps")
+        t_join = time.perf_counter() - t0
+        _rank_errors(ranks, "phase 25(b)", lambda r: os.path.exists(
+            os.path.join(tmp, f"rank{r}.json")))
+        b_result = _ddp_b_verdict(path, ranks, runs, start, adam, split, save_s, ranks_wait,
+                                  t_join, extra)
+        # phase 26's references, in this process while the ranks run it
+        t0 = time.perf_counter()
+        tp_ref = tp_references(state, snap, batches, ranks)
+        t_ref = time.perf_counter() - t0
         deadline = time.monotonic() + DDP_WAIT
         for p in procs:
             p.join(max(1.0, deadline - time.monotonic()))
-        t_join = time.perf_counter() - t0
+        log(f"[tp] after (b)'s verdict: phase 26's references in this process {t_ref:.1f} s, "
+            f"then the ranks' end {time.perf_counter() - t0 - t_ref:.1f} s more")
     finally:
         ranks.kill()
+    _rank_errors(ranks, "phase 26", lambda r: procs[r].exitcode == 0)
+    with phase_time("the model axis (phase 26's verdict)"):
+        phase_tp(path, card, ranks, runs["ddp"], start, adam, tp_ref, med["plain"])
+    _load_snapshot(state, snap)
+    return {"snap": snap, "batches": batches, "a": runs["ddp"], "extra": b_result}
+
+
+def _rank_errors(ranks: DdpRanks, what: str, done: Callable[[int], bool]) -> None:
+    """Raise with each rank's traceback when a rank has not done its part."""
+    tmp = ranks.tmp
     errors = [f"rank {r} exit {p.exitcode}: " + (
         open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
         if os.path.exists(os.path.join(tmp, f"rank{r}.err")) else "no traceback")
-        for r, p in enumerate(procs) if p.exitcode != 0]
+        for r, p in enumerate(ranks.procs) if not done(r)]
     if errors:
-        raise AssertionError("phase 25(b): " + "\n".join(errors))
+        raise AssertionError(f"{what}: " + "\n".join(errors))
+
+
+def _ddp_b_verdict(path: Path, ranks: DdpRanks, runs: dict, start, adam, split, save_s: float,
+                   ranks_wait: float, t_join: float, extra):
+    """Phase 25(b)'s verdict from the ranks' files (see `phase_ddp`); returns
+    what the background work returned."""
+    tmp, tag = ranks.tmp, "[ddp]"
     ranks_out = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
     got = torch.load(os.path.join(tmp, "rank0.pt"), map_location="cuda", weights_only=True)
     got["metrics"] = ranks_out[0]["metrics"]
@@ -3044,7 +3135,7 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
         f"checkpoint snapshot for the ranks {save_s:.1f} s, their restore waited for "
         f"{ranks_wait:.1f} s after (a); restore {ranks_out[0]['restore_s']:.1f} / "
         f"{ranks_out[1]['restore_s']:.1f} s, {DDP_STEPS} fp32 steps "
-        f"{ranks_out[0]['steps_s']:.1f} / {ranks_out[1]['steps_s']:.1f} s, the ranks after "
+        f"{ranks_out[0]['steps_s']:.1f} / {ranks_out[1]['steps_s']:.1f} s, the ranks' (b) after "
         f"the go {t_join:.1f} s; the background work waited for {t_extra:.1f} s more")
     if not equal:
         raise AssertionError("the two ranks' states differ after the DDP steps")
@@ -3055,8 +3146,411 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
         raise AssertionError(f"the two-rank step differs from the one-rank step: {summary}")
     if control_equal:
         raise AssertionError("the control (rank 1 without the reduction) passed")
+    return extra
+
+
+# --------------------------------------------------------------- phase 26 --
+
+# the model axis (`parallel.tensor`) of the ViT recipe on phase 25's two rank
+# processes: data 1 × model 2 (8 of the 16 heads, qkv 1,536 rows and MLP
+# 2,048 a rank), two gloo ranks on the one card (NCCL takes one rank a card,
+# so no NCCL time is measured here), compared in fp32 as phase 25 compares
+TP_MESH = MeshConfig(data=1, model=2)
+TP_FP32 = dataclasses.replace(DDP_FP32, train=dataclasses.replace(DDP_FP32.train,
+                                                                  mesh=TP_MESH))
+TP_BF16 = dataclasses.replace(RVSA, train=dataclasses.replace(RVSA.train, mesh=TP_MESH))
+TP_TIMED = 1       # bf16 steps timed at model 2, after one warm-up step
+TIE_GAP = 1e-4     # pixels whose top two fp32 logits lie this close may differ
+
+
+def _partial_grads(model) -> Dict[str, torch.Tensor]:
+    """This rank's gradients of the whole parameters each model rank
+    computes for its heads only (`parallel.tensor.PARTIAL`), on the host."""
+    return {n: p.grad.detach().to("cpu", copy=True) for n, p in model.named_parameters()
+            if ptensor.PARTIAL.search(n)}
+
+
+def _bias_on_every_rank(self, x: torch.Tensor) -> torch.Tensor:
+    """The control's row-parallel linear: the bias added on every rank
+    before the sum (T times in all)."""
+    y = F.linear(x, self.weight, self.bias)
+    return ptensor.reduce_from_model_group(y.float(), self.tp).to(y.dtype)
+
+
+ROW_BIAS = re.compile(r"(?:^|\.)(?:attn\.proj|mlp\.fc2)\.bias$")
+
+
+def bias_loss(task, state, batch: dict) -> float:
+    """The fp32 loss of the first compared batch, deterministic, after the
+    row-parallel layers' biases (attn.proj, mlp.fc2) are set to seeded
+    N(0, 0.02²) values (phase 7's are near 0: the recipe's warm-up has
+    barely moved them, so a bias counted twice would hide in rounding);
+    the state's tensors are left changed (BatchNorm's statistics too)."""
+    g = _gen(SEED + 70)
+    with torch.no_grad():
+        for name, p in sorted(state.model.named_parameters()):
+            if ROW_BIAS.search(name):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+        loss, _ = task.loss_fn(state.model, to_device(batch, task.device), None,
+                               deterministic=True)
+    return float(loss)
+
+
+def _ckpt_equal(a: dict, b: dict) -> Tuple[bool, str]:
+    """Whether two checkpoints hold the same step, update count, generator
+    and tensors, bit for bit (the first difference named)."""
+    if (a["step"], a["optimizer"]["count"]) != (b["step"], b["optimizer"]["count"]):
+        return False, "step or count"
+    if not torch.equal(a["generator"], b["generator"]):
+        return False, "generator"
+    for key in ("model", "moments"):
+        x = a["model"] if key == "model" else a["optimizer"]["moments"]
+        y = b["model"] if key == "model" else b["optimizer"]["moments"]
+        if list(x) != list(y):
+            return False, f"{key} keys"
+        for name in x:
+            pair = zip(x[name], y[name]) if key == "moments" else [(x[name], y[name])]
+            if not all(torch.equal(u, v) for u, v in pair):
+                return False, f"{key} {name}"
+    return True, f"{len(a['model'])} tensors, {len(a['optimizer']['moments'])} moment pairs"
+
+
+def tp_saved_equal(ranks: DdpRanks, step: int) -> Tuple[bool, str]:
+    """Phase 26's gathered save of the restored state (`ckpt_tp`) against
+    phase 7's checkpoint (`ckpt`): the same bytes, or else the same
+    contents (`_ckpt_equal`)."""
+    files = [os.path.join(ranks.tmp, d, f"{step}.pt") for d in ("ckpt_tp", "ckpt")]
+    _wait_for(lambda: os.path.exists(files[0]), "phase 26's gathered save")
+    if filecmp.cmp(*files, shallow=False):
+        return True, "the same bytes"
+    return _ckpt_equal(*(torch.load(f, map_location="cpu", weights_only=True) for f in files))
+
+
+def _tp_rank(rank: int, tmp: str, task, state, batches: List[dict],
+             store: CheckpointStore) -> None:
+    """Phase 26 on rank `rank` of the model group of 2 (data 1: both ranks
+    take the whole global batch): phase 7's state restored from `store`'s
+    whole-layout checkpoint into the sharded state; a gathered save of it
+    (`ckpt_tp`; every rank gathers, rank 0 writes); the loss on seeded
+    row-parallel biases (`bias_loss`), and control 2, the same with the
+    bias added on both ranks; the DDP_STEPS compared fp32 steps (launches
+    counted, peak memory); an fp32 `evaluate` of the snapshot on phase 7's
+    tiles (the confusion counts and each pixel's class); TP_TIMED bf16
+    steps of the recipe.  Writes tp{r}.json, tp{r}.npz (the classes) and
+    tp{r}.pt (rank 0: the first step's gathered gradients and the whole
+    state after; rank 1: its partial gradients of the first step after the
+    model-group sum, and, control 1, before it: what rank 1 would keep
+    without the sum)."""
+    t_phase = time.perf_counter()
+    store.restore(state)
+    torch.cuda.synchronize()
+    dev = task.device
+    out = {"restore_s": time.perf_counter() - t_phase}
+    start = _state_snapshot(state, dev)
+    # the gathered save of the restored state (every rank gathers, rank 0 writes)
+    t0 = time.perf_counter()
+    store = CheckpointStore(os.path.join(tmp, "ckpt_tp"))
+    store.save(state.step, state)  # written on the store's thread while the steps run
+    out["save_s"] = time.perf_counter() - t0
+    on_card = [to_device(b, dev) for b in batches]
+    step_fn = task.train_step_fn(deterministic=True)
+    saved = {}
+    # control 2: the row-parallel bias added on every rank, on seeded biases
+    out["bias_loss"] = bias_loss(task, state, batches[0])
+    _load_snapshot(state, start)
+    with mock.patch.object(ptensor.RowParallelLinear, "forward", _bias_on_every_rank):
+        out["control2_loss"] = bias_loss(task, state, batches[0])
+    _load_snapshot(state, start)
+    # the compared steps
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    pre_sum, reduce = {}, core_train.reduce_partial_gradients
+
+    def record(model):  # control 1: the first step's partial gradients before the sum
+        if not pre_sum:
+            pre_sum.update(_partial_grads(model))
+        return reduce(model)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(core_train, "reduce_partial_gradients", record):
+        run = _ddp_steps(step_fn, state, on_card, dev, keep=lambda t: t.detach().clone())
+    torch.cuda.synchronize()
+    out["steps_s"] = time.perf_counter() - t0
+    out["launches"] = counters()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["metrics"] = run["metrics"]
+    grads = ptensor.gather_state_dict(task.mesh, run["grads"])
+    whole = ptensor.full_state_dict(state.model)
+    out["whole_digest"] = [bits_digest(v) for k, v in whole.items()
+                           if ptensor.sharded_dim(k) is None and v.is_floating_point()]
+    host = lambda t: t.detach().to("cpu", copy=True)  # the steps below change the state
+    if rank == 0:
+        saved.update(grads={k: host(v) for k, v in grads.items()},
+                     state={k: host(v) for k, v in whole.items()})
+    else:
+        saved["partial"] = {n: host(g) for n, g in run["grads"].items()
+                            if ptensor.PARTIAL.search(n)}
+        saved["control1"] = pre_sum
+    del run, grads, whole
+    writer = ThreadPoolExecutor(max_workers=1)
+    written = writer.submit(torch.save, saved, os.path.join(tmp, f"tp{rank}.pt"))
+    # evaluate the snapshot, fp32, on phase 7's tiles
+    _load_snapshot(state, start)
+    with np.load(os.path.join(tmp, "tiles.npz")) as f:
+        tiles = {k: f[k] for k in f.files}
+    counts, classes = [], []
+    add, reduce = pmetrics.SegAccumulator.add, pmetrics.SegAccumulator.all_reduce
+
+    def record_add(acc, pred, label):
+        classes.append(torch.as_tensor(pred).cpu().numpy().astype(np.uint8))
+        return add(acc, pred, label)
+
+    def record_reduce(acc):
+        got = reduce(acc)
+        counts.append(np.stack([acc.i, acc.u, acc.p, acc.l]).tolist())
+        return got
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pmetrics.SegAccumulator, "add", record_add), \
+            mock.patch.object(pmetrics.SegAccumulator, "all_reduce", record_reduce):
+        out["eval"] = task.evaluate(state, iter([tiles]))
+    out["eval_s"] = time.perf_counter() - t0
+    out["counts"] = counts
+    np.savez(os.path.join(tmp, f"tp{rank}.npz"), *classes)
+    # the recipe's bf16 step at model 2 (dropout and drop-path on)
+    t16 = SegmentationTask(TP_BF16, model=state.model, device=dev)
+    bf16 = t16.train_step_fn()
+    times = []
+    for i in range(TP_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf16(state, on_card[i % DDP_STEPS])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["bf16_ms"] = times[1:]
+    written.result()
+    writer.shutdown()
+    store.close()  # waits for the gathered save's write
+    out["wall_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(tmp, f"tp{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@contextlib.contextmanager
+def emulated_model_axis(model, T: int = 2):
+    """Within the block, the whole `model` computes as T model ranks do, in
+    one process with no process group: each attention runs once a group of
+    num_heads / T heads (its qkv rows, its K1-K6 calls at that head count,
+    its proj columns), each MLP once a block of hidden / T, and the
+    row-parallel products are summed in fp32 in rank order, the bias added
+    once after (`parallel.tensor.RowParallelLinear`).  Autograd sums what
+    the groups give each input and each whole parameter, as the copy's
+    all-reduce and `reduce_partial_gradients` do.  Phase 26's witness: the
+    model axis's arithmetic without the processes."""
+    from mtp_tpu_torch.models.vit_rvsa import FullAttention, Mlp, RVSAAttention
+
+    def reduced(parts, bias):
+        y = parts[0].float()
+        for p in parts[1:]:
+            y = y + p.float()
+        return (y + bias.float()).to(parts[0].dtype)
+
+    def mlp(self, x):
+        H = self.fc1.out_features // T
+        blocks = [slice(t * H, (t + 1) * H) for t in range(T)]
+        return reduced([F.linear(self.act(F.linear(x, self.fc1.weight[b], self.fc1.bias[b])),
+                                 self.fc2.weight[:, b]) for b in blocks], self.fc2.bias)
+
+    def attention(forward):
+        def run(self, x):
+            n, hd, C = self.total_heads // T, self.head_dim, self.qkv.in_features
+            qkv, proj = self.qkv, self.proj
+            parts = []
+            try:
+                for t in range(T):
+                    rows = torch.cat([torch.arange(p * C + t * n * hd, p * C + (t + 1) * n * hd)
+                                      for p in range(3)]).to(qkv.weight.device)
+                    cols = slice(t * n * hd, (t + 1) * n * hd)
+                    self.__dict__["qkv"] = lambda z, r=rows: F.linear(
+                        z, qkv.weight[r], None if qkv.bias is None else qkv.bias[r])
+                    self.__dict__["proj"] = lambda z, c=cols: F.linear(z, proj.weight[:, c])
+                    self.num_heads, self.h0 = n, t * n
+                    parts.append(forward(self, x))
+            finally:
+                del self.__dict__["qkv"], self.__dict__["proj"]
+                self.num_heads, self.h0 = self.total_heads, 0
+            return reduced(parts, proj.bias)
+        return run
+
+    with mock.patch.object(Mlp, "forward", mlp), \
+            mock.patch.object(FullAttention, "forward", attention(FullAttention.forward)), \
+            mock.patch.object(RVSAAttention, "forward", attention(RVSAAttention.forward)):
+        yield
+
+
+def tp_references(state, snap: dict, batches: List[dict], ranks: DdpRanks) -> dict:
+    """Phase 26's references, in the parent at one rank from phase 7's state
+    (`snap`, identity sampling), while the ranks run the phase: the fp32
+    `evaluate` on the tiles (its confusion counts, each pixel's class and
+    the gap between its top two logits), the loss on seeded row-parallel
+    biases (`bias_loss`), the first compared batch's loss and gradients
+    under `emulated_model_axis`, and whether the ranks' gathered save
+    equals phase 7's checkpoint (`tp_saved_equal`)."""
+    times = {}
+    t0 = time.perf_counter()
     _load_snapshot(state, snap)
-    return {"snap": snap, "batches": batches, "a": runs["ddp"], "b": got, "extra": extra}
+    task = SegmentationTask(DDP_FP32, model=state.model)
+    counts, logits = [], []
+    reduce, slide = pmetrics.SegAccumulator.all_reduce, task.slide_logits
+
+    def record_reduce(acc):
+        got = reduce(acc)
+        counts.append(np.stack([acc.i, acc.u, acc.p, acc.l]).tolist())
+        return got
+
+    def record_logits(*args, **kwargs):
+        logits.append(slide(*args, **kwargs))
+        return logits[-1]
+
+    with mock.patch.object(pmetrics.SegAccumulator, "all_reduce", record_reduce), \
+            mock.patch.object(task, "slide_logits", record_logits):
+        metrics = task.evaluate(state, iter([ranks.tiles]))
+    top2 = logits[0].topk(2, -1).values
+    out = {"metrics": metrics, "counts": counts,
+           "classes": logits[0].argmax(-1).cpu().numpy().astype(np.uint8),
+           "gap": (top2[..., 0] - top2[..., 1]).cpu().numpy()}
+    del logits, top2
+    times["evaluate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["bias_loss"] = bias_loss(task, state, batches[0])
+    _load_snapshot(state, snap)
+    state.model.zero_grad(set_to_none=True)
+    with emulated_model_axis(state.model):
+        loss, _ = task.loss_fn(state.model, to_device(batches[0], task.device), None,
+                               deterministic=True)
+        loss.backward()
+    out["emulated"] = (float(loss), {n: p.grad.detach().clone()
+                                     for n, p in state.model.named_parameters()})
+    state.model.zero_grad(set_to_none=True)
+    _load_snapshot(state, snap)
+    times["bias loss and emulation"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["saved_equal"] = tp_saved_equal(ranks, snap["step"])
+    times["the gathered save's comparison"] = time.perf_counter() - t0
+    log("[tp] phase 26's references in this process: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in times.items()))
+    return out
+
+
+def phase_tp(path: Path, card: str, ranks: DdpRanks, ref: dict, start: Dict[str, torch.Tensor],
+             adam: Dict[str, float], tp_ref: dict, plain_ms: float) -> None:
+    """Phase 26's verdict, after the rank processes end (data 1 × model 2,
+    from phase 7's state at identity RVSA sampling, no dropout or
+    drop-path).  Rank 0's first gathered gradients and loss against the
+    model axis's arithmetic emulated in this process (`tp_ref["emulated"]`,
+    `emulated_model_axis`) by phase 6's rule, and rank 1's partial gradients
+    likewise, and the first grad_norm within 1e-5 of the emulation's;
+    against phase 25(a)'s one-rank run from the same state (`ref`) each
+    step's loss (LOSS_RTOL) and, by `two_ranks_rule` as phase 25(b), each
+    grad_norm, the first step's gradients and the whole state after
+    (`_ddp_verdict`): this state's gradients move by ~1e-3, and its norm
+    by ~1e-5, under any change of fp32 summation order (the emulation's
+    distance from (a), printed beside); the launches of a rank equal to
+    the one-rank step's; the loss on seeded row-parallel biases within
+    LOSS_RTOL of one rank's (`bias_loss`); the controls must fail: rank 1
+    without the model-group sum (its partial gradients by phase 6's rule)
+    and the row-parallel bias on both ranks (the loss on the seeded
+    biases); the fp32 `evaluate` at model 2 equal to one rank's, each
+    pixel's class but where the top two logits lie within TIE_GAP (the
+    confusion counts too when no such pixel differs); the gathered save
+    of the restored state equal to phase 7's checkpoint bit for bit."""
+    tmp, tag = ranks.tmp, "[tp]"
+    outs = [json.load(open(os.path.join(tmp, f"tp{r}.json"))) for r in range(2)]
+    dev = next(iter(ref["grads"].values())).device
+    saved = [torch.load(os.path.join(tmp, f"tp{r}.pt"), map_location=dev, weights_only=True)
+             for r in range(2)]
+    got = {"grads": saved[0]["grads"], "state": saved[0]["state"],
+           "metrics": outs[0]["metrics"]}
+    loss0, emulated = ref["metrics"][0]["loss"], tp_ref["emulated"]
+    e_ok, e_summary = _grad_verdict(path, emulated, (got["metrics"][0]["loss"], got["grads"]))
+    _, ea_summary = _grad_verdict(path, (loss0, ref["grads"]), emulated)
+    ok, summary = _ddp_verdict(two_ranks_rule(path), got, ref, start, adam)
+    e_norm = math.sqrt(sum(float(g.double().square().sum()) for g in emulated[1].values()))
+    norm_rel = abs(got["metrics"][0]["grad_norm"] - e_norm) / e_norm
+    names = list(saved[1]["partial"])
+    part_ref = (emulated[0], {n: emulated[1][n] for n in names})
+    part_ok, part_summary = _grad_verdict(path, part_ref, (emulated[0], saved[1]["partial"]))
+    c1_ok, c1_summary = _grad_verdict(path, part_ref, (emulated[0], saved[1]["control1"]))
+    b_ref = tp_ref["bias_loss"]
+    b_rel = abs(outs[0]["bias_loss"] - b_ref) / abs(b_ref)
+    c2_rel = abs(outs[0]["control2_loss"] - b_ref) / abs(b_ref)
+    per_step = {k: v * DDP_STEPS for k, v in path.per_step.items()}
+    launches = [o["launches"] for o in outs]
+    # evaluate
+    tie = tp_ref["gap"] < TIE_GAP
+    with np.load(os.path.join(tmp, "tp0.npz")) as f:
+        classes = np.concatenate([f[k] for k in f.files])
+    differ = classes != tp_ref["classes"]
+    counts_equal = outs[0]["counts"] == tp_ref["counts"]
+    eval_ok = (not (differ & ~tie).any() and (differ.any() or counts_equal)
+               and outs[0]["counts"] == outs[1]["counts"])
+    saved_equal = tp_ref["saved_equal"]
+    replicas = outs[0]["whole_digest"] == outs[1]["whole_digest"]
+    rank_ms = [statistics.median(o["bf16_ms"]) for o in outs]
+    log(f"{tag} data 1 × model 2, two gloo ranks on the card (8 heads, qkv 1,536 rows, MLP "
+        f"2,048 a rank), first step from phase 7's state against the model axis's "
+        f"arithmetic emulated in this process (`emulated_model_axis`): {e_summary}; rank 1's "
+        f"partial gradients against it: {part_summary}")
+    log(f"{tag} the emulation against phase 25(a)'s one-rank step (summation order alone): "
+        f"{ea_summary}")
+    log(f"{tag} rank 0 against phase 25(a)'s one-rank step, {DDP_STEPS} fp32 steps: "
+        f"{summary}; the first grad_norm against the emulation's rel {norm_rel:.3e} (tol "
+        f"1e-5); launches a rank {launches[0]} / {launches[1]}, one rank's {per_step}")
+    log(f"{tag} on seeded row-parallel biases (N(0, 0.02²)) the first batch's loss at model "
+        f"2 against one rank's: rel {b_rel:.3e} (LOSS_RTOL {LOSS_RTOL}); controls: rank 1 "
+        f"without the model-group sum of the partial gradients: within {c1_ok} (must fail: "
+        f"{c1_summary}); the row-parallel bias on both ranks: loss rel {c2_rel:.3e} (must "
+        f"exceed LOSS_RTOL)")
+    log(f"{tag} fp32 evaluate at model 2 on {len(classes)} tile(s) of "
+        f"{classes.shape[1]}²: {outs[0]['eval']['mIoU']:.4f} mIoU, one rank "
+        f"{tp_ref['metrics']['mIoU']:.4f}; pixels whose class differs {int(differ.sum())}, "
+        f"pixels whose top two logits lie within {TIE_GAP} {int(tie.sum())}; confusion "
+        f"counts equal {counts_equal}; gathered save of the restored state against phase 7's "
+        f"checkpoint: {saved_equal}; the two ranks' whole parameters bit for bit equal after "
+        f"the steps {replicas}")
+    log(f"{tag} times, rank 0 / 1: restore {outs[0]['restore_s']:.1f} / "
+        f"{outs[1]['restore_s']:.1f} s, gathered save {outs[0]['save_s']:.1f} / "
+        f"{outs[1]['save_s']:.1f} s, {DDP_STEPS} fp32 steps "
+        f"{outs[0]['steps_s']:.1f} / {outs[1]['steps_s']:.1f} s, evaluate "
+        f"{outs[0]['eval_s']:.1f} / {outs[1]['eval_s']:.1f} s; peak "
+        f"{outs[0]['peak_gib']:.2f} / {outs[1]['peak_gib']:.2f} GiB a rank; bf16 recipe step "
+        f"(batch 8 of 384²) at model 2, gloo through the host: "
+        f"{rank_ms[0]:.1f} / {rank_ms[1]:.1f} ms, the one-rank step without a group "
+        f"(phase 25(a)) {plain_ms:.1f} ms; the phase after (b) {outs[0]['wall_s']:.1f} / "
+        f"{outs[1]['wall_s']:.1f} s | card {card}")
+    if not e_ok:
+        raise AssertionError(f"phase 26: model 2 differs from its arithmetic in one "
+                             f"process: {e_summary}")
+    if not part_ok:
+        raise AssertionError(f"phase 26: rank 1's partial gradients: {part_summary}")
+    if not norm_rel <= 1e-5:
+        raise AssertionError(f"phase 26: grad_norm {got['metrics'][0]['grad_norm']} against "
+                             f"the emulation's {e_norm}")
+    if not ok:
+        raise AssertionError(f"phase 26: model 2 differs from model 1: {summary}")
+    if launches[0] != per_step or launches[1] != per_step:
+        raise AssertionError(f"phase 26: launches {launches} != {per_step}")
+    if not b_rel <= LOSS_RTOL:
+        raise AssertionError(f"phase 26: the loss on seeded biases differs: {b_rel:.3e}")
+    if c1_ok:
+        raise AssertionError("phase 26: the control without the model-group sum passed")
+    if not c2_rel > LOSS_RTOL:
+        raise AssertionError("phase 26: the control with the bias on both ranks passed")
+    if not eval_ok:
+        raise AssertionError("phase 26: evaluate at model 2 differs from one rank's")
+    if not saved_equal[0]:
+        raise AssertionError(f"phase 26: the gathered save differs: {saved_equal[1]}")
 
 
 def _run_grads(model, x: torch.Tensor, cots, device: str):

@@ -22,7 +22,13 @@ raised.  Checkpoints hold tensors and plain values only and load with
 Under data parallel (`parallel.mesh`) every rank holds the same state:
 rank 0 alone writes, and every rank restores the same file after a
 barrier, so the restored state, generator included, is the same on every
-rank.
+rank.  Under tensor parallelism (`parallel.tensor`) the parameters and the
+Adam moments of the rules are sharded over the model group: every rank of
+rank 0's model group takes part in their gather, on the caller's thread,
+before rank 0 writes the whole layout, and each rank keeps its shard of
+what it restores.  A checkpoint is therefore the same at any mesh: written
+at model T, it restores at model 1 bit for bit, and the other way round (as
+JAX's checkpoints, which hold global arrays).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from torch import nn
 
 from mtp_tpu_torch.ckpt.torch_convert import load_torch_checkpoint
 from mtp_tpu_torch.core.train import TrainState
+from mtp_tpu_torch.parallel import tensor
 from mtp_tpu_torch.parallel.mesh import barrier, is_main
 
 _NAME = re.compile(r"^(\d+)\.pt$")
@@ -92,17 +99,26 @@ class CheckpointStore:
                       if m)
 
     def save(self, step: int, state: TrainState, wait: bool = False) -> None:
-        """Snapshot the state to the host and write it in the background
-        (rank 0; the other ranks write nothing)."""
-        if not is_main():
+        """Snapshot the state to the host in the whole layout (a sharded
+        state gathered over the model group, whose every rank calls this)
+        and write it in the background (rank 0; the other ranks write
+        nothing)."""
+        tp = tensor.model_group(state.model)
+        if tp is None and not is_main():
             return
+        moments = state.optimizer.moments()
+        model = tensor.full_state_dict(state.model, "cpu")
+        if tp is not None:
+            moments = tensor.gather_moments(tp.mesh, moments, "cpu")
+            if not is_main():
+                return
         self._wait()
         snapshot = {
             "step": int(state.step),
-            "model": _host(state.model.state_dict()),
+            "model": _host(model),
             "optimizer": {"count": state.optimizer.count, "moments": {
                 name: tuple(t.detach().to("cpu", copy=True) for t in mv)
-                for name, mv in state.optimizer.moments().items()}},
+                for name, mv in moments.items()}},
             "generator": state.generator.get_state(),
         }
         self._pending = self._pool.submit(self._commit, step, snapshot)
@@ -124,16 +140,19 @@ class CheckpointStore:
         """Load checkpoint `step` (default the latest) into `state_like` (a
         state of the same model and optimizer, e.g. a fresh task's
         `init_state`) in place and return it; None when there is nothing to
-        restore.  Every rank calls it: a barrier waits for rank 0's writes."""
+        restore.  Every rank calls it: a barrier waits for rank 0's writes;
+        a sharded state keeps its shard of each tensor."""
         self._wait()
         barrier()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
         ckpt = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        state_like.model.load_state_dict(ckpt["model"])
-        opt = ckpt["optimizer"]
-        state_like.optimizer.load_moments(opt["count"], opt["moments"])
+        tensor.load_full_state_dict(state_like.model, ckpt["model"])
+        opt, tp = ckpt["optimizer"], tensor.model_group(state_like.model)
+        moments = opt["moments"] if tp is None else tensor.shard_moments(tp.mesh,
+                                                                        opt["moments"])
+        state_like.optimizer.load_moments(opt["count"], moments)
         state_like.generator.set_state(ckpt["generator"])
         state_like.step = ckpt["step"]
         return state_like
@@ -149,10 +168,14 @@ class CheckpointStore:
 
 def save_encoder(path: str, encoder: nn.Module) -> None:
     """The encoder-only artifact (the analog of the reference's
-    `last_*_pretrn_model_encoder.pth`): the backbone's state dict in the
-    reference names, which `mtp_tpu.ckpt.torch_convert` reads as it reads a
-    released `.pth`.  Written atomically."""
-    save_state_dict(path, encoder.state_dict())
+    `last_*_pretrn_model_encoder.pth`): the backbone's whole state dict in
+    the reference names, which `mtp_tpu.ckpt.torch_convert` reads as it
+    reads a released `.pth`.  Written atomically, by rank 0; a sharded
+    encoder is gathered first over its model group, whose every rank calls
+    this."""
+    sd = tensor.full_state_dict(encoder, "cpu")
+    if is_main():
+        save_state_dict(path, sd)
 
 
 def save_state_dict(path: str, sd: Dict[str, torch.Tensor]) -> None:

@@ -8,11 +8,17 @@ under torchrun, one process a card (NCCL) or a CPU process each (gloo):
 
     torchrun --nproc_per_node=N -m mtp_tpu_torch.cli.train <recipe> ...
 
-Each rank loads its rows of every global batch (`--batch-size` is global);
-rank 0 writes the logs and the checkpoints.  `--mesh-data` is -1 (the world
-size) or the world size, and `--mesh-model` over 1 raises (tensor
-parallelism is not ported).  Without torchrun's variables it runs as one
-process; with them and a failed rendezvous it raises.  `--pallas` and
+Each rank loads its data rank's rows of every global batch (`--batch-size`
+is global); rank 0 writes the logs and the checkpoints.  `--mesh-model T`
+shards the model's Megatron layers over T consecutive ranks (tensor
+parallelism, `parallel.tensor`; T must divide the world, the heads, the MLP
+and the box trunk), and `--mesh-data` is -1 (the world size over T) or that
+number:
+
+    torchrun --nproc_per_node=4 -m mtp_tpu_torch.cli.train <recipe> --mesh-model 2 ...
+
+Without torchrun's variables it runs as one process; with them and a
+failed rendezvous it raises.  `--pallas` and
 `--scan` are accepted and have no effect: the port picks its kernels by the
 tensors' device and has one layout.
 """
@@ -259,10 +265,12 @@ def main(argv=None):
                    help="also export the encoder-only file at each save "
                         "(the finetune artifact)")
     p.add_argument("--mesh-data", type=int, default=-1,
-                   help="data-parallel width: -1 (the world size) or the "
-                        "world size (torchrun's processes)")
+                   help="data-parallel width: -1 (the world size over "
+                        "--mesh-model) or that number")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="tensor-parallel width: 1 (not ported)")
+                   help="tensor-parallel width: consecutive ranks that shard "
+                        "the model's Megatron layers (divides the world, "
+                        "the heads, the MLP and the box trunk)")
     p.add_argument("--pretrained", default=None,
                    help="encoder checkpoint (.npz from save_encoder, the "
                         "port's encoder file or a torch .pth)")
@@ -377,8 +385,8 @@ def _train(args, device) -> int:
                          if main_rank else None)
     logger.setLevel(logging.INFO if main_rank else logging.WARNING)
     jsonl = JsonlLogger(f"{args.work_dir}/{recipe.name}.jsonl") if main_rank else None
-    logger.info("recipe %s on %s, %d process(es)", recipe.name, task.device,
-                task.mesh.data)
+    logger.info("recipe %s on %s, mesh data %d × model %d", recipe.name, task.device,
+                task.mesh.data, task.mesh.model)
 
     pretrained = None
     if args.pretrained:
@@ -443,7 +451,7 @@ def _train(args, device) -> int:
             close()
         if jsonl is not None:
             jsonl.close()
-    if store is None and args.encoder_out and main_rank:
+    if store is None and args.encoder_out:  # every rank: a sharded encoder is gathered
         from mtp_tpu_torch.ckpt.store import save_encoder
         save_encoder(args.encoder_out, _backbone_module(task))
     logger.info("final %s", metrics)

@@ -161,10 +161,10 @@ class ScheduleConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh shape: `data` processes, each a model shard of `model`
-    devices.  The port runs one process a card (`parallel.mesh.make_mesh`:
-    `data` is -1 or the world size; `model` over 1 raises, as tensor
-    parallelism is not ported)."""
+    """Device mesh shape: `data` × `model` devices, the model's Megatron
+    layers sharded over `model`.  The port runs one process a card
+    (`parallel.mesh.make_mesh`: data × model must be the world size; `data`
+    -1 is the world size over `model`)."""
 
     data: int = -1  # -1: all remaining devices
     model: int = 1

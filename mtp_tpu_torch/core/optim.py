@@ -194,12 +194,16 @@ class LayerDecayAdamW:
     step sets the group LR to `schedule(count)·scale` and, with
     `clip_norm > 0`, first scales the gradients to a global norm of at most
     `clip_norm` (`optax.clip_by_global_norm`).  `count` is the number of
-    updates taken, the optax schedule's count."""
+    updates taken, the optax schedule's count.  `norm_fn` takes the
+    gradients in `params` order and returns their global norm
+    (`global_norm`; under tensor parallelism `parallel.tensor.grad_norm_fn`,
+    which counts each whole parameter once and every shard)."""
 
     def __init__(self, named_params: NamedParams, cfg: OptimizerConfig,
                  schedule: Schedule, scales: Dict[str, float],
                  decay: Dict[str, bool]):
         self.cfg, self.schedule = cfg, schedule
+        self.norm_fn = global_norm
         self.count = 0
         groups: Dict[Tuple[float, bool], list] = {}
         self.names: Dict[torch.Tensor, str] = {}
@@ -229,7 +233,7 @@ class LayerDecayAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.norm_fn(grads)
         if self.cfg.clip_norm > 0:
             coef = torch.clamp(self.cfg.clip_norm / norm, max=1.0)
             torch._foreach_mul_(grads, coef)

@@ -4,9 +4,15 @@ PyTorch runs eagerly, so there is no jit: the step is a function that runs
 the loss, its backward and the optimizer update, mutating the state's model
 and optimizer in place (JAX returns a new state).  With a mesh whose
 process group is up (`parallel.mesh`), the step averages the gradients over
-the ranks before the norm and the update, as JAX's step over the mesh's
-data axis computes them over the global batch; `shard_state` and
-`opt_state_shardings` lay out tensor-parallel shards and are not ported.
+the data group before the norm and the update, as JAX's step over the
+mesh's data axis computes them over the global batch.  JAX's `shard_state`
+and `opt_state_shardings` (the parameters and the Adam moments at the
+Megatron rules' layout over the model axis) are `parallel.tensor`'s
+`shard_model` (called by `tasks._fit.Task` when it draws the state) and
+the optimizer's moments, which live beside the shards they update; a
+sharded model's step first sums over the model group the gradients each
+model rank computed for its heads only
+(`parallel.tensor.reduce_partial_gradients`).
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ from torch import nn
 
 from mtp_tpu_torch.core.optim import LayerDecayAdamW
 from mtp_tpu_torch.ops.precision import at_least_fp32
-from mtp_tpu_torch.parallel.mesh import Mesh, all_reduce_mean, global_count, reduce_gradients
+from mtp_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean, global_count, reduce_gradients,
+                                         use_mesh)
+from mtp_tpu_torch.parallel.tensor import reduce_partial_gradients
 
 
 @dataclass
@@ -52,12 +60,16 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None):
     clipping) added to the loss function's own.  Metrics stay device
     tensors: reading one waits for the step.
 
-    With a `mesh` whose process group is up, `batch` holds the rank's rows
-    of the global batch; after the backward the gradients are averaged over
-    the ranks (`parallel.mesh.reduce_gradients`: one all-reduce a bucket,
-    in parameter order, a missing gradient as zeros), so `grad_norm`, the
+    With a `mesh` whose process group is up, `batch` holds the data rank's
+    rows of the global batch.  After the backward, a model sharded over the
+    mesh's model axis first sums over the model group the gradients of the
+    whole parameters that each model rank computed for its heads only
+    (`parallel.tensor.reduce_partial_gradients`); then the gradients are
+    averaged over the data group (`parallel.mesh.reduce_gradients`: one
+    all-reduce a bucket, in parameter order, a missing gradient as zeros),
+    so `grad_norm` (over the shards and each whole parameter once), the
     clipping and the update are the global batch's on every rank, and the
-    metrics are averaged too (the losses normalise by world counts,
+    metrics are averaged too (the losses normalise by global counts,
     `parallel.mesh.global_count`, so their mean is the global value).  An
     explicit all-reduce rather than `DistributedDataParallel`, because the
     steps call the model's methods around `forward` (`loss`, `features`,
@@ -65,10 +77,13 @@ def make_train_step(loss_fn: LossFn, mesh: Optional[Mesh] = None):
     ddp = mesh is not None and mesh.distributed
 
     def step(state: TrainState, batch: Any):
+        if ddp:
+            use_mesh(mesh)
         state.optimizer.zero_grad()
         loss, metrics = loss_fn(state.model, batch, state.generator)
         loss.backward()
         if ddp:
+            reduce_partial_gradients(state.model)
             reduce_gradients([p for p in state.model.parameters()
                               if p in state.optimizer.names])
         grad_norm = state.optimizer.step()

@@ -11,7 +11,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from mtp_tpu_torch.parallel.mesh import all_reduce_sum, world_size
+from mtp_tpu_torch.parallel.mesh import all_reduce_sum, data_size
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
@@ -64,10 +64,11 @@ class SegAccumulator:
         self.l += l.cpu().numpy()
 
     def all_reduce(self) -> "SegAccumulator":
-        """Sum the counts of every rank's accumulator (data parallel, each
-        rank having evaluated its share; a no-op without a process group).
-        The counts are integers in float64, so the sums are exact."""
-        if world_size() > 1:
+        """Sum the counts of every data rank's accumulator (data parallel,
+        each data rank having evaluated its share; a no-op without a process
+        group).  The counts are integers in float64, so the sums are
+        exact."""
+        if data_size() > 1:
             sums = all_reduce_sum(torch.from_numpy(np.stack([self.i, self.u, self.p, self.l])))
             self.i, self.u, self.p, self.l = sums.numpy()
         return self

@@ -26,15 +26,25 @@ from mtp_tpu_torch.heads.rpn import _l1, fp32
 from mtp_tpu_torch.ops.carafe import CARAFEPack
 from mtp_tpu_torch.ops.precision import at_least_fp32
 from mtp_tpu_torch.parallel.mesh import global_count
+from mtp_tpu_torch.parallel.tensor import column_parallel, row_parallel
 
 
 class Shared2FCTrunk(nn.Module):
-    """Flatten (CHW) → fc1 → ReLU → fc2 → ReLU, shared by cls and reg."""
+    """Flatten (CHW) → fc1 → ReLU → fc2 → ReLU, shared by cls and reg.  Under
+    tensor parallelism fc1 is column-parallel and fc2 row-parallel
+    (`parallel.tensor`): fc2's ReLU follows the sum and the bias."""
 
     def __init__(self, in_features: int, fc_out: int = 1024):
         super().__init__()
         self.shared_fcs = nn.ModuleList([nn.Linear(in_features, fc_out),
                                          nn.Linear(fc_out, fc_out)])
+
+    def tp_widths(self):
+        return {"the box trunk's width": self.shared_fcs[0].out_features}
+
+    def tensor_parallel(self, tp) -> None:
+        fc1, fc2 = self.shared_fcs
+        self.shared_fcs = nn.ModuleList([column_parallel(fc1, tp), row_parallel(fc2, tp)])
 
     def trunk(self, roi_feats: torch.Tensor) -> torch.Tensor:
         """(R, C, s, s) → (R, fc_out)."""

@@ -49,12 +49,13 @@ class BatchNorm(nn.BatchNorm2d):
     channel.)  Otherwise it normalises with the running statistics.  The
     output is fp32, as the JAX head's BatchNorm (dtype float32).
 
-    Under data parallel (a world over 1, `parallel.mesh`) the batch
+    Under data parallel (a data axis over 1, `parallel.mesh`) the batch
     statistics are the global batch's, as JAX's over the mesh: an
-    all-reduce of the fp32 sums and the count gives the mean, a second one
-    of the centred squares the biased variance, and the gradient flows
-    back through both; every rank updates its running statistics with the
-    same global values.  (`torch.nn.SyncBatchNorm` raises on CPU tensors
+    all-reduce over the data group of the fp32 sums and the count gives the
+    mean, a second one of the centred squares the biased variance, and the
+    gradient flows back through both; every rank updates its running
+    statistics with the same global values (the model ranks of a data group
+    hold the same rows, and are not summed over).  (`torch.nn.SyncBatchNorm` raises on CPU tensors
     and updates the running variance with the unbiased estimate.)"""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

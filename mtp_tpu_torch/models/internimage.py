@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from mtp_tpu_torch.config import InternImageConfig
 from mtp_tpu_torch.ops.dcnv3 import DCNv3
 from mtp_tpu_torch.ops.dropout import apply_drop_path, drop_path_mask
+from mtp_tpu_torch.parallel.tensor import column_parallel, row_parallel
 
 
 def _norm(channels: int) -> nn.Sequential:
@@ -47,11 +48,21 @@ def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 class MLP(nn.Module):
+    """fc1 → GELU → fc2; under tensor parallelism fc1 column-parallel and fc2
+    row-parallel (`parallel.tensor`; the DCNv3 core stays whole, as JAX's
+    rules leave it)."""
+
     def __init__(self, channels: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(channels, hidden)
         self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden, channels)
+
+    def tp_widths(self):
+        return {"the MLP's hidden size": self.fc1.out_features}
+
+    def tensor_parallel(self, tp) -> None:
+        self.fc1, self.fc2 = column_parallel(self.fc1, tp), row_parallel(self.fc2, tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))

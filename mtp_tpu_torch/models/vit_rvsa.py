@@ -26,6 +26,12 @@ package routes them, the window-attention function over one window of all
 H·W tokens with a materialised fp32 bias (K1L forward, K7 backward at every
 grid over 128 per axis).  Their backwards run K4, K6 (twice) and K5.
 
+Tensor parallelism (`parallel.tensor.shard_model`, the mesh's model axis):
+each block's qkv (by head) and mlp.fc1 become column-parallel, attn.proj
+and mlp.fc2 row-parallel, and an attention runs num_heads / T heads (its
+K1-K6 calls at that head count); the regressors and the rel-pos and bias
+tables stay whole, each rank taking its heads' share of their outputs.
+
 Patch 8 (the reference's patch-8 variant, `mtp_tpu/models/vit_rvsa.py:402-407`)
 doubles the token grid per axis and takes the simple FPN's patch-8 branch:
 one deconvolution (`fpn1.0`), identity, 2×2 and 4×4 max-pools, no norm.
@@ -61,6 +67,8 @@ from mtp_tpu_torch.ops.precision import at_least_fp32
 from mtp_tpu_torch.ops.rel_pos import (decomposed_rel_pos_bias,
                                        decomposed_rel_pos_factors,
                                        swin_rel_pos_bias, swin_rel_pos_index)
+from mtp_tpu_torch.parallel.tensor import (column_parallel, copy_to_model_group,
+                                           row_parallel)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -78,19 +86,53 @@ class Mlp(nn.Module):
         self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden, dim)
 
+    def tp_widths(self):
+        return {"the MLP's hidden size": self.fc1.out_features}
+
+    def tensor_parallel(self, tp) -> None:
+        """fc1 column-parallel, fc2 row-parallel (`parallel.tensor`)."""
+        self.fc1, self.fc2 = column_parallel(self.fc1, tp), row_parallel(self.fc2, tp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
 
 
-class FullAttention(nn.Module):
+class _Heads(nn.Module):
+    """What the two attentions share under tensor parallelism: `num_heads`
+    is this rank's count, heads [h0, h0 + num_heads) of `total_heads`; `tp`
+    the model group (None: whole).  qkv is column-parallel by head, without
+    its own copy: the module copies its input to the model group once for
+    every consumer (`tp_input`); proj is row-parallel."""
+
+    def _heads_init(self, dim: int, num_heads: int) -> None:
+        self.num_heads = self.total_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.h0 = 0
+        self.tp = None
+
+    def tp_widths(self):
+        return {"num_heads": self.total_heads}
+
+    def tensor_parallel(self, tp) -> None:
+        self.tp = tp
+        self.num_heads = self.total_heads // tp.size
+        self.h0 = tp.rank * self.num_heads
+        self.qkv = column_parallel(self.qkv, tp, copy_input=False)
+        self.proj = row_parallel(self.proj, tp)
+
+    def tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to_model_group(x, self.tp)
+
+
+class FullAttention(_Heads):
     """Global attention over the whole (H, W) token grid with the decomposed
     relative position bias; `grid_size` is the rel-pos table extent."""
 
     def __init__(self, dim: int, num_heads: int, grid_size: Tuple[int, int],
                  qkv_bias: bool = True):
         super().__init__()
-        self.num_heads = num_heads
-        hd = dim // num_heads
+        self._heads_init(dim, num_heads)
+        hd = self.head_dim
         self.scale = hd ** -0.5
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -98,10 +140,10 @@ class FullAttention(nn.Module):
         self.full_attn_rel_pos_w = nn.Parameter(torch.zeros(2 * grid_size[1] - 1, hd))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        nH = self.num_heads
-        hd = C // nH
-        qkv = self.qkv(x).reshape(B, H * W, 3, nH, hd).permute(2, 0, 3, 1, 4)
+        B, H, W, _ = x.shape
+        nH, hd = self.num_heads, self.head_dim
+        C = nH * hd  # this rank's channels
+        qkv = self.qkv(self.tp_input(x)).reshape(B, H * W, 3, nH, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * self.scale, qkv[1], qkv[2]  # (B, nH, N, hd)
         if max(H, W) <= 128:
             rel_h, rel_w = decomposed_rel_pos_factors(
@@ -130,17 +172,20 @@ def _regressor(dim: int, out: int, ws: int) -> nn.Sequential:
                          nn.Conv2d(dim, out, 1))
 
 
-class RVSAAttention(nn.Module):
+class RVSAAttention(_Heads):
     """Rotated varied-size window attention: each ws×ws query window attends
     to ws×ws K/V taps bilinearly sampled on a per-window learned grid (the
     identity window grid scaled by 1+s, rotated by theta, shifted by an
-    offset)."""
+    offset).  Under tensor parallelism the regressors and the tables stay
+    whole: the regressors see the whole input and each rank takes its heads'
+    offsets, scales and angles, and its heads' columns of the bias table."""
 
     def __init__(self, dim: int, num_heads: int, ws: int = 7,
                  qkv_bias: bool = True):
         super().__init__()
-        self.num_heads, self.ws = num_heads, ws
-        hd = dim // num_heads
+        self._heads_init(dim, num_heads)
+        self.ws = ws
+        hd = self.head_dim
         self.scale = hd ** -0.5
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -156,16 +201,18 @@ class RVSAAttention(nn.Module):
                              persistent=False)
 
     def _sampling_grid(self, x_pad: torch.Tensor, H: int, W: int):
-        """(B*nH, nh*ws, nw*ws, 2) sampling grid in [-1, 1] (x, y), fp32."""
+        """(B*nH, nh*ws, nw*ws, 2) sampling grid in [-1, 1] (x, y), fp32, of
+        this rank's nH heads."""
         B, Hp, Wp, _ = x_pad.shape
-        nH, ws = self.num_heads, self.ws
+        nH, ws, nT = self.num_heads, self.ws, self.total_heads
+        heads = slice(self.h0, self.h0 + nH)
         nh, nw = Hp // ws, Wp // ws
         dev = x_pad.device
         # pool + LeakyReLU once, shared by the three regressors
         pooled = self.sampling_offsets[1](self.sampling_offsets[0](_nchw(x_pad)))
-        off = _nhwc(self.sampling_offsets[2](pooled)).reshape(B, nh, nw, nH, 2)
-        scl = _nhwc(self.sampling_scales[2](pooled)).reshape(B, nh, nw, nH, 2)
-        ang = _nhwc(self.sampling_angles[2](pooled))  # (B, nh, nw, nH)
+        off = _nhwc(self.sampling_offsets[2](pooled)).reshape(B, nh, nw, nT, 2)[..., heads, :]
+        scl = _nhwc(self.sampling_scales[2](pooled)).reshape(B, nh, nw, nT, 2)[..., heads, :]
+        ang = _nhwc(self.sampling_angles[2](pooled))[..., heads]  # (B, nh, nw, nH)
 
         off_x = off[..., 0] / max(H // ws, 1)
         off_y = off[..., 1] / max(W // ws, 1)
@@ -193,9 +240,10 @@ class RVSAAttention(nn.Module):
         return grid.permute(0, 3, 1, 4, 2, 5, 6).reshape(B * nH, nh * ws, nw * ws, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        nH, ws = self.num_heads, self.ws
-        hd = C // nH
+        B, H, W, _ = x.shape
+        nH, ws, hd = self.num_heads, self.ws, self.head_dim
+        C = nH * hd  # this rank's channels
+        x = self.tp_input(x)
 
         # qkv on unpadded tokens, then centred zero padding (reference order)
         qkv = self.qkv(x)
@@ -226,7 +274,7 @@ class RVSAAttention(nn.Module):
         kw, vw = to_windows(k_sel), to_windows(v_sel)
         bias = decomposed_rel_pos_bias(qw, (ws, ws), (ws, ws),
                                        self.rel_pos_h, self.rel_pos_w)
-        table = at_least_fp32(self.relative_position_bias_table)
+        table = at_least_fp32(self.relative_position_bias_table)[:, self.h0:self.h0 + nH]
         bias = bias + swin_rel_pos_bias(table, self.relative_position_index)
         out = fused_window_attention(qw, kw, vw, bias.contiguous(), self.scale)
 

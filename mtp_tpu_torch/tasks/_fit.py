@@ -2,8 +2,11 @@
 drivers' common `init_state`): the training loop `fit_loop`, with periodic
 checkpoints and the encoder export, and `Task`, the base of every task
 driver.  Under data parallel (`parallel.mesh`: one process a card) each
-rank trains on its rows of every global batch; rank 0 alone logs and
-writes checkpoints."""
+rank trains on its data rank's rows of every global batch; under tensor
+parallelism (the mesh's model axis) the ranks of a model group hold one
+model between them (`parallel.tensor`).  Rank 0 alone logs and writes
+checkpoints and the encoder artifact, in the whole layout, which every
+rank of its model group gathers."""
 
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from mtp_tpu_torch.ckpt.store import save_encoder
 from mtp_tpu_torch.config import TaskConfig
 from mtp_tpu_torch.core.optim import layer_id_fn_for, make_optimizer, make_schedule
 from mtp_tpu_torch.core.train import TrainState, create_state
+from mtp_tpu_torch.parallel import tensor
 from mtp_tpu_torch.parallel.mesh import is_main, make_mesh, shard_batch
 
 
@@ -36,9 +40,9 @@ def _save(ckpt, state: TrainState, encoder_path: Optional[str],
           wait: bool = False) -> None:
     """A checkpoint of the state and, with `encoder_path`, the encoder
     artifact: the model's `encoder` if it has one, else its `backbone`
-    (rank 0 writes both)."""
+    (every rank calls it; rank 0 writes both)."""
     ckpt.save(state.step, state, wait=wait)
-    if encoder_path and is_main():
+    if encoder_path:
         encoder = getattr(state.model, "encoder", None)
         save_encoder(encoder_path,
                      state.model.backbone if encoder is None else encoder)
@@ -68,8 +72,9 @@ def fit_loop(task, state: TrainState, data: Iterator[Dict], steps: int, *,
     `ckpt_every` steps except after the last, and once at the end, waiting
     for the write; each save also writes the encoder artifact to
     `encoder_path` when given (reference main_pretrain.py:821-829).  Rank 0
-    alone calls `log_fn` and writes (`CheckpointStore.save` is a no-op on
-    the other ranks)."""
+    alone calls `log_fn` and writes (`CheckpointStore.save` and
+    `save_encoder` write nothing on the other ranks, which take part in the
+    gather of a sharded state)."""
     step_fn = task.train_step_fn()
     log_fn = log_fn if is_main() else None
     metrics: dict = {}
@@ -105,9 +110,12 @@ class Task:
     """A task driver on one device (`device`, the card unless the caller
     asks for another) for `model`, whose backbone is `model.encoder` (the
     multitask model) or else `model.backbone`.  `mesh` is the config's
-    mesh in this world (`parallel.mesh.make_mesh`: `data` -1 or the world
-    size, no model axis); under data parallel the card is the rank's
-    (`cuda:LOCAL_RANK`).
+    mesh in this world (`parallel.mesh.make_mesh`: data × model the world
+    size); under data parallel the card is the rank's (`cuda:LOCAL_RANK`).
+    `model` is whole until `init_state` draws its weights and shards it
+    over the mesh's model axis (`parallel.tensor.shard_model`); a model
+    axis that does not divide its heads, MLP or box trunk raises
+    ValueError here.
 
     Compute precision follows the backbone config's `dtype`, as the JAX
     package's does: "bfloat16" runs the train step and evaluation under
@@ -116,6 +124,7 @@ class Task:
 
     def __init__(self, cfg: TaskConfig, model: nn.Module, device="cuda"):
         self.mesh = make_mesh(cfg.train.mesh)
+        tensor.check_model(model, self.mesh.model)
         self.cfg = cfg
         self.model = model
         self.device = self.mesh.device(device)
@@ -142,12 +151,16 @@ class Task:
         backbone_state_dict` makes one from a checkpoint), the optimizer
         (layer decay by the backbone's layer ids; no update of the
         parameters whose names start with one of `frozen`, nor, with
-        `frozen_backbone`, of the backbone's), and the state's own generator
-        on the device, seeded from `generator`."""
+        `frozen_backbone`, of the backbone's; the global norm over the
+        shards), and the state's own generator on the device, seeded from
+        `generator` (the same on every rank).  The weights are drawn and
+        loaded into the whole model, which is then sharded over the mesh's
+        model axis, so a model-T state equals the model-1 one."""
         cfg, root = self.cfg, self.backbone_root
         model = init_weights(self.model.cpu(), generator)
         if pretrained_backbone is not None:
             getattr(model, root[:-1]).load_state_dict(pretrained_backbone)
+        tensor.shard_model(model, self.mesh)
         model.to(self.device)
         frozen = tuple(frozen) + ((root,) if frozen_backbone else ())
         mask = ({n: n.startswith(frozen) for n, _ in model.named_parameters()}
@@ -157,6 +170,7 @@ class Task:
                             model.named_parameters(), cfg.backbone.depth,
                             layer_id_fn=layer_id_fn_for(cfg.backbone, root=root),
                             frozen_mask=mask)
+        tx.norm_fn = tensor.grad_norm_fn(self.mesh, [tx.names[p] for p in tx.params])
         seed = int(torch.randint(2 ** 62, (), generator=generator))
         rng = torch.Generator(device=self.device).manual_seed(seed)
         return create_state(model, tx, rng)

@@ -17,7 +17,7 @@ from mtp_tpu_torch.config import TaskConfig
 from mtp_tpu_torch.core.train import TrainState, make_train_step, softmax_xent
 from mtp_tpu_torch.eval.metrics import topk_accuracy
 from mtp_tpu_torch.models.classifier import ImageClassifier
-from mtp_tpu_torch.parallel.mesh import all_reduce_sum, shard_items, world_size
+from mtp_tpu_torch.parallel.mesh import all_reduce_sum, data_size, shard_items
 from mtp_tpu_torch.tasks._fit import Task
 
 
@@ -55,8 +55,8 @@ class ClassificationTask(Task):
     def evaluate(self, state: TrainState,
                  data: Iterator[Dict[str, np.ndarray]]) -> Dict[str, float]:
         """top1 and top5 (%) of the state's model over `data`, each batch
-        weighted by its size.  Under data parallel each rank predicts every
-        W-th batch and the ranks' counts are summed."""
+        weighted by its size.  Under data parallel each data rank predicts
+        every D-th batch and the data ranks' counts are summed."""
         self._check_state(state)
         total, hits = 0, {"top1": 0.0, "top5": 0.0}
         for _, batch in shard_items(data):
@@ -68,7 +68,7 @@ class ClassificationTask(Task):
             total += n
             for k in hits:
                 hits[k] += float(accs[k]) * n
-        if world_size() > 1:
+        if data_size() > 1:
             sums = all_reduce_sum(torch.tensor([total, hits["top1"], hits["top5"]],
                                                dtype=torch.float64)).tolist()
             total, hits = sums[0], {"top1": sums[1], "top5": sums[2]}

@@ -28,7 +28,8 @@ from mtp_tpu_torch.eval.masks import paste_masks
 from mtp_tpu_torch.models.detector import DetConfig, TwoStageDetector, oriented_rcnn_cfg
 from mtp_tpu_torch.models.retinanet import (RetinaNet, retina_anchors, retinanet_loss,
                                             retinanet_predict)
-from mtp_tpu_torch.parallel.mesh import all_gather_objects, gather_in_order, is_main, shard_items
+from mtp_tpu_torch.parallel.mesh import (all_gather_objects, gather_in_order, is_data_main,
+                                         shard_items)
 from mtp_tpu_torch.tasks._fit import Task
 from mtp_tpu_torch.tasks.detection import (Detections, anchors_for,
                                            det_loss_core, det_predict_core)
@@ -198,9 +199,11 @@ class DetectionTask(Task):
         (`paste_masks`), against the gt crops pasted back or the stride-s
         masks repeated up to the image.
 
-        Under data parallel each rank predicts every W-th batch; the records
-        are gathered in image order and scored once, on rank 0, and every
-        rank returns that result: the world-1 result."""
+        Under data parallel each data rank predicts every D-th batch; the
+        records are gathered over the data group in image order and scored
+        once, on data rank 0, and every rank returns that result: the
+        world-1 result (the model ranks of a data group predict the same
+        batches, and no record is counted twice)."""
         self._check_state(state)
         predict = self.predict_fn()
         records = []
@@ -213,7 +216,7 @@ class DetectionTask(Task):
                                  for i in range(images.shape[0])]))
         per_image = gather_in_order(records)
         result = None
-        if is_main():
+        if is_data_main():
             if coco and not self.rotated:
                 result = evaluate_coco_bbox_segm(per_image, self.cfg.num_classes)
             else:

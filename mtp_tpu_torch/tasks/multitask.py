@@ -30,7 +30,7 @@ from mtp_tpu_torch.eval.coco_eval import evaluate_coco_bbox_segm
 from mtp_tpu_torch.eval.det_map import eval_map
 from mtp_tpu_torch.eval.metrics import SegAccumulator
 from mtp_tpu_torch.models.multitask import TASKS, MultiTaskPretrainModel
-from mtp_tpu_torch.parallel.mesh import (all_gather_objects, gather_in_order, is_main,
+from mtp_tpu_torch.parallel.mesh import (all_gather_objects, gather_in_order, is_data_main,
                                          shard_items)
 from mtp_tpu_torch.tasks._fit import Task
 from mtp_tpu_torch.tasks.detection import anchors_for
@@ -165,10 +165,11 @@ class MultiTaskPretrainTask(Task):
         "mtp_accuracy", and "eval_device_s" (predicts and their copies to
         the host) and "eval_host_s" (the host work not overlapped with
         them: each image's records, masks pasted, are built on a thread
-        pool while the next predict runs).  Under data parallel each rank
-        predicts every W-th batch; the confusion counts are summed, the
-        records gathered in image order and scored once, on rank 0, and
-        every rank returns that result (the times are rank 0's)."""
+        pool while the next predict runs).  Under data parallel each data
+        rank predicts every D-th batch; the confusion counts are summed over
+        the data group, the records gathered over it in image order and
+        scored once, on data rank 0, and every rank returns that result
+        (the times are data rank 0's)."""
         self._check_state(state)
         predict, tasks = self.predict_fn(), self.model.tasks
         classes = self.model.classes
@@ -214,7 +215,7 @@ class MultiTaskPretrainTask(Task):
             pool.shutdown(cancel_futures=True)
         for acc in seg_acc:
             acc.all_reduce()
-        if not is_main():  # scored once, on rank 0
+        if not is_data_main():  # scored once, on data rank 0
             return all_gather_objects(None)[0]
 
         out: Dict[str, float] = {}

@@ -4,7 +4,7 @@
 `test_torch_port_cli.py` registered by `tests/torch_ddp_workers.py`:
 2 steps on synthetic batches with a checkpoint each step, written by rank 0
 alone, a resume, `cli.test` at world 2 against one process, the mesh flags
-that do not fit the world, and a rendezvous that cannot happen."""
+whose data × model is not the world, and a rendezvous that cannot happen."""
 
 import json
 import os
@@ -79,7 +79,7 @@ def test_cli_under_torchrun(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--mesh-model", "2"], "NotImplementedError: mesh model=2"),
+    (["--mesh-model", "2", "--mesh-data", "2"], "ValueError: mesh data=2 × model=2"),
     (["--mesh-data", "3"], "ValueError: mesh data=3"),
 ])
 def test_cli_refuses_a_mesh_that_does_not_fit_the_world(flags, error, tmp_path):

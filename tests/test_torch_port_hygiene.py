@@ -84,6 +84,7 @@ SLICE_MODULES = [
     "mtp_tpu_torch.cli.convert",
     "mtp_tpu_torch.parallel",
     "mtp_tpu_torch.parallel.mesh",
+    "mtp_tpu_torch.parallel.tensor",
     "mtp_tpu_torch.ops.carafe",
     "chip_smoke",
 ]
@@ -182,12 +183,18 @@ def test_config_copies_match_the_jax_package():
         dataclasses.asdict(JaxDetConfig(num_classes=80, with_mask=True))
     assert DetConfig(**dataclasses.asdict(masked)) == masked
     # the mesh check (`parallel.mesh.make_mesh`): one process here, so data
-    # is -1 or 1, and the model axis is not ported
+    # × model must be 1; a model axis that does not divide the heads is
+    # refused too (`parallel.tensor.check_model`)
+    from mtp_tpu_torch.models.vit_rvsa import ViTRVSA
     from mtp_tpu_torch.parallel.mesh import make_mesh
+    from mtp_tpu_torch.parallel.tensor import check_model
     with pytest.raises(ValueError, match="world"):
         make_mesh(pc.MeshConfig(data=4))
-    with pytest.raises(NotImplementedError, match="6d"):
+    with pytest.raises(ValueError, match="model=2"):
         make_mesh(pc.MeshConfig(data=1, model=2))
+    with pytest.raises(ValueError, match="num_heads"):
+        check_model(ViTRVSA(pc.BackboneConfig(img_size=32, embed_dim=24, depth=1, num_heads=3,
+                                              interval=1, out_indices=(0,) * 4)), 2)
     assert make_mesh(pc.MeshConfig(data=1, model=-1)).data == 1
 
 

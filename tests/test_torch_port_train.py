@@ -472,13 +472,25 @@ def test_fit_and_evaluate(tmp_path):
 
 def test_remat_and_meshes_are_refused():
     """A mesh that does not fit the world is refused: data=2 in one process,
-    and any model axis over 1 (tensor parallelism is not ported;
-    tests/test_torch_port_ddp.py runs data=2 in two).  Remat is no longer
-    refused (tests/test_torch_port_highres.py holds it against no remat and
-    against the JAX module)."""
+    and a model axis of 2 (data × model must be the world size;
+    tests/test_torch_port_ddp.py runs data=2 in two, tests/test_torch_port_tp.py
+    model=2); so is a model axis that does not divide the heads, when the task
+    is built (here a model axis of 4 over CFG's heads, the mesh stood in for
+    a world of 4).  Remat is no longer refused (tests/test_torch_port_highres.py
+    holds it against no remat and against the JAX module)."""
+    from unittest import mock
+
+    from mtp_tpu_torch.parallel.mesh import Mesh
+    from mtp_tpu_torch.tasks import _fit
+
     with pytest.raises(ValueError, match="world"):
         SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
             mesh=MeshConfig(data=2))), device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="world"):
         SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
             mesh=MeshConfig(model=2))), device="cpu")
+    assert CFG.num_heads % 4
+    with mock.patch.object(_fit, "make_mesh", lambda cfg: Mesh(data=1, model=4)), \
+            pytest.raises(ValueError, match="does not divide num_heads"):
+        SegmentationTask(TaskConfig(backbone=CFG, train=TrainConfig(
+            mesh=MeshConfig(model=4))), device="cpu")

@@ -1,5 +1,6 @@
-"""The rank processes of the port's data-parallel tests
-(`tests/test_torch_port_ddp.py`, `tests/test_torch_port_ddp_det.py`).
+"""The rank processes of the port's data- and tensor-parallel tests
+(`tests/test_torch_port_ddp.py`, `tests/test_torch_port_ddp_det.py`,
+`tests/test_torch_port_tp.py`, `tests/test_torch_port_tp_tasks.py`).
 
 `run(case, world, tmp, payload)` spawns `world` processes
 (`torch.multiprocessing`, start method spawn), each of which joins a gloo
@@ -7,7 +8,9 @@ process group through a `FileStore` under `tmp` (no TCP), runs
 `CASES[case](payload)` and pickles what it returns to `tmp/rank{r}.pkl`; a
 rank that fails writes its traceback to `tmp/rank{r}.err`, and `run`
 raises with it.  The case functions also run in the test's own process
-with no process group, as the world-1 reference.  This module imports
+with no process group, as the world-1 reference; `many` runs several cases
+in one world, one after the other.  A sharded model's gradients and state
+come back gathered in the whole layout (`parallel.tensor`).  This module imports
 torch and the port only, so that the ranks start without JAX.
 
 Run as a script under torchrun it is the CLI's entry point with the toy
@@ -112,6 +115,16 @@ def torch_rule(assign, generator, num, frac):
 
 # ------------------------------------------------------------------ tasks --
 
+def _load(state, payload):
+    """The payload's whole state dict, if any, into the (maybe sharded)
+    model."""
+    from mtp_tpu_torch.parallel.tensor import load_full_state_dict
+
+    if payload.get("state_dict") is not None:
+        load_full_state_dict(state.model, payload["state_dict"])
+    return state
+
+
 def seg_task(payload):
     """(task, state) of the toy segmentor in `payload`: cfg, channels, crop,
     state_dict (None: init_state's weights from seed 0)."""
@@ -122,10 +135,7 @@ def seg_task(payload):
     task = SegmentationTask(cfg, model=Segmentor(cfg.backbone, cfg.num_classes,
                                                  channels=payload["channels"],
                                                  input_hw=(crop, crop)), device="cpu")
-    state = task.init_state(torch.Generator().manual_seed(0))
-    if payload.get("state_dict") is not None:
-        state.model.load_state_dict(payload["state_dict"])
-    return task, state
+    return task, _load(task.init_state(torch.Generator().manual_seed(0)), payload)
 
 
 def det_task(payload):
@@ -134,17 +144,28 @@ def det_task(payload):
     from mtp_tpu_torch.tasks.detection_task import DetectionTask
 
     task = DetectionTask(payload["cfg"], det_overrides=payload["det_overrides"], device="cpu")
-    state = task.init_state(torch.Generator().manual_seed(0))
-    if payload.get("state_dict") is not None:
-        state.model.load_state_dict(payload["state_dict"])
-    return task, state
+    return task, _load(task.init_state(torch.Generator().manual_seed(0)), payload)
+
+
+def cls_task(payload):
+    """(task, state) of the toy classifier in `payload`: cfg, model_cfg (a
+    BackboneConfig or an InternImageConfig), state_dict."""
+    from mtp_tpu_torch.models.classifier import ImageClassifier
+    from mtp_tpu_torch.tasks.classification import ClassificationTask
+
+    cfg = payload["cfg"]
+    task = ClassificationTask(cfg, model=ImageClassifier(payload["model_cfg"], cfg.num_classes),
+                              device="cpu")
+    return task, _load(task.init_state(torch.Generator().manual_seed(0)), payload)
 
 
 def train_steps(task, state, payload) -> dict:
     """The task's train steps on the rank's rows of each global batch in
     payload["batches"] (`deterministic` as payload's): each step's metrics,
-    the gradients the first step applied and the state dict after each."""
+    the gradients the first step applied and the state dict after each,
+    whole (gathered over the model group when the model is sharded)."""
     from mtp_tpu_torch.parallel.mesh import shard_batch
+    from mtp_tpu_torch.parallel.tensor import full_state_dict, gather_state_dict
 
     step = task.train_step_fn(deterministic=payload["deterministic"])
     out = {"metrics": [], "grads": None, "state": []}
@@ -152,14 +173,19 @@ def train_steps(task, state, payload) -> dict:
         state, m = step(state, shard_batch(task.mesh, tensors(batch)))
         out["metrics"].append({k: float(v.detach()) for k, v in m.items()})
         if out["grads"] is None:
-            out["grads"] = {n: p.grad.detach().clone()
-                            for n, p in state.model.named_parameters()}
-        out["state"].append({k: v.detach().clone() for k, v in state.model.state_dict().items()})
+            out["grads"] = gather_state_dict(task.mesh, {
+                n: p.grad.detach().clone() for n, p in state.model.named_parameters()})
+        out["state"].append({k: v.detach().clone()
+                             for k, v in full_state_dict(state.model).items()})
     return out
 
 
 def _seg_step(payload):
     return train_steps(*seg_task(payload), payload)
+
+
+def _cls_step(payload):
+    return train_steps(*cls_task(payload), payload)
 
 
 def _det_step(payload):
@@ -212,6 +238,64 @@ def _det_eval(payload):
     return task.evaluate(state, iter(payload["data"]), **payload.get("eval_kw", {}))
 
 
+def _tp_eval(payload):
+    """Segmentation's `evaluate` of payload["seg"] with the confusion counts
+    it summed and each batch's slide logits, and detection's of
+    payload["det"] with the number of image records it scored and each
+    batch's detections (tests/test_torch_port_tp_tasks.py)."""
+    from mtp_tpu_torch.eval import metrics
+    from mtp_tpu_torch.tasks import detection_task as pdt
+
+    seg, det = payload["seg"], payload["det"]
+    task, state = seg_task(seg)
+    counts, records = [], []
+    reduce, score = metrics.SegAccumulator.all_reduce, pdt.eval_map
+
+    def all_reduce(acc):
+        out = reduce(acc)
+        counts.append(np.stack([acc.i, acc.u, acc.p, acc.l]))
+        return out
+
+    def eval_map(per_image, *a, **kw):
+        records.append(len(per_image))
+        return score(per_image, *a, **kw)
+
+    with mock.patch.object(metrics.SegAccumulator, "all_reduce", all_reduce):
+        out = {"seg": task.evaluate(state, iter(seg["data"]))}
+    out["counts"] = counts
+    out["logits"] = [task.slide_logits(torch.as_tensor(b["image"])) for b in seg["data"]]
+    task, state = det_task(det)
+    with mock.patch.object(pdt, "eval_map", eval_map):
+        out["det"] = task.evaluate(state, iter(det["data"]))
+    out["records"] = records
+    predict = task.predict_fn()
+    out["dets"] = [pdt.host_detections(predict(torch.as_tensor(b["image"])), b)
+                   for b in det["data"]]
+    return out
+
+
+def _ckpt(payload):
+    """The toy segmentor's state at payload's mesh, whole: with
+    payload["save"], after one step, saved to payload["dir"] (every rank
+    calls the save); else restored from payload["dir"].  Returns the model's
+    state dict, the Adam moments, the update count and the generator's
+    state."""
+    from mtp_tpu_torch.ckpt.store import CheckpointStore
+    from mtp_tpu_torch.parallel.tensor import full_state_dict, gather_moments
+
+    task, state = seg_task(payload)
+    store = CheckpointStore(payload["dir"])
+    if payload["save"]:
+        train_steps(task, state, payload)
+        store.save(state.step, state, wait=True)
+    else:
+        store.restore(state)
+    store.close()
+    return {"model": full_state_dict(state.model),
+            "moments": gather_moments(task.mesh, state.optimizer.moments()),
+            "count": state.optimizer.count, "generator": state.generator.get_state()}
+
+
 def _multitask_step(payload):
     """The toy 9-way step of tests/test_torch_port_ddp_det.py: the
     deterministic sampler, the given Dropout2d masks (this rank's rows of
@@ -223,7 +307,7 @@ def _multitask_step(payload):
     from mtp_tpu_torch.tasks import detection as pdet
     from mtp_tpu_torch.tasks.multitask import MultiTaskPretrainTask
 
-    mesh = make_mesh()
+    mesh = make_mesh(payload["cfg"].train.mesh)
     rows = lambda n: process_batch_rows(mesh, n)
     masks = [m[rows(m.shape[0])] for m in payload["masks"]]
     # this rank's images, in the order the branches make their proposals
@@ -245,16 +329,21 @@ def _multitask_step(payload):
                                    payload["overrides"], det_multi=payload["det_multi"])
     task = MultiTaskPretrainTask(payload["cfg"], payload["classes"], payload["overrides"],
                                  model=model, device="cpu")
-    state = task.init_state(torch.Generator().manual_seed(0))
-    state.model.load_state_dict(payload["state_dict"])
+    state = _load(task.init_state(torch.Generator().manual_seed(0)), payload)
     with mock.patch.object(pmt, "dropout2d", drop), \
             mock.patch.object(pdet, "random_sample", torch_rule), \
             mock.patch.object(pdet, "gen_proposals", proposals):
         return train_steps(task, state, payload)
 
 
+def _many(payload):
+    """Each (case, payload) of payload["cases"] in turn, in this world."""
+    return [CASES[case](p) for case, p in payload["cases"]]
+
+
 CASES = {"seg_step": _seg_step, "det_step": _det_step, "batchnorm": _batchnorm,
-         "seg_eval": _seg_eval, "det_eval": _det_eval, "multitask_step": _multitask_step}
+         "seg_eval": _seg_eval, "det_eval": _det_eval, "multitask_step": _multitask_step,
+         "cls_step": _cls_step, "tp_eval": _tp_eval, "ckpt": _ckpt, "many": _many}
 
 
 # -------------------------------------------------------- the CLI entry --
