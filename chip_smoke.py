@@ -10,9 +10,9 @@ depth with seeded random weights: the recipe rvsa-l-upernet-384-mae-mtp-
 spacenetv1 (ViT-L+RVSA → UperNet; kernels K1-K6), the recipe
 intern-xl-upernet-512-imp-mtp-loveda (InternImage-XL → UperNet; kernel K8,
 which is the K3/K6 sampling at P = 9 taps), and the ViT recipe at 2080²
-crops with remat (its four full-attention blocks over the 130² token grid
-run the window-attention function over one window of 16,900 tokens: K1L
-forward, K7 backward); then the classification, change-detection and
+crops with remat, at its first 6 blocks (the full-attention block over the
+130² token grid runs the window-attention function over one window of
+16,900 tokens: K1L forward, K7 backward); then the classification, change-detection and
 checkpoint phases, the two Faster R-CNN recipes at 800² (K1-K6 or K8,
 and N1, the port's greedy-NMS kernel), the two Oriented R-CNN recipes
 at 800² (the same, and R1, the port's rotated-IoU kernel), the Mask R-CNN
@@ -20,13 +20,15 @@ recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1), and the
 multitask pretraining recipe mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
 3 datasets × semantic segmentation, Mask R-CNN and Oriented R-CNN: K1-K6,
 N1 and R1), and the ViT recipe again through the CLI, trained, resumed and
-evaluated from PNG files on disk (K1-K6).
+evaluated from PNG files on disk (K1-K6), and three recipes' serving
+artifacts exported and served without model code (phase 27).
 
 Phases; any failure raises, so the exit code is non-zero:
 1. device: the card's name and power limit; TF32 off for the fp32 phases.
 2. build: compile the kernels from mtp_tpu_torch/csrc/ (nvcc, sm_90a); the
    registers and spills of every kernel (ptxas), and the HMMA/HGMMA count of
-   the tensor-core kernels' SASS (cuobjdump); the bf16 K2/K5, K1L/K7 and
+   the tensor-core kernels' SASS (cuobjdump, dumped beside phases 3 and 3b
+   and read after them); the bf16 K2/K5, K1L/K7 and
    K1/K4 kernels at the main path's head dim 64 must have tensor-core
    instructions and no spills.
 3. kernels: K1 window attention, K2 flash full attention and K3 bilinear
@@ -142,10 +144,10 @@ Phases; any failure raises, so the exit code is non-zero:
    remat; the recipe's train step (batch 8 of 512², remat, drop-path 0.1,
    bf16) and `evaluate` on one 1024² tile.
 12-15. The same four for the ViT recipe at 2080² with remat (backbone
-   img_size 2080, remat on, batch 1, slide crop 2080): logits and fp32
+   img_size 2080, remat on, batch 1, slide crop 2080), its ViT-L cut to
+   the first 6 blocks, one of them full: logits and fp32
    gradients (remat, dropout and drop-path on, the masks drawn on the CPU
-   for both runs; the gradients on the first 6 blocks, one of them full)
-   card vs CPU at a 2080×112 strip (grid 130×7, N = 910: K1L and K7 on the
+   for both runs) card vs CPU at a 2080×112 strip (grid 130×7, N = 910: K1L and K7 on the
    card); serving one 2080² tile (one crop); the train
    step, batch 1 of 2080², bf16 autocast, 1 warm-up and 3 timed steps.
 16. Classification, ViT-L and InternImage-XL at 224²: fp32 logits of 2
@@ -280,8 +282,30 @@ Phases; any failure raises, so the exit code is non-zero:
    bf16 step's ms a rank beside (a)'s step without a group.  Gloo routes
    each all-reduce through the host: no NCCL time is measured.  Phase 3
    also holds K1 and K4 at this path's 128 windows × 8 heads.
-Every path runs its recipe's backbone at full depth but phase 14's
-gradients, on the first 6 blocks of the 2080² ViT-L.
+27. The serving artifact (`phase_export`; `cli.export`, `serving`,
+   `kernels/ops.py`): three recipes, each from the seeded weights of its
+   earlier phase saved as a variables file, exported on the card by
+   `python -m mtp_tpu_torch.cli.export` in three processes started once
+   phase 3b has ended (`ExportJobs`: the traces, single-threaded host work
+   that launches no kernel, run beside phases 3c-3f; the predict traced by
+   `torch.export`, the forward kernels registered ops):
+   rvsa-l-upernet-384-mae-mtp-spacenetv1 on one 384² crop (K1 20, K2 4, K3
+   40; the 4-crop slide graph of a 512² tile traced in 56-75 s, so it is
+   left to the CPU tests), oriented_rcnn_rvsa_l_800_mae_mtp_diorr on one
+   800² image (K1-K3, N1 and R1's mask form once each) and
+   intern-xl-224-imp-mtp_eurosat at batch 2 (K8 39).  At the end of the
+   run, for each artifact a process that imports only
+   `mtp_tpu_torch.serving` loads it on the card and serves once, the three
+   at once, while this process builds the same seeded models; then the
+   live predicts on seeded inputs (launches exact), and the served calls
+   one process at a time: the outputs held to the live ones
+   (`served_verdict`: bit for bit, else the rule named), the launches
+   equal to the live call's, the modules free of model code, and a control
+   (the backbone's first patch-embedding weight × 0.9) that must fail; the
+   export s, artifact MB, load s and served ms beside live ms (median of
+   5, each ended by a sync).
+Every path runs its recipe's backbone at full depth but the 2080² path
+(phases 12-15), which runs the ViT-L's first 6 blocks (5 RVSA, 1 full).
 Registry recipes only: every path takes its recipe through
 `mtp_tpu_torch.configs.get` under the JAX package's name.  Phase 3f also
 holds the kernels at the shapes of the registry's OSCD 96² recipes
@@ -303,6 +327,7 @@ import io
 import json
 import math
 import re
+import signal
 import statistics
 import os
 import subprocess
@@ -322,7 +347,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from mtp_tpu_torch import configs
-from mtp_tpu_torch.ckpt.from_jax import init_weights
+from mtp_tpu_torch.ckpt import from_jax
 from mtp_tpu_torch.ckpt.store import CheckpointStore, load_encoder, save_encoder
 from mtp_tpu_torch.ckpt.torch_convert import backbone_state_dict
 from mtp_tpu_torch.cli import test as cli_test
@@ -358,6 +383,7 @@ from mtp_tpu_torch.parallel import tensor as ptensor
 from mtp_tpu_torch.tasks.change_detection import ChangeDetectionTask
 from mtp_tpu_torch.tasks import detection as det_core
 from mtp_tpu_torch.tasks.classification import ClassificationTask
+from mtp_tpu_torch.tasks import _fit
 from mtp_tpu_torch.tasks._fit import to_device
 from mtp_tpu_torch.tasks.detection_task import DetectionTask, build_detector, det_config
 from mtp_tpu_torch.tasks.multitask import MultiTaskPretrainTask
@@ -452,6 +478,48 @@ COUNTERS = ("window", "flash", "bilinear_sample", "window_bwd", "flash_bwd",
             "nms_rotated")
 
 
+class SeededInit:
+    """`from_jax.init_weights` with its last KEEP draws kept.  Its weights are
+    a function of the model's modules and the generator's state alone (no
+    global random state: every tensor of every recipe's model is drawn), so
+    a model of modules already drawn from the same generator state takes the
+    kept weights, and the generator moves on as the draw would have moved
+    it.  A path's first model and its train state's, and the CLI's runs,
+    draw the same weights: each such draw took 2-4 s of one host thread."""
+
+    KEEP = 3
+
+    def __init__(self):
+        self.kept: Dict[tuple, Tuple[Dict[str, torch.Tensor], torch.Tensor]] = {}
+        self.lock = threading.Lock()  # phases 25c-d draw on a thread
+
+    def __call__(self, model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+        with self.lock:
+            return self._draw(model, generator)
+
+    def _draw(self, model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+        if any(t.device.type != "cpu" for t in model.state_dict().values()):
+            return from_jax.init_weights(model, generator)
+        key = (tuple((n, type(m).__name__) for n, m in model.named_modules()),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in model.state_dict().items()),
+               generator.get_state().numpy().tobytes())
+        drawn = self.kept.pop(key, None)
+        if drawn is None:
+            from_jax.init_weights(model, generator)
+            drawn = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                     generator.get_state())
+        else:
+            model.load_state_dict(drawn[0])
+            generator.set_state(drawn[1])
+        self.kept[key] = drawn
+        while len(self.kept) > self.KEEP:
+            self.kept.pop(next(iter(self.kept)))
+        return model
+
+
+init_weights = SeededInit()
+
+
 def launches(**nonzero) -> Dict[str, int]:
     """Every launch counter, 0 unless named."""
     return {**dict.fromkeys(COUNTERS, 0), **nonzero}
@@ -459,8 +527,8 @@ def launches(**nonzero) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class Path:
-    """One recipe's model at full width and depth, and the geometry each
-    phase drives it at."""
+    """One recipe's model at full width and depth (the 2080² path at its
+    first HR_DEPTH blocks), and the geometry each phase drives it at."""
 
     name: str
     recipe: TaskConfig
@@ -479,25 +547,10 @@ class Path:
     warm_steps: int                      # phases 7 / 11 / 15: after the counted step
     train_steps: int                     # timed steps
     eval_tiles: Tuple[int, int]          # (count, size) for `evaluate`
-    grad_depth: int = 0                  # phase 14: the model's first
-                                         # blocks only (0: all), launching
-    grad_per_step: Optional[Dict[str, int]] = None  # these in the card's run
 
     @property
     def grad_rtol(self) -> Dict[str, float]:
         return GRAD_RTOL_STOCHASTIC if self.grad_stochastic else GRAD_RTOL
-
-    def gradient_path(self) -> "Path":
-        """The path whose model the gradient phase checks: this one, or with
-        `grad_depth` the recipe's backbone cut to its first blocks (taps
-        spread over them, every `interval`-th still full attention) and
-        `grad_per_step` as its launches."""
-        if not self.grad_depth:
-            return self
-        d, bb = self.grad_depth, self.recipe.backbone
-        cut = dataclasses.replace(bb, depth=d, out_indices=(d // 4, d // 2, 3 * d // 4, d - 1))
-        return dataclasses.replace(self, recipe=dataclasses.replace(self.recipe, backbone=cut),
-                                   per_step=self.grad_per_step, grad_depth=0)
 
 
 def recipe(name: str) -> TaskConfig:
@@ -510,10 +563,15 @@ RVSA = recipe("rvsa-l-upernet-384-mae-mtp-spacenetv1")
 XL = recipe("intern-xl-upernet-512-imp-mtp-loveda")
 # the ViT recipe at 2080² crops (2080 = 16·130: a 130² token grid, over the
 # 128-per-axis gate of K2) with the JAX field remat on, batch 1, one crop a
-# tile: no new recipe, the JAX configs express all of it
-HR_CROP = 2080
+# tile: no new recipe, the JAX configs express all of it.  Its ViT-L is cut
+# to the first HR_DEPTH blocks, 5 RVSA and 1 full (one window of 16,900
+# tokens: K1L forward, K7 backward), the taps spread over them: every kernel
+# and module of the path, at a quarter of the 24 blocks' time
+HR_CROP, HR_DEPTH = 2080, 6
 RVSA_HR = dataclasses.replace(
-    RVSA, backbone=dataclasses.replace(RVSA.backbone, img_size=HR_CROP, remat=True),
+    RVSA, backbone=dataclasses.replace(
+        RVSA.backbone, img_size=HR_CROP, remat=True, depth=HR_DEPTH,
+        out_indices=(HR_DEPTH // 4, HR_DEPTH // 2, 3 * HR_DEPTH // 4, HR_DEPTH - 1)),
     train=dataclasses.replace(RVSA.train, batch_size=1),
     slide=SlideConfig(crop=HR_CROP, stride=HR_CROP // 2))
 PATHS = {
@@ -544,28 +602,25 @@ PATHS = {
         cpu_hw=(256, 256), tile=1024, tiles=2, serve_iters=5, grad_batch=2,
         grad_stochastic=False, head_prefixes=("decode_head.",), warm_steps=2,
         train_steps=4, eval_tiles=(1, 1024)),
-    # the ViT recipe at 2080² with remat: per crop forward the 4 full blocks
-    # run K1L; per train step each block runs forward and recompute (K1 40,
-    # K1L 8, K3 80) and K4 20, K7 4, K6 40.  Card vs CPU at a 2080×112 strip
-    # (the CPU's full-depth fp32 forward and backward of a 2080² crop would
-    # take far too long), with dropout and drop-path on, at batch 2 as the
-    # other paths (at batch 1 the PSP pooling branches' BatchNorm sees 1-9
-    # values of one image per channel, which makes the gradients more
-    # sensitive to rounding), and the gradients at identity sampling (see
-    # `phase_gradients`) and GRAD_RTOL_STOCHASTIC, on the first 6 blocks
-    # (5 RVSA, 1 full: every kernel of the path; remat runs each forward
-    # twice).  1 warm-up step (the counted one) and 3 timed steps.
+    # the ViT recipe at 2080² with remat, its first 6 blocks: per crop
+    # forward the full block runs K1L; per train step each block runs
+    # forward and recompute (K1 10, K1L 2, K3 20) and K4 5, K7 1, K6 10.
+    # Card vs CPU at a 2080×112 strip (the CPU's fp32 forward and backward
+    # of a 2080² crop would take far too long), with dropout and drop-path
+    # on, at batch 2 as the other paths (at batch 1 the PSP pooling
+    # branches' BatchNorm sees 1-9 values of one image per channel, which
+    # makes the gradients more sensitive to rounding), and the gradients at
+    # identity sampling (see `phase_gradients`) and GRAD_RTOL_STOCHASTIC.  1
+    # warm-up step (the counted one) and 3 timed steps.
     "rvsa_hr": Path(
         name="rvsa_hr", recipe=RVSA_HR,
         flops=lambda crop: backbone_flops(RVSA_HR.backbone, (crop, crop)),
-        per_forward=launches(window=20, window_large=4, bilinear_sample=40),
-        per_step=launches(window=40, window_large=8, bilinear_sample=80,
-                          window_bwd=20, window_bwd_qblk=4, bilinear_sample_bwd=40),
+        per_forward=launches(window=5, window_large=1, bilinear_sample=10),
+        per_step=launches(window=10, window_large=2, bilinear_sample=20,
+                          window_bwd=5, window_bwd_qblk=1, bilinear_sample_bwd=10),
         cpu_hw=(HR_CROP, 112), tile=HR_CROP, tiles=1, serve_iters=3, grad_batch=2,
         grad_stochastic=True, head_prefixes=("backbone.fpn", "decode_head."),
-        warm_steps=0, train_steps=3, eval_tiles=(1, HR_CROP), grad_depth=6,
-        grad_per_step=launches(window=10, window_large=2, bilinear_sample=20,
-                               window_bwd=5, window_bwd_qblk=1, bilinear_sample_bwd=10)),
+        warm_steps=0, train_steps=3, eval_tiles=(1, HR_CROP)),
 }
 
 KERNELS = {
@@ -738,20 +793,32 @@ def phase_device() -> str:
     return card
 
 
-def sass_tensor_core_counts() -> Dict[str, int]:
-    """{kernel label: HMMA + HGMMA instructions} of every kernel in the built
-    library, from `cuobjdump -sass`."""
+def start_sass_dump() -> Tuple[subprocess.Popen, "tempfile._TemporaryFileWrapper"]:
+    """`cuobjdump -sass` of the built library, running into a temporary file
+    (it takes ~20 s of one host thread: `phase_build` leaves it to run
+    beside phases 3 and 3b)."""
     tool = FilePath(_build.find_nvcc()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(_build.LIB)], capture_output=True,
-                          text=True, check=True).stdout
+    out = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([str(tool), "-sass", str(_build.LIB)], stdout=out,
+                            stderr=subprocess.PIPE, text=True), out
+
+
+def sass_tensor_core_counts(dump) -> Dict[str, int]:
+    """{kernel label: HMMA + HGMMA instructions} of every kernel in the built
+    library, from the dump `start_sass_dump` started."""
+    proc, out = dump
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({proc.returncode}): {err[-2000:]}")
+    out.seek(0)
     counts, name = {}, None
-    for line in text.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            name = _build.kernel_label(fn[1])
+    for line in out:
+        if "Function : " in line:
+            name = _build.kernel_label(re.search(r"Function : (\S+)", line)[1])
             counts.setdefault(name, 0)
-        elif name and re.search(r"\bHG?MMA\.", line):
+        elif name and "MMA." in line and re.search(r"\bHG?MMA\.", line):
             counts[name] += 1
+    out.close()
     return counts
 
 
@@ -763,7 +830,9 @@ TC_MAIN = ("flash_fwd_tc_kernel<64>", "flash_bwd_dq_tc_kernel<64>",
            "window_attn_fwd_tc_kernel<64>", "window_attn_bwd_tc_kernel<64>")
 
 
-def phase_build() -> None:
+def phase_build():
+    """Builds the kernels and holds ptxas's report; returns the SASS dump,
+    which `check_sass` reads once phase 3b has ended."""
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.lib()
@@ -773,16 +842,23 @@ def phase_build() -> None:
         f"{' '.join(_build.NVCC_FLAGS)}; {time.perf_counter() - t0:.1f} s")
     for line in _build.PTXAS_LOG:
         log(f"[build] {line}")
-    counts = sass_tensor_core_counts()
+    for name in TC_MAIN:
+        ptxas = [line for line in _build.PTXAS_LOG if line.startswith(name + ":")]
+        if len(ptxas) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in ptxas[0]:
+            raise AssertionError(f"{name}: ptxas reports spills or nothing: {ptxas}")
+    return start_sass_dump()
+
+
+def check_sass(dump) -> None:
+    """Phase 2's SASS reading: every tensor-core kernel's HMMA/HGMMA count,
+    and TC_MAIN's must not be 0."""
+    counts = sass_tensor_core_counts(dump)
     for name, n in sorted(counts.items()):
         if "_tc_kernel<" in name:
             log(f"[build] SASS {name}: {n} HMMA/HGMMA instructions")
     for name in TC_MAIN:
-        ptxas = [line for line in _build.PTXAS_LOG if line.startswith(name + ":")]
         if not counts.get(name):
             raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
-        if len(ptxas) != 1 or "0 bytes spill stores, 0 bytes spill loads" not in ptxas[0]:
-            raise AssertionError(f"{name}: ptxas reports spills or nothing: {ptxas}")
 
 
 # -------------------------------------------------------- phase 3, 3b, 3c --
@@ -932,7 +1008,7 @@ def window_case(W, nH, N, D, seed, bwd=False, controls=False,
                     lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, dout.to(dt), scale),
                     flops, lambda a: _sdpa_library(a[0], a[1], a[2], a[3], a[5], a[4]),
                     deterministic=True, **extra)
-    return Case(fused_attn._window_fwd, fused_attn.fused_window_attention_ref,
+    return Case(torch.ops.mtp.window_attn_fwd.default, fused_attn.fused_window_attention_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, scale), flops,
                 lambda a: _sdpa_library(*a), **extra)
 
@@ -979,7 +1055,7 @@ def large_window_case(W, nH, N, D, seed, bwd=False, path_inputs=None,
         return Case(fused_attn.fused_window_attention_large_bwd,
                     wrap(fused_attn.fused_window_attention_large_bwd_ref), args, flops,
                     lib if library else None, deterministic=True, **extra)
-    return Case(fused_attn._window_large_fwd, fwd_ref,
+    return Case(torch.ops.mtp.window_attn_fwd_large.default, fwd_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), bias, scale), flops,
                 (lambda a: _sdpa_library(*a)) if library else None, **extra)
 
@@ -1020,7 +1096,7 @@ def flash_case(BH, grid_hw, D, seed, scale=1.0, bwd=False) -> Case:
                     lambda a: _sdpa_library(a[0], a[1], a[2], _expand_rel(a[3], a[4]),
                                             a[9], a[7]),
                     deterministic=True, device_time=True, **extra)
-    return Case(fused_attn._flash_fwd, fwd_ref,
+    return Case(torch.ops.mtp.flash_attn_fwd.default, fwd_ref,
                 lambda dt: (q.to(dt), k.to(dt), v.to(dt), rel_h, rel_w, grid_hw, scale),
                 flops, lambda a: _sdpa_library(a[0], a[1], a[2],
                                                _expand_rel(a[3], a[4]), a[6]),
@@ -2890,8 +2966,6 @@ def _ddp_rank(rank: int, tmp: str) -> None:
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         start = _state_snapshot(state)
-        with open(os.path.join(tmp, f"ready{rank}"), "w"):
-            pass
         _wait_for(lambda: os.path.exists(os.path.join(tmp, "go")), "the parent's go")
         step_fn = task.train_step_fn(deterministic=True)
         skip = (mock.patch.object(core_train, "reduce_gradients", _skip_reduction)
@@ -2970,11 +3044,12 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
     processes on the card in a gloo group (NCCL refuses two ranks on one
     card), each on its 4 rows of the same global batches, from the
     checkpoint of the state that this process writes as rank 0
-    (`CheckpointStore`; they restore it while (a) compares): the ranks'
-    states bit for bit equal after the steps, rank 0's first gradients
-    against the witness's by phase 6's rule, rank 0's run against (a)'s
-    DDP run by `_ddp_verdict` under `two_ranks_rule`; and a control, one
-    step in which rank 1 keeps its own gradients, whose states must differ.
+    (`CheckpointStore`; they restore it and run (b) while (a) compares,
+    which is not timed): the ranks' states bit for bit equal after the
+    steps, rank 0's first gradients against the witness's by phase 6's
+    rule, rank 0's run against (a)'s DDP run by `_ddp_verdict` under
+    `two_ranks_rule`; and a control, one step in which rank 1 keeps its own
+    gradients, whose states must differ.
     A rank that fails fails the phase.  `background()` runs on a thread of
     this process from the end of (a)'s timed steps (CPU work beside the
     card's untimed fp32 steps and while this process waits for the ranks:
@@ -3024,6 +3099,11 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
         t0 = time.perf_counter()
         store.save(state.step, state)  # rank 0 writes; in the background
         save_s = time.perf_counter() - t0
+        # the ranks' (b) runs beside the rest of (a), which is not timed: each
+        # starts once it has restored this checkpoint
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        t_go = time.perf_counter()
 
         # (a) one rank: the DDP step against the plain one, fp32
         t32 = SegmentationTask(DDP_FP32, model=state.model)
@@ -3065,22 +3145,15 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
 
     # (b) two ranks, gloo, on the one card; then phase 26 on the same processes
     procs = ranks.procs
-    t0 = time.perf_counter()
+    beside = time.perf_counter() - t_go
     try:
-        _wait_for(lambda: all(os.path.exists(os.path.join(tmp, f"ready{r}"))
-                              or not p.is_alive() for r, p in enumerate(procs)),
-                  "the ranks' restore")
-        ranks_wait = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with open(os.path.join(tmp, "go"), "w"):
-            pass
         _wait_for(lambda: all(os.path.exists(os.path.join(tmp, f"rank{r}.json"))
                               or not p.is_alive() for r, p in enumerate(procs)),
                   "the ranks' steps")
-        t_join = time.perf_counter() - t0
+        t_join = time.perf_counter() - t_go
         _rank_errors(ranks, "phase 25(b)", lambda r: os.path.exists(
             os.path.join(tmp, f"rank{r}.json")))
-        b_result = _ddp_b_verdict(path, ranks, runs, start, adam, split, save_s, ranks_wait,
+        b_result = _ddp_b_verdict(path, ranks, runs, start, adam, split, save_s, beside,
                                   t_join, extra)
         # phase 26's references, in this process while the ranks run it
         t0 = time.perf_counter()
@@ -3112,7 +3185,7 @@ def _rank_errors(ranks: DdpRanks, what: str, done: Callable[[int], bool]) -> Non
 
 
 def _ddp_b_verdict(path: Path, ranks: DdpRanks, runs: dict, start, adam, split, save_s: float,
-                   ranks_wait: float, t_join: float, extra):
+                   beside: float, t_join: float, extra):
     """Phase 25(b)'s verdict from the ranks' files (see `phase_ddp`); returns
     what the background work returned."""
     tmp, tag = ranks.tmp, "[ddp]"
@@ -3132,8 +3205,8 @@ def _ddp_b_verdict(path: Path, ranks: DdpRanks, runs: dict, start, adam, split, 
         f"{equal}; rank 0's first gradients vs the two ranks emulated in one process: "
         f"{split_summary}; rank 0 vs (a)'s one-process DDP step: {summary}; control, rank 1 keeping "
         f"its own gradients for one step: states equal {control_equal} (must differ); "
-        f"checkpoint snapshot for the ranks {save_s:.1f} s, their restore waited for "
-        f"{ranks_wait:.1f} s after (a); restore {ranks_out[0]['restore_s']:.1f} / "
+        f"checkpoint snapshot for the ranks {save_s:.1f} s, (a)'s untimed rest beside "
+        f"their (b) {beside:.1f} s; restore {ranks_out[0]['restore_s']:.1f} / "
         f"{ranks_out[1]['restore_s']:.1f} s, {DDP_STEPS} fp32 steps "
         f"{ranks_out[0]['steps_s']:.1f} / {ranks_out[1]['steps_s']:.1f} s, the ranks' (b) after "
         f"the go {t_join:.1f} s; the background work waited for {t_extra:.1f} s more")
@@ -5302,6 +5375,379 @@ def phase_cli(card: str) -> dict:
     return {"train": launched}
 
 
+# ------------------------------------------------------------- phase 27 --
+
+EXPORT_REPS = 5         # timed calls of the live and the served predict
+EXPORT_TIMEOUT = 600.0  # s an export job, and a serving process, may take
+EXPORT_THREADS = 1      # CPU threads of each export job and serving process
+
+# An export job of phase 27 (`ExportJobs`), in its own process: `export_job`.
+EXPORT_JOB = r"""
+import json, sys
+import chip_smoke
+chip_smoke.export_job(json.loads(sys.argv[1]))
+"""
+
+# A serving process: it imports the port's serving module and nothing else of
+# the port (`load_artifact` needs no model code), loads its artifact on the
+# card, serves the inputs the parent wrote once (the warm-up), writes a
+# `.warm` file and waits for its turn (a `.go` file: the parent lets the
+# processes serve one at a time, after the live calls, so that nothing else
+# runs beside the timed calls); then it serves them once more and prints its
+# load time, the launches of that call, the median of `reps` calls each
+# ended by a sync and the modules it imported; then the control, the
+# backbone's first patch-embedding weight scaled by 0.9 in place.  Its
+# outputs go to a file.
+SERVE_WORKER = r"""
+import json, os, statistics, sys, time
+import torch
+from mtp_tpu_torch import serving
+from mtp_tpu_torch.ops import dcnv3_sample, fused_attn, nms, rotated_boxes
+
+torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings, as the live predict's
+torch.backends.cudnn.allow_tf32 = False
+counted = (fused_attn.LAUNCHES, dcnv3_sample.LAUNCHES, nms.LAUNCHES, rotated_boxes.LAUNCHES)
+host = lambda out: ({k: v.cpu() for k, v in out.items()} if isinstance(out, dict)
+                    else out.cpu())
+job = json.loads(sys.argv[1])
+torch.zeros(1, device="cuda")
+deadline = time.monotonic() + job["timeout"]
+t0 = time.perf_counter()
+serve, meta = serving.load_artifact(job["dir"], "cuda")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+inputs = [t.cuda() for t in torch.load(job["inputs"], weights_only=True)]
+serve(*inputs)
+torch.cuda.synchronize()
+open(job["warm"], "w").close()
+while not os.path.exists(job["go"]):
+    if time.monotonic() > deadline:
+        sys.exit(f"no {job['go']} in time")
+    time.sleep(0.05)
+for c in counted:
+    c.update(dict.fromkeys(c, 0))
+out = serve(*inputs)
+torch.cuda.synchronize()
+launched = {k: v for c in counted for k, v in c.items()}
+times = []
+for _ in range(job["reps"]):
+    t0 = time.perf_counter()
+    serve(*inputs)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+control = next(k for k in serve.weights
+               if k.startswith("backbone.patch_embed.") and k.endswith("weight"))
+serve.weights[control].mul_(0.9)
+scaled = serve(*inputs)
+torch.save({"out": host(out), "control": host(scaled)}, job["result"])
+print(json.dumps(dict(load_s=load_s, ms=statistics.median(times) * 1e3, launches=launched,
+                      control=control, meta=meta,
+                      modules=sorted(m for m in sys.modules if m.split(".")[0] in
+                                     ("mtp_tpu_torch", "mtp_tpu", "jax", "flax")))))
+"""
+MODEL_CODE = ("mtp_tpu_torch.models", "mtp_tpu_torch.heads", "mtp_tpu_torch.tasks",
+              "mtp_tpu_torch.configs", "mtp_tpu", "jax", "flax")
+
+
+@dataclasses.dataclass
+class ExportCase:
+    """One artifact of phase 27: a registry recipe, its seeded model (built
+    on the CPU as its earlier phase builds it), the live task on the card,
+    cli.export's further flags, the seeded inputs and the launches of one
+    predict."""
+
+    name: str
+    recipe: str
+    build: Callable[[], torch.nn.Module]
+    task: Callable[[torch.nn.Module], object]
+    argv: List[str]
+    inputs: Callable[[], List[torch.Tensor]]
+    launches: Dict[str, int]
+
+
+def export_cases() -> List[ExportCase]:
+    """The ViT-L SpaceNet segmentor on one 384² crop (K1 20, K2 4, K3 40:
+    a trace of the 4-crop 512² tile takes 56-75 s on the card's host, so
+    the slide graph over several crops is left to the CPU tests), the ViT-L
+    Oriented R-CNN on one 800² image (N1 and R1's mask form once each, with
+    K1-K3) and the InternImage-XL EuroSAT classifier at batch 2 (K8's 39
+    forward launches)."""
+    images = lambda n, s, seed: [torch.randn((n, s, s, 3), generator=_gen(seed))]
+    rot, cls = ROT_PATHS["det_rot_vit"], TASK_PATHS["cls_xl"]
+    return [
+        ExportCase("seg_vit", CLI_RECIPE, lambda: build_model(PATHS["rvsa"], (384, 384)),
+                   lambda m: SegmentationTask(RVSA, model=m), [],
+                   lambda: images(1, 384, SEED + 270), VIT_FWD),
+        ExportCase("det_rot_vit", "oriented_rcnn_rvsa_l_800_mae_mtp_diorr",
+                   lambda: build_det_model(rot, (800, 800)), lambda m: rot.task(model=m), [],
+                   lambda: images(1, 800, SEED + 271), rot.per_predict),
+        ExportCase("cls_xl", "intern-xl-224-imp-mtp_eurosat", lambda: build_task_model(cls),
+                   lambda m: ClassificationTask(CLS_XL, model=m), ["--batch-size", "2"],
+                   lambda: images(2, 224, SEED + 272), cls.per_forward)]
+
+
+def export_job(job: dict) -> None:
+    """One export of phase 27, in an `EXPORT_JOB` process: the case's seeded
+    model, saved as a variables file (`save_variables`), then `python -m
+    mtp_tpu_torch.cli.export` on the card with that --ckpt, whose output
+    goes to this process's; the last line printed holds the seconds of
+    each."""
+    from mtp_tpu_torch.ckpt.store import save_variables
+
+    torch.set_num_threads(EXPORT_THREADS)
+    case = next(c for c in export_cases() if c.name == job["name"])
+    t0 = time.perf_counter()
+    save_variables(job["ckpt"], case.build())
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sys.stdout.flush()
+    done = subprocess.run([sys.executable, "-m", "mtp_tpu_torch.cli.export", case.recipe,
+                           "--out", job["dir"], "--ckpt", job["ckpt"], *case.argv])
+    if done.returncode != 0:
+        sys.exit(f"cli.export failed ({done.returncode})")
+    print(json.dumps(dict(build_s=build_s, export_s=time.perf_counter() - t0)), flush=True)
+
+
+class ExportJobs:
+    """Phase 27's exports, started once phase 3b has ended so that they run
+    beside phases 3c-3f (host work on one thread each; the traces take no
+    kernel) and not on the run's path: one `EXPORT_JOB` process an
+    `export_cases` entry, each in a session of its own, which `close()`
+    kills whole.  `wait(name)` gives a job's seconds and artifact size once
+    it has ended, and raises with its output if it failed."""
+
+    def __init__(self):
+        self._dir = tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_export_")
+        self.tmp = self._dir.name
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.env = {**os.environ, "PYTHONPATH": self.root,
+                    "OMP_NUM_THREADS": str(EXPORT_THREADS)}
+        self.t0 = time.perf_counter()
+        self.procs: Dict[str, subprocess.Popen] = {}
+        for case in export_cases():
+            job = dict(name=case.name, dir=self.at(case.name), ckpt=self.at(case.name, ".pt"))
+            with open(self.at(case.name, ".export.log"), "w") as out:
+                self.procs[case.name] = subprocess.Popen(
+                    [sys.executable, "-c", EXPORT_JOB, json.dumps(job)], stdout=out,
+                    stderr=subprocess.STDOUT, cwd=self.root, env=self.env,
+                    start_new_session=True)
+
+    def at(self, name: str, suffix: str = "") -> str:
+        return os.path.join(self.tmp, name + suffix)
+
+    def wait(self, name: str) -> dict:
+        proc = self.procs[name]
+        try:
+            proc.wait(timeout=max(1.0, EXPORT_TIMEOUT - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"[export {name}] the export job took over "
+                                 f"{EXPORT_TIMEOUT:.0f} s") from None
+        with open(self.at(name, ".export.log")) as f:
+            said = f.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"[export {name}] the export job failed "
+                                 f"({proc.returncode}):\n{said[-6000:]}")
+        lines = said.strip().splitlines()
+        row = json.loads(lines[-1])
+        art = self.at(name)
+        row.update(cli=next(x for x in reversed(lines) if x.startswith('{"out"')),
+                   mb=sum(os.path.getsize(os.path.join(art, f))
+                          for f in os.listdir(art)) / 1e6)
+        return row
+
+    def check(self) -> None:
+        """Raises if a job has already failed."""
+        for name, proc in self.procs.items():
+            if proc.poll() not in (None, 0):
+                self.wait(name)
+
+    def close(self) -> None:
+        try:
+            for proc in self.procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        finally:
+            self._dir.cleanup()
+
+
+def _on_host(out):
+    return {k: v.cpu() for k, v in out.items()} if isinstance(out, dict) else out.cpu()
+
+
+def served_verdict(live, served, gap: Optional[torch.Tensor]) -> Tuple[bool, str]:
+    """(held, the rule that held or the reading that failed): bit for bit;
+    else class maps may differ only where the live top two fp32 logits lie
+    within TIE_GAP (phase 26's rule), logits by phase 5's rule (argmax
+    agreement ≥ 0.999, max |Δ| ≤ 0.1 of max |logit|), detections by their
+    keep sets (valid, labels and scores equal) with boxes within 1e-3 of
+    max |box|."""
+    if isinstance(live, dict):
+        if live.keys() == served.keys() and all(torch.equal(live[k], served[k]) for k in live):
+            return True, "bit for bit"
+        keep = all(torch.equal(live[k], served[k]) for k in ("valid", "labels", "scores"))
+        scale = live["boxes"].abs().max().clamp(min=1e-12)
+        off = ((live["boxes"] - served["boxes"]).abs().max() / scale).item()
+        return keep and off <= 1e-3, f"keep sets equal {keep}, boxes {off:.3e} of max |box|"
+    if torch.equal(live, served):
+        return True, "bit for bit"
+    if live.is_floating_point():
+        agree = (live.argmax(-1) == served.argmax(-1)).float().mean().item()
+        drift = ((live - served).abs().max() / live.abs().max()).item()
+        return agree >= 0.999 and drift <= 0.1, \
+            f"logits: argmax agreement {agree:.6f}, max |Δ| {drift:.3e} of max |logit|"
+    diff = live != served
+    away = int((diff & (gap >= TIE_GAP)).sum())
+    return away == 0, f"class maps: {int(diff.sum())} pixels differ, {away} away from a near tie"
+
+
+def _live_gap(task, images: torch.Tensor) -> torch.Tensor:
+    """The gap between the top two live slide logits of each pixel, fp32."""
+    with torch.no_grad(), task.autocast():
+        top2 = task.slide_logits(images).float().topk(2, -1).values
+    return (top2[..., 0] - top2[..., 1]).cpu()
+
+
+def _run_live(case: ExportCase, model, inputs: List[torch.Tensor]):
+    """The live predict of `model` (`build_export_fn`'s function, eager,
+    under the task's autocast) on `inputs`: (its outputs on the host, the
+    launches of one call, the median ms of EXPORT_REPS calls each ended by a
+    sync, the per-pixel gap of the two top fp32 slide logits for a
+    segmentor, else None)."""
+    from mtp_tpu_torch.cli import export as cli_export
+
+    task = case.task(model.cuda().eval())
+    predict, _, _ = cli_export.build_export_fn(task, task.cfg)
+    x = [t.cuda() for t in inputs]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counters()
+        out = predict(*x)
+        torch.cuda.synchronize()
+        launched = counters()
+        times = []
+        for _ in range(EXPORT_REPS):
+            t0 = time.perf_counter()
+            predict(*x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    gap = _live_gap(task, x[0]) if task.cfg.task == "segmentation" else None
+    return _on_host(out), launched, statistics.median(times) * 1e3, gap
+
+
+def _wait_warm(serving: Dict[str, Tuple[dict, subprocess.Popen]]) -> None:
+    """Until every serving process has loaded its artifact and served once;
+    raises with the output of one that ended before."""
+    deadline = time.monotonic() + EXPORT_TIMEOUT
+    for name, (job, serve) in serving.items():
+        while not os.path.exists(job["warm"]):
+            if serve.poll() is not None or time.monotonic() > deadline:
+                with open(job["log"]) as f:
+                    said = f.read()
+                raise AssertionError(f"[export {name}] the serving process ended or took "
+                                     f"over {EXPORT_TIMEOUT:.0f} s before it served "
+                                     f"({serve.returncode}):\n{said[-8000:]}")
+            time.sleep(0.05)
+
+
+def phase_export(card: str, exports: ExportJobs) -> None:
+    """Phase 27: the serving artifact.  The exports (`ExportJobs`: each
+    case's seeded model saved as a variables file, then `python -m
+    mtp_tpu_torch.cli.export` on the card with that --ckpt) ran beside
+    phases 3c-3f; here, for each `export_cases` entry, once its export has
+    ended, a serving process (`SERVE_WORKER`: it imports only
+    `mtp_tpu_torch.serving`) loads the artifact on the card and serves once,
+    the three at once, while this process builds the same seeded models and
+    moves them to the card.  Then the live predicts (`_run_live`: launches
+    exact, median of EXPORT_REPS ms), then the served calls, one process at
+    a time, nothing else running: the served launches equal to the live
+    call's, the outputs held by `served_verdict`, the modules free of model
+    code, and a control (the backbone's first patch-embedding weight scaled
+    by 0.9 in the served process) that must fail the same verdict."""
+    free()
+    t_phase = time.perf_counter()
+    cases = export_cases()
+    rows: Dict[str, dict] = {}
+    serving: Dict[str, Tuple[dict, subprocess.Popen]] = {}
+    live, failed = {}, []
+    try:
+        for case in cases:
+            rows[case.name] = exports.wait(case.name)
+            at = lambda suffix: exports.at(case.name, suffix)
+            torch.save(case.inputs(), at(".in.pt"))
+            job = dict(dir=at(""), inputs=at(".in.pt"), result=at(".out.pt"),
+                       warm=at(".warm"), go=at(".go"), log=at(".serve.log"),
+                       reps=EXPORT_REPS, timeout=EXPORT_TIMEOUT)
+            with open(job["log"], "w") as out:
+                serving[case.name] = (job, subprocess.Popen(
+                    [sys.executable, "-c", SERVE_WORKER, json.dumps(job)], stdout=out,
+                    stderr=subprocess.STDOUT, cwd=exports.root, env=exports.env))
+            log(f"[cli] cli.export {case.name}: {rows[case.name]['cli']}")
+        models = {}
+        for case in cases:  # beside the loads
+            t0 = time.perf_counter()
+            models[case.name] = case.build().cuda().eval()
+            rows[case.name]["live_build_s"] = time.perf_counter() - t0
+        _wait_warm(serving)
+        t_ready = time.perf_counter() - t_phase
+        for case in cases:
+            out, launched, live_ms, gap = _run_live(case, models.pop(case.name),
+                                                    case.inputs())
+            if launched != case.launches:
+                raise AssertionError(f"[export {case.name}] live launches {launched} != "
+                                     f"{case.launches}")
+            live[case.name] = (out, gap)
+            rows[case.name].update(live_ms=live_ms, launches=launched)
+        free()
+        for case in cases:  # one at a time, nothing else running
+            job, serve = serving[case.name]
+            open(job["go"], "w").close()
+            serve.wait(timeout=EXPORT_TIMEOUT)
+            with open(job["log"]) as f:
+                said = f.read()
+            if serve.returncode != 0:
+                raise AssertionError(f"[export {case.name}] the serving process failed "
+                                     f"({serve.returncode}):\n{said[-8000:]}")
+            rows[case.name]["served"] = json.loads(said.strip().splitlines()[-1])
+    finally:
+        for _, serve in serving.values():
+            if serve.poll() is None:
+                serve.kill()
+                serve.wait()
+    log(f"[export] the exports' wait, the loads and the live models {t_ready:.1f} s; the "
+        f"live and served calls {time.perf_counter() - t_phase - t_ready:.1f} s")
+    for case in cases:
+        name, row = case.name, rows[case.name]
+        job = serving[name][0]
+        served = row["served"]
+        leaked = [m for m in served["modules"]
+                  if any(m == p or m.startswith(p + ".") for p in MODEL_CODE)]
+        got = torch.load(job["result"], weights_only=True)
+        held, rule = served_verdict(live[name][0], got["out"], live[name][1])
+        control, why = served_verdict(live[name][0], got["control"], live[name][1])
+        log(f"[export {name}] the seeded model and its variables file {row['build_s']:.1f} "
+            f"s and cli.export {row['export_s']:.1f} s (the three jobs beside phases "
+            f"3c-3f); artifact {row['mb']:.1f} MB; load {served['load_s']:.1f} s (the three "
+            f"at once, beside the live models' build, {row['live_build_s']:.1f} s); served "
+            f"{served['ms']:.2f} ms against live {row['live_ms']:.2f} ms (median of "
+            f"{EXPORT_REPS}); launches served {served['launches']}, live {row['launches']}; "
+            f"outputs: {rule}; control ({served['control']} × 0.9): {why}; the port's "
+            f"modules it imported: {served['modules']} | card {card}")
+        if leaked:
+            failed.append(f"{name}: the serving process imported model code: {leaked}")
+        if served["launches"] != row["launches"]:
+            failed.append(f"{name}: served launches {served['launches']} != live "
+                          f"{row['launches']}")
+        if not held:
+            failed.append(f"{name}: served outputs off the live ones: {rule}")
+        if control:
+            failed.append(f"{name}: the control passed: {why}")
+    log(f"[export] phase 27 wall {time.perf_counter() - t_phase:.1f} s, the exports "
+        f"{max(r['build_s'] + r['export_s'] for r in rows.values()):.1f} s before it")
+    if failed:
+        raise AssertionError("[export] " + "; ".join(failed))
+
+
 @contextlib.contextmanager
 def phase_time(what: str):
     """Logs the wall time the block took."""
@@ -5339,10 +5785,7 @@ def run_path(path: Path, card: str) -> dict:
     ranks = DdpRanks(path) if path.name == "rvsa" else None
     try:
         with phase_time(f"{path.name} gradients"):
-            gpath = path.gradient_path()
-            if gpath is not path:
-                model_cpu = build_model(gpath, path.cpu_hw)
-            phase_gradients(gpath, model_cpu)
+            phase_gradients(path, model_cpu)
         del model_cpu
         free()
         with phase_time(f"{path.name} train"):
@@ -5356,35 +5799,52 @@ def run_path(path: Path, card: str) -> dict:
 def main() -> None:
     start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    dump = phase_build()
     record = {}
-    for name, phase in (("3", phase_kernels), ("3b", phase_backward_kernels),
-                        ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels),
-                        ("3e", phase_nms_kernel), ("3g", phase_rotated_iou_kernel)):
-        with phase_time(f"kernels {name}"):
-            record.update(phase())
-    with phase_time("kernels 3f"):
-        phase_800_kernels()
-    with phase_time("kernels 3f, phases 21-22's shapes"):
-        phase_path_kernels()
-    with phase_time("kernels 3c/3f, the OSCD 96² shapes"):
-        phase_oscd_kernels()
-    runs = {}
-    for name, path in PATHS.items():
-        runs[name] = run_path(path, card)  # phase 25 inside phase 7
-    for name, path in TASK_PATHS.items():
-        trained = run_task_path(path, card)
-        if name == "cls_vit":  # phase 18 exports its encoder
-            vit_cls_backbone = trained.backbone.cpu()
-        del trained
-    with phase_time("checkpoint"):
-        phase_checkpoint(vit_cls_backbone, card)
-    del vit_cls_backbone
-    for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
-        runs[name] = run_det_path(path, card)
-    runs["mtp_vit"] = run_mtp_path(card)
-    with phase_time("cli"):
-        runs["cli"] = phase_cli(card)
+    exports = None
+    seeded = mock.patch.object(_fit, "init_weights", init_weights)  # the tasks' draws too
+    seeded.start()
+    try:
+        for name, phase in (("3", phase_kernels), ("3b", phase_backward_kernels),
+                            ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels),
+                            ("3e", phase_nms_kernel), ("3g", phase_rotated_iou_kernel)):
+            if name == "3c":  # phase 2's SASS, dumped beside phases 3 and 3b;
+                check_sass(dump)  # phase 27's exports, beside phases 3c-3f
+                exports = ExportJobs()
+            with phase_time(f"kernels {name}"):
+                record.update(phase())
+        with phase_time("kernels 3f"):
+            phase_800_kernels()
+        with phase_time("kernels 3f, phases 21-22's shapes"):
+            phase_path_kernels()
+        with phase_time("kernels 3c/3f, the OSCD 96² shapes"):
+            phase_oscd_kernels()
+        exports.check()
+        runs = {}
+        for name, path in PATHS.items():
+            runs[name] = run_path(path, card)  # phase 25 inside phase 7
+        for name, path in TASK_PATHS.items():
+            trained = run_task_path(path, card)
+            if name == "cls_vit":  # phase 18 exports its encoder
+                vit_cls_backbone = trained.backbone.cpu()
+            del trained
+        with phase_time("checkpoint"):
+            phase_checkpoint(vit_cls_backbone, card)
+        del vit_cls_backbone
+        for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
+            runs[name] = run_det_path(path, card)
+        runs["mtp_vit"] = run_mtp_path(card)
+        with phase_time("cli"):
+            runs["cli"] = phase_cli(card)
+        with phase_time("export"):
+            phase_export(card, exports)
+    finally:
+        seeded.stop()
+        if dump[0].poll() is None:
+            dump[0].kill()
+            dump[0].wait()
+        if exports is not None:
+            exports.close()
     kernels = []
     for key, meta in KERNELS.items():
         path, kind, counter = LAUNCHED_IN[key]

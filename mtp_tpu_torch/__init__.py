@@ -18,9 +18,11 @@ scene classification and Siamese change detection (UNet); Faster, Oriented
 and Mask R-CNN (with CARAFE's upsample) and RetinaNet; multitask
 pretraining; checkpoints, released-style `.pth` or JAX `.npz` encoders
 loaded at another grid; the recipe registry, the CLI and the disk data
-path; data parallel over processes (`parallel.mesh`, under torchrun).
-Not ported: tensor parallelism over the model axis.  Nothing here imports
-jax or flax.
+path; data parallel over processes (`parallel.mesh`, under torchrun) and
+tensor parallelism over the model axis (`parallel.tensor`); the serving
+artifact (`cli.export` traces a recipe's predict by `torch.export`, the
+forward kernels registered ops in `kernels/ops.py`; `serving.load_artifact`
+serves it without model code).  Nothing here imports jax or flax.
 """
 
 __version__ = "0.1.0"

@@ -43,7 +43,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from mtp_tpu_torch.ckpt.torch_convert import load_torch_checkpoint
 from mtp_tpu_torch.core.train import TrainState
 from mtp_tpu_torch.parallel import tensor
 from mtp_tpu_torch.parallel.mesh import barrier, is_main
@@ -208,6 +207,7 @@ def load_encoder(path: str, cfg) -> Dict[str, torch.Tensor]:
     if path.endswith(".npz"):
         from mtp_tpu_torch.ckpt.from_jax import backbone_from_jax
         return backbone_from_jax(_unflatten(path), cfg)
+    from mtp_tpu_torch.ckpt.torch_convert import load_torch_checkpoint  # builds backbones
     return load_torch_checkpoint(path)
 
 

@@ -8,7 +8,9 @@ TPU this was a one-hot matrix product built in VMEM; here it is one gather
 kernel (`csrc/bilinear_sample_fwd.cu`) and one scatter/reduce kernel for the
 gradients (`csrc/bilinear_sample_bwd.cu`), each with the bodies that
 `sample_body` picks between (`csrc/sample_body.cuh`).  `dcnv3_sample` is a
-`torch.autograd.Function`, differentiable in img, py, px and m, with the
+`torch.autograd.Function` whose forward calls the registered op
+`torch.ops.mtp.bilinear_sample_fwd` (`kernels/ops.py`: `_sample_fwd`, one
+node in an exported program), differentiable in img, py, px and m, with the
 JAX package's subgradient at integer coordinates (`_coord_grads`).  The
 plain versions also take float64 and compute in it (`ops/precision.py`).
 """
@@ -211,6 +213,9 @@ def dcnv3_sample_bwd_ref(img: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
 
 
 def _sample_fwd(img, py, px, m, H, W):
+    """K3, the body of the op mtp::bilinear_sample_fwd: CPU tensors run
+    `dcnv3_sample_ref`, CUDA tensors launch the kernel in the body
+    `sample_body` picks."""
     _check(img, py, px, m, H, W)
     if not _build.use_kernel(img, py, px, m):
         return dcnv3_sample_ref(img, py, px, m, H, W)
@@ -263,7 +268,7 @@ class _Sample(torch.autograd.Function):
     def forward(ctx, img, py, px, m, H, W):
         ctx.hw = (H, W)
         ctx.save_for_backward(img, py, px, m)
-        return _sample_fwd(img, py, px, m, H, W)
+        return torch.ops.mtp.bilinear_sample_fwd.default(img, py, px, m, H, W)
 
     @staticmethod
     def backward(ctx, g):

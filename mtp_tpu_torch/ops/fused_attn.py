@@ -4,7 +4,10 @@ decomposed rel-pos bias (K2 forward, K5 backward).
 
 Port of `mtp_tpu/ops/pallas_attn.py`, with the JAX signatures minus
 `interpret`.  `fused_window_attention` and `flash_full_attention` are
-`torch.autograd.Function`s, as the JAX functions are `custom_vjp`s.  Every
+`torch.autograd.Function`s, as the JAX functions are `custom_vjp`s, whose
+forwards call the registered ops `torch.ops.mtp.window_attn_fwd`,
+`window_attn_fwd_large` and `flash_attn_fwd` (`kernels/ops.py`: the bodies
+below, one node each in an exported program).  Every
 kernel wrapper runs its plain version (`*_ref`: einsum + fp32 softmax, and
 the explicit VJPs `*_bwd_ref`) on CPU tensors and launches a CUDA kernel on
 CUDA tensors.  The plain versions also take float64 and compute in it
@@ -315,9 +318,10 @@ def _check_window_saved(q, out, lse):
 
 
 def _window_fwd(q, k, v, bias, scale):
-    """K1.  CPU tensors run `fused_window_attention_ref`; CUDA tensors
-    launch the kernel, whose body `window_body` names: "mma" at the head dim
-    `flash_head_dim` gives (q, k, v zero-padded up to it, out cut back)."""
+    """K1, the body of the op mtp::window_attn_fwd.  CPU tensors run
+    `fused_window_attention_ref`; CUDA tensors launch the kernel, whose body
+    `window_body` names: "mma" at the head dim `flash_head_dim` gives (q, k,
+    v zero-padded up to it, out cut back)."""
     _check_window(q, k, v, bias)
     if not _build.use_kernel(q, k, v, bias):
         return fused_window_attention_ref(q, k, v, bias, scale)
@@ -337,7 +341,8 @@ def _window_fwd(q, k, v, bias, scale):
 
 
 def _window_large_fwd(q, k, v, bias, scale):
-    """K1L: (out in q's dtype, lse fp32 (W, nH, N)).  CPU tensors run
+    """K1L, the body of the op mtp::window_attn_fwd_large: (out in q's
+    dtype, lse fp32 (W, nH, N)).  CPU tensors run
     `fused_window_attention_large_ref`; CUDA tensors launch the kernel, at
     the head dim `flash_head_dim` gives (q, k, v zero-padded up to it, out
     cut back), at any N."""
@@ -435,10 +440,10 @@ class _WindowAttention(torch.autograd.Function):
         _check_window(q, k, v, bias)
         W, nH, N, D = q.shape
         if _large_pair(N, D):  # K1L now, K7 in the backward
-            out, lse = _window_large_fwd(q, k, v, bias, scale)
+            out, lse = torch.ops.mtp.window_attn_fwd_large.default(q, k, v, bias, scale)
             ctx.save_for_backward(q, k, v, bias, out, lse)
         else:  # K1, K4
-            out = _window_fwd(q, k, v, bias, scale)
+            out = torch.ops.mtp.window_attn_fwd.default(q, k, v, bias, scale)
             ctx.save_for_backward(q, k, v, bias)
         return out
 
@@ -560,9 +565,10 @@ def _launch_flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
 
 
 def _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale):
-    """K2: (out in q's dtype, lse fp32 (BH, N)).  CPU tensors run
-    `flash_full_attention_ref`; CUDA tensors launch the kernel, at the head
-    dim `flash_head_dim` gives (q, k, v zero-padded up to it, out cut back)."""
+    """K2, the body of the op mtp::flash_attn_fwd: (out in q's dtype, lse
+    fp32 (BH, N)).  CPU tensors run `flash_full_attention_ref`; CUDA tensors
+    launch the kernel, at the head dim `flash_head_dim` gives (q, k, v
+    zero-padded up to it, out cut back)."""
     _check_flash(q, k, v, rel_h, rel_w, grid_hw)
     if not _build.use_kernel(q, k, v, rel_h, rel_w):
         return flash_full_attention_ref(q, k, v, rel_h, rel_w, grid_hw, scale)
@@ -627,7 +633,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, grid_hw, scale):
         ctx.grid_hw, ctx.scale = grid_hw, scale
-        out, lse = _flash_fwd(q, k, v, rel_h, rel_w, grid_hw, scale)
+        out, lse = torch.ops.mtp.flash_attn_fwd.default(q, k, v, rel_h, rel_w, grid_hw,
+                                                        scale)
         ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
         return out
 

@@ -199,19 +199,38 @@ def nms_keep(boxes_o: torch.Tensor, scores_o: torch.Tensor,
     return keep
 
 
+def check_keep_inputs(boxes_o: torch.Tensor, scores_o: torch.Tensor) -> None:
+    """The keep mask takes boxes (B, N, 4 or 5) and their scores (B, N)."""
+    if boxes_o.dim() != 3 or boxes_o.shape[-1] not in (4, 5) or \
+            tuple(scores_o.shape) != tuple(boxes_o.shape[:2]):
+        raise ValueError(f"boxes (B, N, 4 or 5) and scores (B, N) expected, got "
+                         f"{tuple(boxes_o.shape)} and {tuple(scores_o.shape)}")
+
+
+def keep_mask(boxes_o: torch.Tensor, scores_o: torch.Tensor, iou_thr: float) -> torch.Tensor:
+    """The greedy keep mask (B, N) of boxes (B, N, 4 or 5) in score order
+    with their scores (B, N), the body of the op mtp::nms_keep: CPU tensors
+    run `nms_keep_ref`, CUDA tensors `nms_keep` (N1, or R1's mask form with
+    N1's scan)."""
+    check_keep_inputs(boxes_o, scores_o)
+    if not _build.use_kernel(boxes_o, scores_o):
+        return nms_keep_ref(boxes_o, scores_o > NEG_INF / 2, iou_thr)
+    return nms_keep(boxes_o, scores_o, iou_thr)
+
+
 def nms_batched(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
                 max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched fixed-shape NMS: boxes (B, N, 4) x1y1x2y2 or (B, N, 5)
     rotated, scores (B, N) → (idx (B, max_out) int32 into the input, scores
-    (B, max_out)).  CPU tensors run `nms_ref`; CUDA tensors kernel N1
-    (horizontal) or R1's mask form with N1's scan (rotated)."""
+    (B, max_out)).  The keep mask is the op mtp::nms_keep (`keep_mask`):
+    on CPU tensors `nms_ref`'s, on CUDA tensors kernel N1 (horizontal) or
+    R1's mask form with N1's scan (rotated)."""
     if boxes.shape[-1] not in (4, 5):
         raise ValueError(f"boxes of 4 or 5 coordinates, got {boxes.shape[-1]}")
-    if not _build.use_kernel(boxes, scores):
-        return nms_ref(boxes, scores, iou_thr, max_out)
     order, boxes_o, scores_o = _score_order(boxes, scores)
-    return _top(order, scores_o, nms_keep(boxes_o.contiguous(), scores_o.contiguous(),
-                                          iou_thr), max_out)
+    keep_o = torch.ops.mtp.nms_keep.default(boxes_o.contiguous(), scores_o.contiguous(),
+                                            iou_thr)
+    return _top(order, scores_o, keep_o, max_out)
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,

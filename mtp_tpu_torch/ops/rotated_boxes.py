@@ -296,13 +296,23 @@ def rbox_iou(a: torch.Tensor, b: torch.Tensor, mode: str = "iou") -> torch.Tenso
     return out
 
 
-def rbox_overlaps(a: torch.Tensor, b: torch.Tensor, mode: str = "iou") -> torch.Tensor:
-    """Pairwise rotated IoU (or IoF, inter / area(a)) of a (..., N, 5) and b
-    (..., M, 5) → (..., N, M), eps 1e-6.  CPU tensors run the plain
-    version; CUDA tensors kernel R1's dense form, with a and b given the
-    same leading dimensions."""
+def check_mode(mode: str) -> None:
     if mode not in ("iou", "iof"):
         raise ValueError(f"mode {mode!r}")
+
+
+def rbox_overlaps(a: torch.Tensor, b: torch.Tensor, mode: str = "iou") -> torch.Tensor:
+    """Pairwise rotated IoU (or IoF, inter / area(a)) of a (..., N, 5) and b
+    (..., M, 5) → (..., N, M), eps 1e-6, by the op mtp::rbox_overlaps
+    (`_rbox_overlaps`): CPU tensors run the plain version; CUDA tensors
+    kernel R1's dense form, with a and b given the same leading
+    dimensions."""
+    return torch.ops.mtp.rbox_overlaps.default(a, b, mode)
+
+
+def _rbox_overlaps(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """The body of the op mtp::rbox_overlaps (`rbox_overlaps`)."""
+    check_mode(mode)
     if not _build.use_kernel(a, b):
         return rbox_overlaps_ref(a, b, mode)
     lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])

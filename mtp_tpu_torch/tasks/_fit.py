@@ -130,10 +130,11 @@ class Task:
         self.device = self.mesh.device(device)
         self.num_classes = cfg.num_classes
 
-    def autocast(self):
-        """bf16 autocast when the backbone config computes in bfloat16."""
+    def autocast(self, device_type: Optional[str] = None):
+        """bf16 autocast on `device_type` (the task's device's by default)
+        when the backbone config computes in bfloat16."""
         if self.cfg.backbone.dtype == "bfloat16":
-            return torch.autocast(self.device.type, dtype=torch.bfloat16)
+            return torch.autocast(device_type or self.device.type, dtype=torch.bfloat16)
         return contextlib.nullcontext()
 
     @property

@@ -538,8 +538,8 @@ def test_kernel_launches_per_forward_and_train_step(stubbed_launches):
     a crop forward runs K1 and K3 ×2 per RVSA block and K1L per full block;
     a train step with remat and drop-path runs each forward twice (forward
     and recompute) plus K4 and K6 ×2 per RVSA block and K7 per full block —
-    the counts `chip_smoke.py` expects at 2080² per 24 blocks (K1 40, K1L 8,
-    K3 80, K4 20, K7 4, K6 40)."""
+    the counts `chip_smoke.py` expects at 2080² of its first 6 blocks (K1
+    10, K1L 2, K3 20, K4 5, K7 1, K6 10)."""
     n_full = CFG.depth // CFG.interval
     n_rvsa = CFG.depth - n_full
     task = _strip_task(0.3)

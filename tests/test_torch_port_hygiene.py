@@ -86,6 +86,9 @@ SLICE_MODULES = [
     "mtp_tpu_torch.parallel.mesh",
     "mtp_tpu_torch.parallel.tensor",
     "mtp_tpu_torch.ops.carafe",
+    "mtp_tpu_torch.kernels.ops",
+    "mtp_tpu_torch.serving",
+    "mtp_tpu_torch.cli.export",
     "chip_smoke",
 ]
 

@@ -170,7 +170,7 @@ def main() -> None:
     args = p.parse_args()
     t0 = time.perf_counter()
     card = cs.phase_device()
-    cs.phase_build()
+    cs.check_sass(cs.phase_build())
     path = cs.PATHS["rvsa"]
     if not args.idle_ab:
         ranks = cs.DdpRanks(path)  # they start while the state trains

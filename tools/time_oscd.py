@@ -35,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> None:
     card = cs.phase_device()
-    cs.phase_build()
+    cs.check_sass(cs.phase_build())
     cases = {k: [(label, dataclasses.replace(case, dtypes=(torch.bfloat16,),
                                              device_time=True, controls=False,
                                              deterministic=False))
