@@ -15,11 +15,12 @@ crops with remat, at its first 6 blocks (the full-attention block over the
 16,900 tokens: K1L forward, K7 backward); then the classification, change-detection and
 checkpoint phases, the two Faster R-CNN recipes at 800² (K1-K6 or K8,
 and N1, the port's greedy-NMS kernel), the two Oriented R-CNN recipes
-at 800² (the same, and R1, the port's rotated-IoU kernel), the Mask R-CNN
-recipe at 1024² and the RetinaNet recipe at 416² (K1-K6 and N1), and the
-multitask pretraining recipe mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
-3 datasets × semantic segmentation, Mask R-CNN and Oriented R-CNN: K1-K6,
-N1 and R1), and the ViT recipe again through the CLI, trained, resumed and
+at 800² (the same, and R1, the port's rotated-IoU kernel), the two Mask
+R-CNN recipes at 1024² and the two RetinaNet recipes at 416² (K1-K6 or
+K8, and N1), and the two multitask pretraining recipes
+mtp_vit_l_rvsa_448_samrs and mtp_internimage_xl_448_samrs (ViT-L+RVSA or
+InternImage-XL at 448², 3 datasets × semantic segmentation, Mask R-CNN and
+Oriented R-CNN: K1-K6 or K8, N1 and R1), and the ViT recipe again through the CLI, trained, resumed and
 evaluated from PNG files on disk (K1-K6), and three recipes' serving
 artifacts exported and served without model code (phase 27).
 
@@ -123,7 +124,10 @@ Phases; any failure raises, so the exit code is non-zero:
    over 200 windows, K2/K5 over N = 4,096, K3/K6 on 70² maps), phase 22's
    416² (26² padded to 28²: 32 windows, N = 676, 28² maps) and phase 23's
    448² (3 images of the 28² grid: 48 windows, 48 heads of N = 784, 48
-   maps of 28²).
+   maps of 28²); and K8 forward and backward at the stage maps of the XL
+   paths of phases 21-23 (random offsets): 1024² at batch 2 (256², 128²,
+   64², 32²), timed, and 416² at batch 2 (104², 52², 26², 13²) and 448² at
+   batch 3 (112², 56², 28², 14²), held, not timed.
 4. ViT logits: full-width ViT-L+RVSA UperNet logits of one 384² crop on the
    card (kernels) against the same model on the CPU (plain versions).
 5. ViT serving, bench geometry: 4 tiles of 512², 384² crops at stride 256,
@@ -184,11 +188,12 @@ Phases; any failure raises, so the exit code is non-zero:
    ms/image; `evaluate`'s VOC AP50 on seeded synthetic boxes (finite); a
    fixed-batch sanity run whose loss must fall.
 20. Rotated detection, oriented_rcnn_rvsa_l_800_mae_mtp_diorr (ViT-L+RVSA)
-   and oriented_rcnn_intern_xl_800_imp_mtp_diorr (InternImage-XL): for the
-   ViT, fp32 FPN levels, RPN scores and deltas (6 an anchor) and the
+   and oriented_rcnn_intern_xl_800_imp_mtp_diorr (InternImage-XL): for
+   each, fp32 FPN levels, RPN scores and deltas (6 an anchor) and the
    rotated box head's outputs card vs CPU at the strip, and its fp32
-   gradients by phase 19's rule (the CPU's proposals, max-pool picks and
-   R-CNN assigner IoUs given to both; the TF32 control); for both, the
+   gradients by phase 19's rule (XL's backbone at 5e-3; the CPU's
+   proposals, max-pool picks and R-CNN assigner IoUs given to both; the
+   TF32 control); for both, the
    train step at batch 1 of 800² (the recipes' 4 = 1 a GPU × 4 ranks):
    launches (N1 and R1's dense form once), ms/step, images/s, data_time,
    peak memory, busy share and kernel groups; `predict_fn` on 2 images
@@ -205,14 +210,20 @@ Phases; any failure raises, so the exit code is non-zero:
    detections each image kept, `paste_masks_device` on the card against
    `paste_masks` on the host (pixels may differ only within 1e-6 of the
    threshold), `evaluate(coco=True)`'s 12 bbox and 12 segm stats (finite),
-   and a fixed-batch sanity run.
+   and a fixed-batch sanity run.  Then mask_rcnn_intern_xl_1024_imp_mtp_coco
+   (InternImage-XL, remat: K8 on maps of 256² to 32²; a step K3 79, K6 39,
+   N1 1): the same, but for the strip's gradients (det_xl holds the XL
+   trunk's, mask_vit the heads').
 22. RetinaNet, retinanet_rvsa_l_416_mae_mtp_xview (ViT-L+RVSA → FPN from
    level 1 with two extra convolutions → the 4-conv RetinaHead, 60
    classes, 32,526 anchors an image): the FPN levels and the head's
    outputs card vs CPU at a 416×128 strip, and fp32 gradients on the CPU's
    anchor assignment (the head in the 1e-2 group; the TF32 control); the
    train step at batch 2 of 416² (no NMS), a predict (N1 once, score_thr
-   0.001), VOC AP50, and a fixed-batch sanity run.
+   0.001), VOC AP50, and a fixed-batch sanity run.  Then
+   retinanet_intern_xl_416_imp_mtp_xview (InternImage-XL, remat: K8 on maps
+   of 104² to 13²) likewise, but for the strip's gradients (det_xl and
+   retina_vit hold them).
 23. Multitask pretraining, mtp_vit_l_rvsa_448_samrs (ViT-L+RVSA at 448²,
    drop-path 0.1; SAMRS's 19, 21 and 38 classes; one encoder pass over one
    image a dataset, the UperNet trunk and a 1×1 head a dataset, Mask
@@ -230,7 +241,11 @@ Phases; any failure raises, so the exit code is non-zero:
    gradients) and its steps timed A B B A beside the sequential form's;
    `evaluate`'s 9-way metrics and a predict's launches; the exported
    encoder loaded into the ViT-L segmentation recipe at 384² and run; a
-   fixed-batch sanity run.
+   fixed-batch sanity run.  Then mtp_internimage_xl_448_samrs (InternImage-
+   XL with remat, K8 on maps of 112² to 14²; a step K3 81, K6 39, N1 6, R1
+   dense 3) through the same code: the backbone's gradients at 5e-3, as
+   phase 19's XL, and its encoder loaded into the XL segmentation recipe
+   intern-xl-upernet-512-imp-mtp-loveda at 512².
 24. The CLI from disk (`phase_cli`): rvsa-l-upernet-384-mae-mtp-spacenetv1
    trained and evaluated from a SpaceNet-layout dataset this phase writes
    (16 train and 4 val RGB PNG tiles of 512², labels in {0, 1}) through
@@ -255,7 +270,9 @@ Phases; any failure raises, so the exit code is non-zero:
    arithmetic emulated in one process (`split_grads`, whose distance from
    (a) is printed), within phase 6's stochastic rule of (a)'s
    (`two_ranks_rule`), and a control in which rank 1 keeps its own
-   gradients, which must fail.  25c
+   gradients, which must fail; every first compared step, in (a), (b), 26
+   and both emulations, takes the max-pool picks of one forward of the
+   whole batch (`compared_picks`).  25c
    (`phase_carafe`): `MaskHead(upsample="carafe")` at 512 RoIs × 256 × 14²,
    card vs CPU, logits and gradients.  25d (`phase_patch8`): the patch-8
    ViT-B+RVSA at a 384×128 strip, card vs CPU, levels and gradients, K1-K6
@@ -320,12 +337,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import filecmp
 import dataclasses
 import gc
 import io
 import json
 import math
+import queue
 import re
 import signal
 import statistics
@@ -485,27 +502,82 @@ class SeededInit:
     a model of modules already drawn from the same generator state takes the
     kept weights, and the generator moves on as the draw would have moved
     it.  A path's first model and its train state's, and the CLI's runs,
-    draw the same weights: each such draw took 2-4 s of one host thread."""
+    draw the same weights: each such draw took 2-4 s of one host thread.
+    InternImage trunks are drawn first (`from_jax._init_internimage`), from
+    the generator's state at the draw's start: the last trunk drawn is kept
+    too, so that every XL model drawn from the same seed (the segmentor,
+    the classifier, the change detector, the four detectors, the multitask
+    model) copies one drawn trunk and draws only its own heads."""
 
     KEEP = 3
+    # PyTorch's random initialisers, which module constructors call
+    RANDOM_INITS = ("uniform_", "normal_", "trunc_normal_", "kaiming_uniform_",
+                    "kaiming_normal_", "xavier_uniform_", "xavier_normal_")
 
     def __init__(self):
         self.kept: Dict[tuple, Tuple[Dict[str, torch.Tensor], torch.Tensor]] = {}
+        self.trunk: Tuple[tuple, Dict[str, torch.Tensor], torch.Tensor] = ((), {}, None)
+        self.draw_trunk = from_jax._init_internimage
         self.lock = threading.Lock()  # phases 25c-d draw on a thread
+        self.drawing = threading.local()
 
     def __call__(self, model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
         with self.lock:
-            return self._draw(model, generator)
+            self.drawing.on = True
+            try:
+                return self._draw(model, generator)
+            finally:
+                self.drawing.on = False
+
+    @contextlib.contextmanager
+    def constructions_undrawn(self):
+        """Within the block PyTorch's random initialisers zero their tensor,
+        but inside a draw of this object's: a module's constructor draws
+        weights that the draw (or a checkpoint) then replaces, every one of
+        them (held on the CPU for every model family the phases build), and
+        those draws took ~1.5 s of a host thread a full-size model."""
+        real = {n: getattr(torch.nn.init, n) for n in self.RANDOM_INITS}
+
+        def stand_in(name: str):
+            def init(tensor, *args, **kwargs):
+                if getattr(self.drawing, "on", False):
+                    return real[name](tensor, *args, **kwargs)
+                with torch.no_grad():
+                    return tensor.zero_()
+            return init
+
+        with contextlib.ExitStack() as stack:
+            for name in self.RANDOM_INITS:
+                stack.enter_context(mock.patch.object(torch.nn.init, name, stand_in(name)))
+            yield
+
+    @staticmethod
+    def _key(model: torch.nn.Module, generator: torch.Generator) -> tuple:
+        return (tuple((n, type(m).__name__) for n, m in model.named_modules()),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in model.state_dict().items()),
+                getattr(getattr(model, "cfg", None), "layer_scale", None),
+                generator.get_state().numpy().tobytes())
+
+    def _draw_trunk(self, trunk: torch.nn.Module, generator: torch.Generator) -> None:
+        """`from_jax._init_internimage`, or the kept trunk's copy."""
+        key = self._key(trunk, generator)
+        if self.trunk[0] == key:
+            trunk.load_state_dict(self.trunk[1])
+            generator.set_state(self.trunk[2])
+            return
+        self.trunk = ((), {}, None)  # one trunk's tensors at a time
+        self.draw_trunk(trunk, generator)
+        self.trunk = (key, {k: v.detach().clone() for k, v in trunk.state_dict().items()},
+                      generator.get_state())
 
     def _draw(self, model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
         if any(t.device.type != "cpu" for t in model.state_dict().values()):
             return from_jax.init_weights(model, generator)
-        key = (tuple((n, type(m).__name__) for n, m in model.named_modules()),
-               tuple((k, tuple(v.shape), v.dtype) for k, v in model.state_dict().items()),
-               generator.get_state().numpy().tobytes())
+        key = self._key(model, generator)
         drawn = self.kept.pop(key, None)
         if drawn is None:
-            from_jax.init_weights(model, generator)
+            with mock.patch.object(from_jax, "_init_internimage", self._draw_trunk):
+                from_jax.init_weights(model, generator)
             drawn = ({k: v.detach().clone() for k, v in model.state_dict().items()},
                      generator.get_state())
         else:
@@ -706,22 +778,40 @@ def reset_counters() -> None:
         launched.update(dict.fromkeys(launched, 0))
 
 
+@contextlib.contextmanager
+def timed_window():
+    """A window whose times are reported: the CPU reference worker
+    (`References.running`), while one runs, is stopped for the window's
+    length, so that its torch threads take no host core from the launches
+    being timed.  Windows nest."""
+    refs = References.running
+    if refs is None or refs.stopped_at is not None:
+        yield
+        return
+    refs.stop()
+    try:
+        yield
+    finally:
+        refs.resume()
+
+
 def loop_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """ms per call of fn: `reps` back-to-back calls between one pair of CUDA
     events, after `warmup` calls, so that a call's host work (the wrapper's
     checks and allocations) overlaps the previous call's device work as it
     does on the main path, and the events' own resolution is spread over
     the run."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
+    with timed_window():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -767,10 +857,11 @@ def graph_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
+    with timed_window():
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
     del graph
     return start.elapsed_time(end) / reps
 
@@ -1338,7 +1429,7 @@ def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) 
                                              f"expected one {counter}")
                     got = got if isinstance(got, tuple) else (got,)
                     digests = [bits_digest(a) for a in got] if case.deterministic else None
-                    free()  # the cache the last case's 18.3 GB outputs left
+                    free(1)  # the cache the last case's 18.3 GB outputs left
                     ref = case.plain(*args)
                 torch.cuda.synchronize()
                 ref = ref if isinstance(ref, tuple) else (ref,)
@@ -1350,13 +1441,13 @@ def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) 
                 out_bytes = _nbytes(got)
                 tols = " ".join(f"{TOL[o.dtype] + (REL_TOL[o.dtype],)}" for o in got)
                 del got, ref  # the path shape's outputs hold 18.3 GB each
-                free()
+                free(1)
                 if case.deterministic:  # a second launch, against the first's digests
                     with torch.no_grad():
                         again = case.kernel(*args)
                         same = [bits_digest(a) == d for a, d in zip(again, digests)]
                     del again
-                    free()
+                    free(1)
                     if not all(same):
                         raise AssertionError(f"{kname} {label} {dtype}: two launches on "
                                              f"the same inputs differ: {same}")
@@ -1387,12 +1478,12 @@ def check_kernels(cases: dict, record_label: str = "slice", timed: bool = True) 
                     prof = graph_note(lambda: case.kernel(*args))
                 library_ms, what, lib_prof = None, "none", ""
                 if case.library is not None:
-                    free()
+                    free(1)
                     call, what = case.library(args)
                     library_ms = timed_ms(call)
                     lib_prof = graph_note(call)
                     del call
-                    free()
+                    free(1)
                 lib = "—" if library_ms is None else f"{library_ms:.4f} ms{lib_prof}"
                 log(f"[kernel] {kname:19s} {label:16s} {str(dtype)[6:]:8s} "
                     f"shape {tuple(args[0].shape)} max_abs_err "
@@ -1633,7 +1724,8 @@ def kernel_split_ms(fn, reps: int = 10, tries: int = 3) -> Dict[str, float]:
     torch.cuda.synchronize()
     cuda, out = torch.autograd.DeviceType.CUDA, {}
     for _ in range(tries):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with timed_window(), \
+                torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1822,6 +1914,27 @@ def phase_path_kernels() -> None:
     for shapes, timed in ((((1024, 64, 70, 81, 2),), True),
                           (((416, 26, 28, 91, 2), (448, 28, 28, 101, 3)), False)):
         check_kernels(path_cases(shapes), record_label=None, timed=timed)
+
+
+def phase_xl_path_kernels() -> None:
+    """Phase 3f, continued: K8 forward and backward at the stage maps that
+    the InternImage-XL paths of phases 21-23 give it (12, 24, 48 and 96
+    groups of 16 channels, random offsets): Mask R-CNN at 1024², batch 2
+    (256², 128², 64², 32²: stage 0's BG 24 at 256² is the largest map K8
+    runs), timed; RetinaNet at 416², batch 2 (104², 52², 26², 13²) and the
+    multitask step at 448², batch 3 (112², 56², 28², 14²), held, not
+    timed."""
+    for size, n, timed, seed in ((1024, 2, True, 131), (416, 2, False, 141),
+                                 (448, 3, False, 151)):
+        maps = [(s, size // 4 >> s, 12 << s) for s in range(4)]
+        check_kernels({
+            "dcnv3_fwd": [(f"{size}² stage{s} {hw}²", dcnv3_case(n, hw, G, 16, seed + s,
+                                                                 "random"))
+                          for s, hw, G in maps],
+            "dcnv3_bwd": [(f"{size}² stage{s} {hw}²", dcnv3_case(n, hw, G, 16, seed + 4 + s,
+                                                                 "random", bwd=True))
+                          for s, hw, G in maps],
+        }, record_label=None, timed=timed)
 
 
 def path_cases(shapes) -> dict:
@@ -2274,12 +2387,20 @@ def build_model(path: Path, hw: Tuple[int, int]) -> Segmentor:
 
 
 @torch.no_grad()
-def phase_logits(path: Path, model_cpu: Segmentor) -> None:
+def logits_reference(path: Path, model_cpu: Segmentor) -> dict:
+    """Phase 4's CPU half: the logits of one seeded image of `cpu_hw`."""
+    x = torch.randn((1, *path.cpu_hw, 3), generator=_gen(SEED + 1))
+    t0 = time.perf_counter()
+    out = model_cpu.predict(x)
+    return {"out": out, "seconds": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def phase_logits(path: Path, model_cpu: Segmentor, ref: dict) -> None:
+    """The card's logits against the CPU's (`logits_reference`)."""
     hw = path.cpu_hw
     x = torch.randn((1, *hw, 3), generator=_gen(SEED + 1))
-    t0 = time.perf_counter()
-    ref = model_cpu.predict(x)
-    t_cpu = time.perf_counter() - t0
+    ref, t_cpu = ref["out"], ref["seconds"]
     model_gpu = copy.deepcopy(model_cpu).cuda()
     reset_counters()
     got = model_gpu.predict(x.cuda()).cpu()
@@ -2350,12 +2471,13 @@ def phase_serving(path: Path, model_cpu: Segmentor, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters, times = path.serve_iters, []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        with autocast():
-            predict(images)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    with timed_window():
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            with autocast():
+                predict(images)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     per = statistics.median(times)
     flops = path.flops(recipe.slide.crop) * path.tiles * n_crops
@@ -2455,13 +2577,27 @@ def _tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
-def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
+def phase_gradients(path: Path, model_cpu: Segmentor, ref: tuple) -> None:
     """One fp32 loss.backward() of the recipe's model on the card and on the
-    CPU, same weights and batch: train-mode BatchNorm, the recipe's remat,
-    if any, deterministic unless `grad_stochastic`.  Then the control: the
-    card run again with TF32 matmuls and convolutions (10-bit mantissas
-    where fp32 has 23), a run of lower precision, which the same rule must
-    find outside the tolerance, or the tolerance could not tell."""
+    CPU (`ref`, `gradients_reference`'s), same
+    weights and batch: train-mode BatchNorm, the recipe's remat, if any,
+    deterministic unless `grad_stochastic`.  Then the control: the card run
+    again with TF32 matmuls and convolutions (10-bit mantissas where fp32
+    has 23), a run of lower precision, which the same rule must find
+    outside the tolerance, or the tolerance could not tell."""
+    cfg, batch, what = gradient_inputs(path, model_cpu)
+    check_gradients(path, cfg, model_cpu, batch, SegmentationTask, what, cpu=ref)
+
+
+def gradients_reference(path: Path, model_cpu: Segmentor) -> tuple:
+    """Phase 6's CPU half: (loss, gradients, seconds)."""
+    cfg, batch, _ = gradient_inputs(path, model_cpu)
+    return cpu_run(path, cfg, model_cpu, batch, SegmentationTask)
+
+
+def gradient_inputs(path: Path, model_cpu: Segmentor) -> Tuple[TaskConfig, dict, str]:
+    """(the recipe in fp32, the seeded batch, what the check says it ran);
+    with `grad_stochastic` the model's RVSA regressors zeroed."""
     recipe = path.recipe
     cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(
         recipe.backbone, dtype="float32"))
@@ -2486,27 +2622,38 @@ def phase_gradients(path: Path, model_cpu: Segmentor) -> None:
     what = (f"fp32 batch {path.grad_batch} of {path.cpu_hw[0]}×{path.cpu_hw[1]}"
             + (", dropout + drop-path on, identity sampling" if path.grad_stochastic
                else ""))
-    check_gradients(path, cfg, model_cpu, batch, SegmentationTask, what)
+    return cfg, batch, what
+
+
+def cpu_run(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
+            no_grad: Tuple[str, ...] = ()) -> tuple:
+    """`check_gradients`' CPU run: (loss, gradients, seconds)."""
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(cfg, model_cpu, batch, "cpu", path.grad_stochastic,
+                                  task_cls, no_grad)
+    return loss, grads, time.perf_counter() - t0
 
 
 def check_gradients(path, cfg: TaskConfig, model_cpu, batch: dict, task_cls,
-                    what: str, no_grad: Tuple[str, ...] = ()) -> None:
+                    what: str, no_grad: Tuple[str, ...] = (),
+                    cpu: Optional[tuple] = None) -> None:
     """The card-vs-CPU gradient check of `phase_gradients` for any task
     (`path` gives name, per_step, grad_stochastic and head_prefixes), and
-    its TF32 control; `no_grad` as `_loss_and_grads` takes it."""
-    model_gpu = copy.deepcopy(model_cpu).cuda()
+    its TF32 control; `no_grad` as `_loss_and_grads` takes it; `cpu` the
+    CPU's run (`cpu_run`), made here unless given."""
     tag = f"[grads {path.name}]"
-    runs = {}
-    for device, model in (("cpu", model_cpu), ("cuda", model_gpu)):
-        reset_counters()
-        t0 = time.perf_counter()
-        runs[device] = _loss_and_grads(cfg, model, batch, device, path.grad_stochastic,
-                                       task_cls, no_grad)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            launched = counters()
-        log(f"{tag} {device}: loss {runs[device][0]:.6f} forward+backward "
-            f"{time.perf_counter() - t0:.1f} s")
+    cpu = cpu or cpu_run(path, cfg, model_cpu, batch, task_cls, no_grad)
+    runs = {"cpu": cpu[:2]}
+    log(f"{tag} cpu: loss {cpu[0]:.6f} forward+backward {cpu[2]:.1f} s")
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    reset_counters()
+    t0 = time.perf_counter()
+    runs["cuda"] = _loss_and_grads(cfg, model_gpu, batch, "cuda", path.grad_stochastic,
+                                   task_cls, no_grad)
+    torch.cuda.synchronize()
+    launched = counters()
+    log(f"{tag} cuda: loss {runs['cuda'][0]:.6f} forward+backward "
+        f"{time.perf_counter() - t0:.1f} s")
     if launched != path.per_step:
         raise AssertionError(f"launch counts {launched} != {path.per_step}")
     ok, summary = _grad_verdict(path, runs["cpu"], runs["cuda"])
@@ -2570,8 +2717,9 @@ def phase_train(path: Path, card: str, ranks: Optional["DdpRanks"] = None) -> di
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs.clear()
-    state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1,
-                        log_fn=log_fn)
+    with timed_window():
+        state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1,
+                            log_fn=log_fn)
     peak = torch.cuda.max_memory_allocated()
     for m in logs:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
@@ -2678,13 +2826,18 @@ def _ddp_batches(path: Path) -> List[dict]:
     return out
 
 
-def _ddp_steps(step_fn, state, batches, device, keep=lambda t: t.detach().cpu()) -> dict:
+def _ddp_steps(step_fn, state, batches, device, keep=lambda t: t.detach().cpu(),
+               picks: Optional[Dict[tuple, torch.Tensor]] = None) -> dict:
     """`step_fn` over `batches`: each step's metrics, the gradients of the
     first step (as it applied them), and the model's state dict after, each
-    tensor through `keep` (a copy on the host unless told otherwise)."""
+    tensor through `keep` (a copy on the host unless told otherwise).  With
+    `picks` the first step's max-pools take them (`fixed_pool_picks`)."""
     out = {"metrics": [], "grads": None}
-    for b in batches:
-        state, m = step_fn(state, to_device(b, device))
+    for i, b in enumerate(batches):
+        fixed = fixed_pool_picks(picks) if picks is not None and i == 0 \
+            else contextlib.nullcontext()
+        with fixed:
+            state, m = step_fn(state, to_device(b, device))
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if out["grads"] is None:
             out["grads"] = {n: keep(p.grad) for n, p in state.model.named_parameters()}
@@ -2767,7 +2920,9 @@ class _PairSum(torch.autograd.Function):
         return g, g.clone()
 
 
-def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Tensor]]:
+def split_grads(loss_fn, model, batch: dict, picks: Optional[Dict[tuple, torch.Tensor]] = None,
+                record: Optional[Dict[tuple, torch.Tensor]] = None
+                ) -> Tuple[float, Dict[str, torch.Tensor]]:
     """(the ranks' mean loss, the averaged gradients) of a world of two
     ranks emulated in this process, with no process group: rank r's copy of
     `model` takes rank r's half of `batch` on a thread of its own, the two
@@ -2779,7 +2934,9 @@ def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Ten
     same arithmetic as phase 25(b)'s two processes at the same shapes, in
     one process; against the whole batch's step it differs in the order of
     fp32 summation only (GEMMs, convolutions and reductions over 4 rows
-    twice, not 8 once)."""
+    twice, not 8 once).  With `picks` (`recorded_pool_picks` of the whole
+    batch) each rank's 2-D max-pools take its rows of those picks; with
+    `record` each rank's own picks are kept there, under (rank, key)."""
     models = [copy.deepcopy(model) for _ in range(2)]
     halves = [{k: v[r * len(v) // 2:(r + 1) * len(v) // 2] for k, v in batch.items()}
               for r in range(2)]
@@ -2828,7 +2985,24 @@ def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Ten
             "data_size": pmesh.data_size, "data_rank": pmesh.data_rank}
     emulated = lambda name, value: (lambda: value(local.rank) if hasattr(local, "rank")
                                     else real[name]())
+    pool = F.max_pool2d
+
+    def rank_pool(x, *args, **kwargs):
+        r = getattr(local, "rank", None)
+        if r is None:  # another thread of this process
+            return pool(x, *args, **kwargs)
+        kwargs.pop("return_indices", None)
+        key, n = _pool_key(x, args, kwargs), len(x)
+        if picks is None:
+            out, idx = pool(x, *args, return_indices=True, **kwargs)
+            record[(r,) + key] = idx.cpu()
+            return out
+        idx = picks[((2 * n,) + key[0][1:],) + key[1:]][r * n:(r + 1) * n].to(x.device)
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
     with contextlib.ExitStack() as stack:
+        if picks is not None or record is not None:
+            stack.enter_context(mock.patch.object(F, "max_pool2d", rank_pool))
         stack.enter_context(mock.patch.object(pmesh, "all_reduce_sum", pair_sum))
         stack.enter_context(mock.patch.object(pupernet, "all_reduce_sum", pair_sum))
         for name in ("world_size", "data_size"):
@@ -2849,6 +3023,25 @@ def split_grads(loss_fn, model, batch: dict) -> Tuple[float, Dict[str, torch.Ten
     return float((losses[0].detach() + losses[1].detach()) / 2), grads
 
 
+def compared_picks(task, state, snap: dict, batch: dict) -> Dict[tuple, torch.Tensor]:
+    """The max-pool picks (`recorded_pool_picks`) of the first compared
+    step's fp32 forward on the whole global `batch` in this process, from
+    the compared state `snap` (restored after: the forward moves the
+    BatchNorm statistics).  Every run of phases 25-26's first compared step
+    takes them (`two_ranks_rule`)."""
+    picks: Dict[tuple, torch.Tensor] = {}
+    with torch.no_grad(), recorded_pool_picks(picks):
+        task.loss_fn(state.model, to_device(batch, task.device), None, deterministic=True)
+    _load_snapshot(state, snap)
+    return picks
+
+
+def rows_of(picks: Dict[tuple, torch.Tensor], lo: int, hi: int) -> Dict[tuple, torch.Tensor]:
+    """The picks of rows lo:hi of the batch they were recorded on, keyed as
+    a batch of those rows' max-pools."""
+    return {((hi - lo,) + key[0][1:],) + key[1:]: idx[lo:hi] for key, idx in picks.items()}
+
+
 def two_ranks_rule(path: Path) -> Path:
     """The rule (b) holds the two ranks' run to (a)'s by: phase 6's at
     GRAD_RTOL_STOCHASTIC, as phase 14 holds its identity-sampling strip.
@@ -2858,7 +3051,20 @@ def two_ranks_rule(path: Path) -> Path:
     an integer takes the other one-sided derivative and moves its
     regressor's gradient by percents (readings with the recipe's
     regressors and dropout on, backbone max: 6.1e-4 to 4.3e-2 over runs).
-    The rest is the order of fp32 summation: (b) runs its GEMMs,
+    Every first compared step (a)'s two runs, the ranks of (b) and 26, and
+    their emulations `split_grads` and `emulated_model_axis` takes the
+    max-pool picks of one forward of the whole batch (`compared_picks`):
+    fpn4 pools 1,179,648 windows, of which a few lie within rounding of a
+    tie in any state, and a window that two summation orders pick apart
+    routes one element's gradient elsewhere, a discrete difference.  At a
+    state trained 9 steps the two emulated ranks picked 1 window apart from
+    the whole batch, which put the backbone's gradients 2.47e-3 (median)
+    and 3.25e-3 (largest) from it; on the whole batch's picks 7.5e-4 and
+    1.1e-3 (`tools/run_phase25.py --pick-witness`, NVIDIA H100 80GB HBM3,
+    700.00 W); the RVSA regressors' output-bias gradients cancel by
+    Σ|terms| / |Σ terms| 6-14 only.  Without the shared picks the check
+    read up to 1.2e-2 at phase 7's state.  The rest is the order of fp32
+    summation: (b) runs its GEMMs,
     convolutions and reductions over 4 rows, (a) over 8.  `split_grads`
     runs (b)'s arithmetic in (a)'s process, with no process group, and
     phase 25 prints its distance from (a) beside (b)'s, and holds (b) to it
@@ -2931,7 +3137,9 @@ def _ddp_rank(rank: int, tmp: str) -> None:
     """Phase 25(b)'s rank `rank` of 2, a spawned process on the one card:
     the task in fp32 (`DDP_FP32`) in a gloo world of 2 (NCCL takes one rank
     a card), phase 7's state restored from the checkpoint rank 0 of the
-    parent's world wrote; after the parent's "go", the control (one step in
+    parent's world wrote (after the parent's timed steps) and its RVSA
+    regressors zeroed (`two_ranks_rule`); after the parent's "go", the
+    control (one step in
     which rank 1 keeps its own gradients), then the state again and the
     compared steps on this rank's 4 rows of each global batch.  Writes,
     on a thread beside phase 26 (`_tp_rank`, which follows on the same two
@@ -2963,10 +3171,14 @@ def _ddp_rank(rank: int, tmp: str) -> None:
         _wait_for(lambda: store.steps(), "the checkpoint", DDP_WAIT_CHECKPOINT)
         t0 = time.perf_counter()
         store.restore(state)
+        identity_sampling(state.model)  # the compared steps' state, as (a)'s
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         start = _state_snapshot(state)
         _wait_for(lambda: os.path.exists(os.path.join(tmp, "go")), "the parent's go")
+        n = len(local[0]["image"])
+        picks = rows_of(torch.load(os.path.join(tmp, "picks.pt"), weights_only=True),
+                        rank * n, (rank + 1) * n)
         step_fn = task.train_step_fn(deterministic=True)
         skip = (mock.patch.object(core_train, "reduce_gradients", _skip_reduction)
                 if rank == 1 else contextlib.nullcontext())
@@ -2976,7 +3188,7 @@ def _ddp_rank(rank: int, tmp: str) -> None:
         _load_snapshot(state, start)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = _ddp_steps(step_fn, state, local, task.device)
+        out = _ddp_steps(step_fn, state, local, task.device, picks=picks)
         steps_s = time.perf_counter() - t0
         result = {"control": control, "digest": _state_digest(state.model),
                   "metrics": out["metrics"], "rows": len(local[0]["image"]),
@@ -3018,11 +3230,12 @@ def _time_steps(task, state, snap: dict, batches: List[dict]) -> dict:
     for name in ("plain", "ddp", "ddp", "plain"):
         fns[name](state, on_card[0])
         torch.cuda.synchronize()
-        for i in range(DDP_TIMED):
-            t0 = time.perf_counter()
-            fns[name](state, on_card[i % DDP_STEPS])
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
+        with timed_window():
+            for i in range(DDP_TIMED):
+                t0 = time.perf_counter()
+                fns[name](state, on_card[i % DDP_STEPS])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
     return times
 
 
@@ -3043,8 +3256,9 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
     in this process, against the whole batch (printed).  (b) `ranks`, two
     processes on the card in a gloo group (NCCL refuses two ranks on one
     card), each on its 4 rows of the same global batches, from the
-    checkpoint of the state that this process writes as rank 0
-    (`CheckpointStore`; they restore it and run (b) while (a) compares,
+    checkpoint of phase 7's state that this process writes as rank 0
+    after (a)'s timed steps (`CheckpointStore`; they restore it, zero its
+    RVSA regressors, and run (b) while (a) compares,
     which is not timed): the ranks' states bit for bit equal after the
     steps, rank 0's first gradients against the witness's by phase 6's
     rule, rank 0's run against (a)'s DDP run by `_ddp_verdict` under
@@ -3087,26 +3301,30 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
             f"{pmesh.BUCKET_ELEMENTS * 4 / 2 ** 20:.0f} MiB ({len(params)} parameters) "
             f"| card {card}")
         del t16, params
+        # phase 7's state for the ranks, which restore it (and zero its RVSA
+        # regressors, as (a) does below) beside what follows, none of it timed;
+        # saved as loaded from its snapshot, the moments in the parameters' order
         _load_snapshot(state, snap)
-        del snap
-        identity_sampling(state.model)  # the compared steps' state (see two_ranks_rule)
-        snap = _state_snapshot(state, "cuda")
-        start = snap["model"]
-        pool = ThreadPoolExecutor(max_workers=1)
-        extra = pool.submit(background)  # from here on nothing of this phase is timed
-        pool.shutdown(wait=False)
         store = CheckpointStore(os.path.join(tmp, "ckpt"))
         t0 = time.perf_counter()
         store.save(state.step, state)  # rank 0 writes; in the background
         save_s = time.perf_counter() - t0
-        # the ranks' (b) runs beside the rest of (a), which is not timed: each
-        # starts once it has restored this checkpoint
+        del snap
+        identity_sampling(state.model)  # the compared steps' state (see two_ranks_rule)
+        snap = _state_snapshot(state, "cuda")
+        start = snap["model"]
+        t32 = SegmentationTask(DDP_FP32, model=state.model)
+        picks = compared_picks(t32, state, snap, batches[0])  # every first compared step's
+        torch.save(picks, os.path.join(tmp, "picks.pt"))
+        pool = ThreadPoolExecutor(max_workers=1)
+        extra = pool.submit(background)  # from here on nothing of this phase is timed
+        pool.shutdown(wait=False)
+        # the ranks' (b) runs beside the rest of (a), which is not timed
         with open(os.path.join(tmp, "go"), "w"):
             pass
         t_go = time.perf_counter()
 
         # (a) one rank: the DDP step against the plain one, fp32
-        t32 = SegmentationTask(DDP_FP32, model=state.model)
         runs = {}
         loss_fn = lambda m, b, g: t32.loss_fn(m, b, g, deterministic=True)
         for name, step_fn in (("ddp", t32.train_step_fn(deterministic=True)),
@@ -3114,7 +3332,7 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
             _load_snapshot(state, snap)
             torch.cuda.synchronize()
             reset_counters()
-            runs[name] = _ddp_steps(step_fn, state, batches, t32.device, on_card)
+            runs[name] = _ddp_steps(step_fn, state, batches, t32.device, on_card, picks)
             if name == "ddp" and counters() != per_step:
                 raise AssertionError(f"DDP step launches {counters()} != {per_step}")
         ok, summary = _ddp_verdict(path, runs["ddp"], runs.pop("plain"), start, adam)
@@ -3127,12 +3345,13 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
         # the witness: (b)'s arithmetic in this process against the whole batch's
         _load_snapshot(state, snap)
         split = split_grads(lambda m, b: t32.loss_fn(m, b, None, deterministic=True)[0],
-                            state.model, to_device(batches[0], t32.device))
+                            state.model, to_device(batches[0], t32.device), picks)
         _, summary = _grad_verdict(path, (runs["ddp"]["metrics"][0]["loss"],
                                           runs["ddp"]["grads"]), split)
         log(f"{tag} (a) the same state's first compared batch as two emulated ranks of 4 "
-            f"rows in this process (`split_grads`, no process group) against the whole "
-            f"batch of 8 (the DDP run above): {summary} | card {card}")
+            f"rows in this process (`split_grads`, no process group; each rank's max-pools "
+            f"take its rows of the whole batch's {sum(i.numel() for i in picks.values())} "
+            f"picks) against the whole batch of 8 (the DDP run above): {summary} | card {card}")
         store.close()
         del t32
     except BaseException:
@@ -3157,7 +3376,7 @@ def phase_ddp(state, path: Path, card: str, ranks: DdpRanks,
                                   t_join, extra)
         # phase 26's references, in this process while the ranks run it
         t0 = time.perf_counter()
-        tp_ref = tp_references(state, snap, batches, ranks)
+        tp_ref = tp_references(state, snap, batches, ranks, picks)
         t_ref = time.perf_counter() - t0
         deadline = time.monotonic() + DDP_WAIT
         for p in procs:
@@ -3253,17 +3472,26 @@ def _bias_on_every_rank(self, x: torch.Tensor) -> torch.Tensor:
 ROW_BIAS = re.compile(r"(?:^|\.)(?:attn\.proj|mlp\.fc2)\.bias$")
 
 
+# the seeded row-parallel biases' std (`bias_loss`).  At 0.02 the control
+# (each bias counted on both ranks) moved the loss by 8.9e-6 to 1.9e-4 of it
+# over states trained 9 to 16 steps (`tools/run_phase25.py --repeat 8`,
+# NVIDIA H100 80GB HBM3, 700.00 W), once inside LOSS_RTOL; the check itself
+# read 0 to 2.3e-7
+ROW_BIAS_STD = 0.1
+
+
 def bias_loss(task, state, batch: dict) -> float:
     """The fp32 loss of the first compared batch, deterministic, after the
     row-parallel layers' biases (attn.proj, mlp.fc2) are set to seeded
-    N(0, 0.02²) values (phase 7's are near 0: the recipe's warm-up has
-    barely moved them, so a bias counted twice would hide in rounding);
-    the state's tensors are left changed (BatchNorm's statistics too)."""
+    N(0, ROW_BIAS_STD²) values (phase 7's are near 0: the recipe's warm-up
+    has barely moved them, so a bias counted twice would hide in
+    rounding); the state's tensors are left changed (BatchNorm's
+    statistics too)."""
     g = _gen(SEED + 70)
     with torch.no_grad():
         for name, p in sorted(state.model.named_parameters()):
             if ROW_BIAS.search(name):
-                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+                p.copy_(torch.randn(p.shape, generator=g) * ROW_BIAS_STD)
         loss, _ = task.loss_fn(state.model, to_device(batch, task.device), None,
                                deterministic=True)
     return float(loss)
@@ -3288,13 +3516,27 @@ def _ckpt_equal(a: dict, b: dict) -> Tuple[bool, str]:
     return True, f"{len(a['model'])} tensors, {len(a['optimizer']['moments'])} moment pairs"
 
 
+def same_bytes(a: str, b: str, block: int = 1 << 26) -> bool:
+    """Whether two files hold the same bytes, read 64 MiB at a time
+    (`filecmp` reads 8 KiB at a time)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(block)
+            if x != fb.read(block):
+                return False
+            if not x:
+                return True
+
+
 def tp_saved_equal(ranks: DdpRanks, step: int) -> Tuple[bool, str]:
     """Phase 26's gathered save of the restored state (`ckpt_tp`) against
     phase 7's checkpoint (`ckpt`): the same bytes, or else the same
     contents (`_ckpt_equal`)."""
     files = [os.path.join(ranks.tmp, d, f"{step}.pt") for d in ("ckpt_tp", "ckpt")]
     _wait_for(lambda: os.path.exists(files[0]), "phase 26's gathered save")
-    if filecmp.cmp(*files, shallow=False):
+    if same_bytes(*files):
         return True, "the same bytes"
     return _ckpt_equal(*(torch.load(f, map_location="cpu", weights_only=True) for f in files))
 
@@ -3319,12 +3561,13 @@ def _tp_rank(rank: int, tmp: str, task, state, batches: List[dict],
     torch.cuda.synchronize()
     dev = task.device
     out = {"restore_s": time.perf_counter() - t_phase}
-    start = _state_snapshot(state, dev)
     # the gathered save of the restored state (every rank gathers, rank 0 writes)
     t0 = time.perf_counter()
     store = CheckpointStore(os.path.join(tmp, "ckpt_tp"))
     store.save(state.step, state)  # written on the store's thread while the steps run
     out["save_s"] = time.perf_counter() - t0
+    identity_sampling(state.model)  # the compared steps' state, as (a)'s
+    start = _state_snapshot(state, dev)
     on_card = [to_device(b, dev) for b in batches]
     step_fn = task.train_step_fn(deterministic=True)
     saved = {}
@@ -3345,9 +3588,11 @@ def _tp_rank(rank: int, tmp: str, task, state, batches: List[dict],
             pre_sum.update(_partial_grads(model))
         return reduce(model)
 
+    picks = torch.load(os.path.join(tmp, "picks.pt"), weights_only=True)  # data 1: all rows
     t0 = time.perf_counter()
     with mock.patch.object(core_train, "reduce_partial_gradients", record):
-        run = _ddp_steps(step_fn, state, on_card, dev, keep=lambda t: t.detach().clone())
+        run = _ddp_steps(step_fn, state, on_card, dev, keep=lambda t: t.detach().clone(),
+                         picks=picks)
     torch.cuda.synchronize()
     out["steps_s"] = time.perf_counter() - t0
     out["launches"] = counters()
@@ -3462,13 +3707,15 @@ def emulated_model_axis(model, T: int = 2):
         yield
 
 
-def tp_references(state, snap: dict, batches: List[dict], ranks: DdpRanks) -> dict:
+def tp_references(state, snap: dict, batches: List[dict], ranks: DdpRanks,
+                  picks: Dict[tuple, torch.Tensor]) -> dict:
     """Phase 26's references, in the parent at one rank from phase 7's state
     (`snap`, identity sampling), while the ranks run the phase: the fp32
     `evaluate` on the tiles (its confusion counts, each pixel's class and
     the gap between its top two logits), the loss on seeded row-parallel
     biases (`bias_loss`), the first compared batch's loss and gradients
-    under `emulated_model_axis`, and whether the ranks' gathered save
+    under `emulated_model_axis` (with the compared picks), and whether the
+    ranks' gathered save
     equals phase 7's checkpoint (`tp_saved_equal`)."""
     times = {}
     t0 = time.perf_counter()
@@ -3499,7 +3746,7 @@ def tp_references(state, snap: dict, batches: List[dict], ranks: DdpRanks) -> di
     out["bias_loss"] = bias_loss(task, state, batches[0])
     _load_snapshot(state, snap)
     state.model.zero_grad(set_to_none=True)
-    with emulated_model_axis(state.model):
+    with emulated_model_axis(state.model), fixed_pool_picks(picks):
         loss, _ = task.loss_fn(state.model, to_device(batches[0], task.device), None,
                                deterministic=True)
         loss.backward()
@@ -3580,7 +3827,8 @@ def phase_tp(path: Path, card: str, ranks: DdpRanks, ref: dict, start: Dict[str,
     log(f"{tag} rank 0 against phase 25(a)'s one-rank step, {DDP_STEPS} fp32 steps: "
         f"{summary}; the first grad_norm against the emulation's rel {norm_rel:.3e} (tol "
         f"1e-5); launches a rank {launches[0]} / {launches[1]}, one rank's {per_step}")
-    log(f"{tag} on seeded row-parallel biases (N(0, 0.02²)) the first batch's loss at model "
+    log(f"{tag} on seeded row-parallel biases (N(0, {ROW_BIAS_STD}²)) the first batch's loss "
+        f"at model "
         f"2 against one rank's: rel {b_rel:.3e} (LOSS_RTOL {LOSS_RTOL}); controls: rank 1 "
         f"without the model-group sum of the partial gradients: within {c1_ok} (must fail: "
         f"{c1_summary}); the row-parallel bias on both ranks: loss rel {c2_rel:.3e} (must "
@@ -3906,8 +4154,9 @@ def phase_task_train(path: TaskPath, card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs.clear()
-    state, _ = task.fit(state, cycle(batches), TASK_TRAIN_STEPS, log_every=1,
-                        log_fn=log_fn)
+    with timed_window():
+        state, _ = task.fit(state, cycle(batches), TASK_TRAIN_STEPS, log_every=1,
+                            log_fn=log_fn)
     peak = torch.cuda.max_memory_allocated()
     for m in logs:
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
@@ -4015,9 +4264,10 @@ def phase_checkpoint(vit_cls_backbone, card: str) -> None:
         snap = {}
         keep = lambda i, m: snap.setdefault("s", _state_snapshot(state)) if i == 1 else None
         t0 = time.perf_counter()
-        state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=keep, ckpt=store,
-                            ckpt_every=2, encoder_path=os.path.join(tmp, "encoder.pth"))
-        steps = store.steps()
+        with timed_window():
+            state, _ = task.fit(state, cycle(batches), 2, log_every=1, log_fn=keep, ckpt=store,
+                                ckpt_every=2, encoder_path=os.path.join(tmp, "encoder.pth"))
+            steps = store.steps()
         log(f"{tag} fit 2 steps with saves at {steps} and the encoder artifact "
             f"({os.path.getsize(os.path.join(tmp, 'encoder.pth')) / 2 ** 20:.1f} MiB): "
             f"{time.perf_counter() - t0:.1f} s")
@@ -4029,9 +4279,10 @@ def phase_checkpoint(vit_cls_backbone, card: str) -> None:
         fresh = ClassificationTask(path.recipe)
         t0 = time.perf_counter()
         # no random weights: the restore overwrites every tensor of the state
-        with mock.patch("mtp_tpu_torch.tasks._fit.init_weights", lambda model, gen: model):
+        with timed_window(), \
+                mock.patch("mtp_tpu_torch.tasks._fit.init_weights", lambda model, gen: model):
             fresh_state = fresh.init_state(_gen(SEED + 99))
-        restored = store.restore(fresh_state, step=2)
+            restored = store.restore(fresh_state, step=2)
         got = _state_snapshot(restored)
         bad = [k for k in snap["model"] if not torch.equal(got["model"][k], snap["model"][k])]
         bad += [n for n in snap["moments"] if not all(
@@ -4147,7 +4398,7 @@ class DetPath:
         default_factory=lambda: GRAD_RTOL)
     head: str = "faster_rcnn"            # or "oriented_rcnn", "mask_rcnn", "retinanet"
     batch: int = DET_BATCH               # the train step's images
-    card_vs_cpu: bool = True             # the strip's forward and gradient checks
+    gradients: bool = True               # the strip's gradient check, beside its forward's
     strip: Tuple[int, int] = DET_STRIP   # the card-vs-CPU image
     # DetConfig / RetinaConfig fields the path's task overrides
     overrides: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -4216,13 +4467,14 @@ ROT_PATHS = {
                            VIT_FWD, {**VIT_STEP, "nms": 1, "rbox_iou": 1},
                            {**VIT_FWD, "nms": 1, "nms_rotated": 1}, train_steps=5,
                            head="oriented_rcnn", batch=ROT_BATCH),
-    # XL: the train step and the predict only
+    # XL: its backbone's gradients at 5e-3, as phase 19's XL
     "det_rot_xl": DetPath("det_rot_xl", ROT_XL,
                           lambda crop: internimage_flops(internimage_config(ROT_XL.backbone),
                                                          crop),
                           XL_FWD, {**XL_STEP, "nms": 1, "rbox_iou": 1},
                           {**XL_FWD, "nms": 1, "nms_rotated": 1}, train_steps=3,
-                          head="oriented_rcnn", batch=ROT_BATCH, card_vs_cpu=False),
+                          head="oriented_rcnn", batch=ROT_BATCH,
+                          grad_rtol=GRAD_RTOL_STOCHASTIC),
 }
 
 
@@ -4233,6 +4485,8 @@ ROT_PATHS = {
 SCORE_THR = 0.001
 MASK_VIT = recipe("mask_rcnn_rvsa_l_1024_mae_mtp_coco")
 RETINA_VIT = recipe("retinanet_rvsa_l_416_mae_mtp_xview")
+MASK_XL = recipe("mask_rcnn_intern_xl_1024_imp_mtp_coco")
+RETINA_XL = recipe("retinanet_intern_xl_416_imp_mtp_xview")
 INST_PATHS = {
     # phase 21: Mask R-CNN on COCO's 80 classes at 1024², batch 2 (the
     # recipe's 16 = 2 a GPU × 8): the ViT's 64² grid; a step adds N1 once
@@ -4251,6 +4505,23 @@ INST_PATHS = {
                           VIT_FWD, VIT_STEP, {**VIT_FWD, "nms": 1}, train_steps=4,
                           head="retinanet", strip=(416, 128),
                           overrides={"score_thr": SCORE_THR}),
+    # the same two with InternImage-XL (remat): K8 on maps of 256², 128²,
+    # 64², 32² at 1024² and of 104², 52², 26², 13² at 416².  The strip's
+    # forward card vs CPU; no gradient check: det_xl holds the XL trunk's
+    # gradients, mask_vit and retina_vit the heads'
+    "mask_xl": DetPath("mask_xl", MASK_XL,
+                       lambda crop: internimage_flops(internimage_config(MASK_XL.backbone),
+                                                      crop),
+                       XL_FWD, {**XL_STEP, "bilinear_sample": 79, "nms": 1},
+                       {**XL_FWD, "nms": 2}, train_steps=3, head="mask_rcnn",
+                       strip=(1024, 128), overrides={"score_thr": SCORE_THR},
+                       gradients=False),
+    "retina_xl": DetPath("retina_xl", RETINA_XL,
+                         lambda crop: internimage_flops(internimage_config(RETINA_XL.backbone),
+                                                        crop),
+                         XL_FWD, XL_STEP, {**XL_FWD, "nms": 1}, train_steps=3,
+                         head="retinanet", strip=(416, 128),
+                         overrides={"score_thr": SCORE_THR}, gradients=False),
 }
 
 
@@ -4349,19 +4620,31 @@ def _det_heads(model, images: torch.Tensor, props: Optional[torch.Tensor], task)
     return out, props
 
 
+def det_forward_inputs(path: DetPath) -> torch.Tensor:
+    """The 2 seeded images of the strip that phase 19's forward check runs."""
+    return torch.from_numpy(det_batch(DET_BATCH, path.strip, path.recipe.num_classes,
+                                      SEED + 1, path.rotated)["image"])
+
+
 @torch.no_grad()
-def phase_det_forward(path: DetPath, model_cpu) -> None:
-    """fp32 FPN levels, RPN scores and deltas of 2 images of the strip, card
-    against CPU, and the box head's logits and deltas (and the mask head's
-    logits) on the proposals the CPU computed, given to both; RetinaNet's
-    FPN levels and head outputs: each held to SLICE_TOL of its max |ref|."""
-    batch = det_batch(DET_BATCH, path.strip, path.recipe.num_classes, SEED + 1,
-                      path.rotated)
-    x = torch.from_numpy(batch["image"])
+def det_forward_reference(path: DetPath, model_cpu) -> dict:
+    """`phase_det_forward`'s CPU half: the outputs, the CPU's proposals and
+    seconds."""
     task = path.task(model=model_cpu, device="cpu")
     t0 = time.perf_counter()
-    ref, props = _det_heads(model_cpu, x, None, task)
-    t_cpu = time.perf_counter() - t0
+    out, props = _det_heads(model_cpu, det_forward_inputs(path), None, task)
+    return {"out": out, "props": props, "seconds": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def phase_det_forward(path: DetPath, model_cpu, ref: dict) -> None:
+    """fp32 FPN levels, RPN scores and deltas of 2 images of the strip, card
+    against CPU (`ref`, `det_forward_reference`'s), and the box head's logits and deltas (and the mask head's
+    logits) on the proposals the CPU computed, given to both; RetinaNet's
+    FPN levels and head outputs: each held to SLICE_TOL of its max |ref|."""
+    x = det_forward_inputs(path)
+    task = path.task(model=model_cpu, device="cpu")
+    ref, props, t_cpu = ref["out"], ref["props"], ref["seconds"]
     model = copy.deepcopy(model_cpu).cuda()
     reset_counters()
     got, _ = _det_heads(model, x.cuda(), None if props is None else props.cuda(), task)
@@ -4388,17 +4671,19 @@ def phase_det_forward(path: DetPath, model_cpu) -> None:
         raise AssertionError(f"card detector disagrees with the CPU: {worst:.3e}")
 
 
-def det_grad_inputs(path: DetPath, model_cpu):
-    """What the gradient check runs on: the recipe in fp32, 2 seeded images
-    of the strip (with their gt mask crops for Mask R-CNN), the proposals
-    the CPU's RPN gives for them (None for RetinaNet), and the CPU's
-    max-pool picks (`recorded_pool_picks`)."""
+def det_grad_batch(path: DetPath) -> Tuple[TaskConfig, dict]:
+    """The recipe in fp32 and 2 seeded images of the strip (with their gt
+    mask crops for Mask R-CNN): what the gradient check runs on."""
     recipe = path.recipe
-    cfg = dataclasses.replace(recipe, backbone=dataclasses.replace(recipe.backbone,
-                                                                   dtype="float32"))
-    batch = {k: torch.from_numpy(v) for k, v in det_batch(
+    return fp32(recipe), {k: torch.from_numpy(v) for k, v in det_batch(
         DET_BATCH, path.strip, recipe.num_classes, SEED + 3, path.rotated,
         path.masks).items()}
+
+
+def det_grad_inputs(path: DetPath, model_cpu):
+    """`det_grad_batch`'s, the proposals the CPU's RPN gives for them (None
+    for RetinaNet), and the CPU's max-pool picks (`recorded_pool_picks`)."""
+    cfg, batch = det_grad_batch(path)
     task = path.task(cfg, model=model_cpu, device="cpu")
     picks: Dict[tuple, torch.Tensor] = {}
     with torch.no_grad():
@@ -4429,10 +4714,12 @@ def _pool_key(x: torch.Tensor, args: tuple, kwargs: dict) -> tuple:
 @contextlib.contextmanager
 def recorded_pool_picks(into: Dict[tuple, torch.Tensor]):
     """Records, by input shape and arguments, the input element each 2-D
-    max-pool window picks (on the CPU)."""
-    pool = F.max_pool2d
+    max-pool window of this thread picks (on the CPU)."""
+    pool, owner = F.max_pool2d, threading.get_ident()
 
     def record(x, *args, **kwargs):
+        if threading.get_ident() != owner:  # another thread's work
+            return pool(x, *args, **kwargs)
         kwargs.pop("return_indices", None)
         out, idx = pool(x, *args, return_indices=True, **kwargs)
         key = _pool_key(x, args, kwargs)
@@ -4451,8 +4738,13 @@ def fixed_pool_picks(picks: Dict[tuple, torch.Tensor]):
     instead of its own: the value of the picked element, and the gradient
     to it.  Where two inputs of a window lie within rounding of each other,
     fp32 runs on two devices can pick either, and the gradient routed to
-    the other input is a discrete difference, not a rounding one."""
+    the other input is a discrete difference, not a rounding one.  Other
+    threads' max-pools pick their own."""
+    pool, owner = F.max_pool2d, threading.get_ident()
+
     def take(x, *args, **kwargs):
+        if threading.get_ident() != owner:
+            return pool(x, *args, **kwargs)
         kwargs.pop("return_indices", None)
         idx = picks[_pool_key(x, args, kwargs)].to(x.device)
         return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
@@ -4461,7 +4753,40 @@ def fixed_pool_picks(picks: Dict[tuple, torch.Tensor]):
         yield
 
 
-def phase_det_gradients(path: DetPath, model_cpu) -> None:
+def det_gradients_reference(path: DetPath, model_cpu) -> dict:
+    """`phase_det_gradients`' CPU half: the proposals, max-pool picks, what
+    the CPU's assigners decided (`held`) and the CPU's run (`cpu_run`)."""
+    cfg, batch, props, picks = det_grad_inputs(path, model_cpu)
+    held: dict = {}
+    with det_grad_choices(path, props, picks, held):
+        cpu = cpu_run(det_grad_path(path), cfg, model_cpu, batch, path.task, path.no_grad)
+    return {"props": props, "picks": picks, "held": held, "cpu": cpu}
+
+
+def det_grad_path(path: DetPath) -> DetPath:
+    """The path as the gradient check expects its launches: the CPU's
+    proposals and assigner IoUs are replayed, so no NMS and no R1."""
+    return dataclasses.replace(path, per_step={**path.per_step, "nms": 0, "rbox_iou": 0})
+
+
+def det_grad_choices(path: DetPath, props, picks: dict, held: dict):
+    """Both runs on what the CPU decides: its proposals, its max-pool picks,
+    and the R-CNN assigner IoUs (oriented) or RetinaNet's anchor assignment,
+    recorded into `held` where the CPU runs and replayed from it on the
+    card."""
+    fixed = contextlib.ExitStack()
+    if path.head == "retinanet":
+        fixed.enter_context(cpu_retina_assign(held))
+    else:
+        fixed.enter_context(fixed_proposals(props))
+        if path.rotated:
+            fixed.enter_context(cpu_replay(det_core, "rbox_overlaps",
+                                           held.setdefault("rbox_overlaps", [])))
+    fixed.enter_context(fixed_pool_picks(picks))
+    return fixed
+
+
+def phase_det_gradients(path: DetPath, model_cpu, ref: dict) -> None:
     """fp32 gradients of the detection loss at 2 images of the strip, card
     against CPU (phase 6's rule and TF32 control), the ViT with its random
     RVSA regressors.  Both sides take what the CPU's forward decides where
@@ -4484,31 +4809,23 @@ def phase_det_gradients(path: DetPath, model_cpu) -> None:
     rounding of 0.5 would flip a sample.  RetinaNet (phase 22) takes the
     CPU's anchor assignment (`cpu_retina_assign`): an anchor's IoU within
     rounding of 0.4 or 0.5 would move it between negative, ignored and
-    positive.  This holds the network; R1 is held by phase 3g."""
-    cfg, batch, props, picks = det_grad_inputs(path, model_cpu)
-    grad_path = dataclasses.replace(path, per_step={**path.per_step, "nms": 0,
-                                                    "rbox_iou": 0})
-    if path.head == "retinanet":
-        fixed, what = cpu_retina_assign(), "max-pool picks and anchor assignment"
-    else:
-        fixed = contextlib.ExitStack()
-        fixed.enter_context(fixed_proposals(props))
-        if path.rotated:
-            fixed.enter_context(cpu_replay(det_core, "rbox_overlaps"))
-        what = "proposals, max-pool picks" + (" and assigner IoUs" if path.rotated else "")
-    with fixed, fixed_pool_picks(picks):
-        check_gradients(grad_path, cfg, model_cpu, batch,
-                        lambda *a, **k: path.task(*a, **k),
+    positive.  This holds the network; R1 is held by phase 3g.  `ref`:
+    `det_gradients_reference`'s."""
+    cfg, batch = det_grad_batch(path)
+    what = ("max-pool picks and anchor assignment" if path.head == "retinanet" else
+            "proposals, max-pool picks" + (" and assigner IoUs" if path.rotated else ""))
+    with det_grad_choices(path, ref["props"], ref["picks"], ref["held"]):
+        check_gradients(det_grad_path(path), cfg, model_cpu, batch, path.task,
                         f"fp32 {DET_BATCH} images of {path.strip[0]}×{path.strip[1]}, "
-                        f"the CPU's {what}", path.no_grad)
+                        f"the CPU's {what}", path.no_grad, cpu=ref["cpu"])
 
 
 @contextlib.contextmanager
-def cpu_retina_assign():
+def cpu_retina_assign(held: dict):
     """RetinaNet's anchor assignment: computed where the loss runs on the
-    CPU, and that CPU result given to every run on the card after it; logs
-    how many anchors' best IoUs lie within 1e-6 of 0.4 or 0.5."""
-    real, held = pretina.max_iou_assign, {}
+    CPU (into `held`), and that CPU result given to every run on the card;
+    logs how many anchors' best IoUs lie within 1e-6 of 0.4 or 0.5."""
+    real = pretina.max_iou_assign
 
     def assign(anchors, gts, *args):
         if gts.device.type == "cpu":
@@ -4525,13 +4842,13 @@ def cpu_retina_assign():
 
 
 @contextlib.contextmanager
-def cpu_replay(module, name: str):
+def cpu_replay(module, name: str, held: list):
     """`module.name`'s results, computed in call order where they run on
-    the CPU, and given back in the same order to each run on the card
-    after it (`det_core.rbox_overlaps`: the rotated assigners' IoUs, in
-    phases 20 and 23; `det_core.gen_proposals`: phase 23's six RPNs'
+    the CPU (appended to `held`), and given back in the same order to each
+    run on the card (`det_core.rbox_overlaps`: the rotated assigners' IoUs,
+    in phases 20 and 23; `det_core.gen_proposals`: phase 23's six RPNs'
     proposals)."""
-    real, held, at = getattr(module, name), [], [0]
+    real, at = getattr(module, name), [0]
 
     def call(first, *args, **kwargs):
         lead = first.cls_scores if hasattr(first, "cls_scores") else first
@@ -4558,7 +4875,8 @@ def _busy(task, state, batch: dict, steps: int = BUSY_STEPS) -> Tuple[float, dic
     the steps) and the ms and launches a step of each kernel group."""
     step = task.train_step_fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with timed_window(), \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, m = step(state, batch)
         float(m["loss"])
@@ -4615,7 +4933,9 @@ def phase_det_train(path: DetPath, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs.clear()
-    state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1, log_fn=log_fn)
+    with timed_window():
+        state, _ = task.fit(state, cycle(batches), path.train_steps, log_every=1,
+                            log_fn=log_fn)
     peak = torch.cuda.max_memory_allocated()
     for m in logs:
         if not all(math.isfinite(v) for v in m.values()):
@@ -4652,11 +4972,12 @@ def phase_det_train(path: DetPath, card: str) -> dict:
         if p_launched != path.per_predict:
             raise AssertionError(f"predict launch counts {p_launched} != {path.per_predict}")
         times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            predict(images)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        with timed_window():
+            for _ in range(5):
+                t0 = time.perf_counter()
+                predict(images)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
     kept = dets.valid.sum(1).tolist()
     ok = dets.boxes.shape == (DET_BATCH, task.det.max_per_img, 5 if path.rotated else 4) and \
         torch.isfinite(dets.boxes).all() and bool((dets.scores[dets.valid] > task.det.score_thr).all())
@@ -4708,16 +5029,17 @@ def check_paste(path: DetPath, dets, hw: int) -> None:
     probs = torch.sigmoid(dets.mask_logits[v].float())
     boxes = dets.boxes[v].float()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = paste_masks(probs.cpu().numpy(), boxes.cpu().numpy(), hw, hw)
-    t_host = time.perf_counter() - t0
     t_card = []
-    for _ in range(2):
-        reset_counters()
+    with timed_window():
         t0 = time.perf_counter()
-        card = paste_masks_device(probs, boxes, hw, hw)
-        torch.cuda.synchronize()
-        t_card.append(time.perf_counter() - t0)
+        host = paste_masks(probs.cpu().numpy(), boxes.cpu().numpy(), hw, hw)
+        t_host = time.perf_counter() - t0
+        for _ in range(2):
+            reset_counters()
+            t0 = time.perf_counter()
+            card = paste_masks_device(probs, boxes, hw, hw)
+            torch.cuda.synchronize()
+            t_card.append(time.perf_counter() - t0)
     launched = counters()
     near = (mask_probabilities(probs, boxes, hw, hw) - 0.5).abs() <= 1e-6
     differ = card.cpu().numpy() != host
@@ -4733,22 +5055,21 @@ def check_paste(path: DetPath, dets, hw: int) -> None:
                              f"pixels, or launched {launched}")
 
 
-def run_det_path(path: DetPath, card: str) -> dict:
+def run_det_path(path: DetPath, card: str, refs: References) -> dict:
     """Phase 19, 20, 21 or 22 for one recipe: card vs CPU forward and
-    gradients at the strip (unless not `card_vs_cpu`), then the train step,
+    gradients (unless not `gradients`) at the strip, then the train step,
     predict and evaluate at the recipe's size."""
     free()
-    if not path.card_vs_cpu:
-        with phase_time(f"{path.name} train"):
-            return phase_det_train(path, card)
     with phase_time(f"{path.name} models"):
-        model_cpu = build_det_model(path, path.strip)
+        ref = refs.take("det", path.name)
+        model_cpu = refs.model("det", path.name, ref)
     with phase_time(f"{path.name} logits"):
-        phase_det_forward(path, model_cpu)
+        phase_det_forward(path, model_cpu, ref.pop("forward"))
     free()
-    with phase_time(f"{path.name} gradients"):
-        phase_det_gradients(path, model_cpu)
-    del model_cpu
+    if path.gradients:
+        with phase_time(f"{path.name} gradients"):
+            phase_det_gradients(path, model_cpu, ref.pop("grads"))
+    del model_cpu, ref
     free()
     with phase_time(f"{path.name} train"):
         return phase_det_train(path, card)
@@ -4756,21 +5077,12 @@ def run_det_path(path: DetPath, card: str) -> dict:
 
 # ------------------------------------------------------------- phase 23 --
 
-MTP = recipe("mtp_vit_l_rvsa_448_samrs")
+MTP_VIT = recipe("mtp_vit_l_rvsa_448_samrs")
+MTP_XL = recipe("mtp_internimage_xl_448_samrs")
 MTP_STRIP = (448, 128)  # card vs CPU: a 28×8 token grid, one image a dataset
 MTP_G, MTP_VALID = 24, 12  # bench.py's synthetic pretraining batch
 MTP_STEPS = 6           # timed steps after 3
 MTP_AB_STEPS = 3        # steps of each A/B block
-# one encoder pass over the 3 images; the sequential detection losses run
-# N1 once per RPN (3 Mask R-CNN, 3 Oriented R-CNN), R1's dense form once
-# per Oriented R-CNN assigner and K3 once more per Mask R-CNN branch (the
-# mask targets' sampling of the gt crops); the concatenated form
-# (det_multi) runs each once a task
-MTP_STEP = {**VIT_STEP, "bilinear_sample": 43, "nms": 6, "rbox_iou": 3}
-MTP_STEP_MULTI = {**VIT_STEP, "bilinear_sample": 41, "nms": 2, "rbox_iou": 1}
-# one dataset's predict: N1 for each RPN and for Mask R-CNN's class-aware
-# NMS, R1's mask form for Oriented R-CNN's
-MTP_PREDICT = {**VIT_FWD, "nms": 3, "nms_rotated": 1}
 # the ss trunk, both decoders and the nine final layers: the "convs" group
 MTP_HEADS = ("encoder.fpn", "semsegdecoder.", "semseghead_", "inssegdecoder.",
              "inssegroi", "rotdetdecoder.", "rotdetroi")
@@ -4778,14 +5090,56 @@ MTP_HEADS = ("encoder.fpn", "semsegdecoder.", "semseghead_", "inssegdecoder.",
 
 @dataclasses.dataclass(frozen=True)
 class MtpPath:
-    """What `check_gradients`' helpers read of phase 23's path."""
+    """A multitask pretraining recipe's model at full width and depth, what
+    phase 23 expects of it, and what `check_gradients`' helpers read."""
 
-    name: str = "mtp_vit"
-    per_step: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: {**MTP_STEP, "nms": 0, "rbox_iou": 0})
-    grad_stochastic: bool = True
+    name: str
+    recipe: TaskConfig
+    flops: Callable[[int], float]        # backbone forward FLOPs of one image
+    per_forward: Dict[str, int]          # one encoder pass over the 3 images
+    step: Dict[str, int]                 # a train step, sequential detection
+    step_multi: Dict[str, int]           # a train step with det_multi
+    per_predict: Dict[str, int]          # one dataset's predict
+    seg: TaskConfig                      # the recipe the exported encoder loads into
     grad_rtol: Dict[str, float] = dataclasses.field(default_factory=lambda: GRAD_RTOL)
-    head_prefixes: Tuple[str, ...] = MTP_HEADS
+    head_prefixes: ClassVar[Tuple[str, ...]] = MTP_HEADS
+    grad_stochastic: ClassVar[bool] = True
+
+    @property
+    def per_step(self) -> Dict[str, int]:
+        """The gradient check's launches: the CPU's proposals and rotated
+        IoUs are replayed, so no NMS and no R1."""
+        return {**self.step, "nms": 0, "rbox_iou": 0}
+
+
+def mtp_launches(fwd: Dict[str, int], step: Dict[str, int]) -> Tuple[dict, dict, dict]:
+    """(a step, a det_multi step, one dataset's predict) over a backbone of
+    `fwd` launches a forward and `step` a train step: the sequential
+    detection losses run N1 once per RPN (3 Mask R-CNN, 3 Oriented R-CNN),
+    R1's dense form once per Oriented R-CNN assigner and K3 once more per
+    Mask R-CNN branch (the mask targets' sampling of the gt crops); the
+    concatenated form (det_multi) each once a task; a predict N1 for each
+    RPN and for Mask R-CNN's class-aware NMS, R1's mask form for Oriented
+    R-CNN's."""
+    k3 = step["bilinear_sample"]
+    return ({**step, "bilinear_sample": k3 + 3, "nms": 6, "rbox_iou": 3},
+            {**step, "bilinear_sample": k3 + 1, "nms": 2, "rbox_iou": 1},
+            {**fwd, "nms": 3, "nms_rotated": 1})
+
+
+MTP_PATHS = {
+    # ViT-L+RVSA at 448²: phase 23 since PR 14
+    "mtp_vit": MtpPath("mtp_vit", MTP_VIT,
+                       lambda crop: backbone_flops(MTP_VIT.backbone, (crop, crop)),
+                       VIT_FWD, *mtp_launches(VIT_FWD, VIT_STEP), seg=RVSA),
+    # InternImage-XL at 448² with remat (K8 on maps of 112², 56², 28², 14²),
+    # its backbone held at 5e-3 as phase 19's XL; its encoder loads into
+    # the XL segmentation recipe at 512²
+    "mtp_xl": MtpPath("mtp_xl", MTP_XL,
+                      lambda crop: internimage_flops(internimage_config(MTP_XL.backbone), crop),
+                      XL_FWD, *mtp_launches(XL_FWD, XL_STEP), seg=XL,
+                      grad_rtol=GRAD_RTOL_STOCHASTIC),
+}
 
 
 def mtp_batch(hw: Tuple[int, int], seed: int) -> dict:
@@ -4821,10 +5175,15 @@ def mtp_batch(hw: Tuple[int, int], seed: int) -> dict:
     return out
 
 
-def mtp_task(cfg: Optional[TaskConfig] = None, **kw) -> MultiTaskPretrainTask:
+def mtp_task(cfg: TaskConfig, **kw) -> MultiTaskPretrainTask:
     """The recipe's task (score_thr 0.001 through `det_overrides`, as
     phases 21-22 take it: random weights clear no 0.05)."""
-    return MultiTaskPretrainTask(cfg or MTP, det_overrides={"score_thr": SCORE_THR}, **kw)
+    return MultiTaskPretrainTask(cfg, det_overrides={"score_thr": SCORE_THR}, **kw)
+
+
+def fp32(cfg: TaskConfig) -> TaskConfig:
+    """The recipe with its backbone in fp32."""
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, dtype="float32"))
 
 
 def _mtp_heads(model, images: torch.Tensor, props: Optional[dict]):
@@ -4863,23 +5222,35 @@ def _mtp_heads(model, images: torch.Tensor, props: Optional[dict]):
     return out, props
 
 
-@torch.no_grad()
-def phase_mtp_forward(model_cpu) -> None:
-    """fp32, one image a dataset of the strip, card against CPU: the
-    encoder's levels, each dataset's ss logits, both FPNs' levels and RPN
-    outputs, and on the CPU's proposals each dataset's box heads and mask
-    logits; each within SLICE_TOL of its max |ref|."""
-    x = torch.from_numpy(np.concatenate([b["image"] for b in mtp_batch(
+def mtp_forward_inputs() -> torch.Tensor:
+    """One seeded image of the strip a dataset."""
+    return torch.from_numpy(np.concatenate([b["image"] for b in mtp_batch(
         MTP_STRIP, SEED + 1).values()]))
+
+
+@torch.no_grad()
+def mtp_forward_reference(path: MtpPath, model_cpu) -> dict:
+    """`phase_mtp_forward`'s CPU half."""
     t0 = time.perf_counter()
-    ref, props = _mtp_heads(model_cpu, x, None)
-    t_cpu = time.perf_counter() - t0
+    out, props = _mtp_heads(model_cpu, mtp_forward_inputs(), None)
+    return {"out": out, "props": props, "seconds": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def phase_mtp_forward(path: MtpPath, model_cpu, ref: dict) -> None:
+    """fp32, one image a dataset of the strip, card against CPU (`ref`,
+    `mtp_forward_reference`'s): the encoder's
+    levels, each dataset's ss logits, both FPNs' levels and RPN outputs,
+    and on the CPU's proposals each dataset's box heads and mask logits;
+    each within SLICE_TOL of its max |ref|."""
+    x = mtp_forward_inputs()
+    ref, props, t_cpu = ref["out"], ref["props"], ref["seconds"]
     model = copy.deepcopy(model_cpu).cuda()
     reset_counters()
     got, _ = _mtp_heads(model, x.cuda(), props)
     launched = counters()
-    if launched != VIT_FWD:
-        raise AssertionError(f"launch counts {launched} != {VIT_FWD}")
+    if launched != path.per_forward:
+        raise AssertionError(f"launch counts {launched} != {path.per_forward}")
     parts, worst = [], 0.0
     for (name, g), (_, r) in zip(got, ref):
         g = g.float().cpu()
@@ -4888,7 +5259,7 @@ def phase_mtp_forward(model_cpu) -> None:
         rel = ((g - r).abs().max() / r.abs().max()).item()
         worst = max(worst, rel)
         parts.append(f"{name} {rel:.2e}")
-    log(f"[mtp] fp32 3 images of {MTP_STRIP[0]}×{MTP_STRIP[1]} (one a dataset), card vs "
+    log(f"[{path.name}] fp32 3 images of {MTP_STRIP[0]}×{MTP_STRIP[1]} (one a dataset), card vs "
         f"CPU, max |Δ| / max |ref| (tol {SLICE_TOL}), heads on the CPU's proposals: "
         + ", ".join(parts) + f"; worst {worst:.3e}; CPU forward {t_cpu:.1f} s; "
         f"launches {launched}")
@@ -4896,7 +5267,7 @@ def phase_mtp_forward(model_cpu) -> None:
         raise AssertionError(f"the card's multitask model disagrees with the CPU: {worst:.3e}")
 
 
-def _mtp_loss_and_grads(cfg, model, batch, device: str):
+def _mtp_loss_and_grads(cfg: TaskConfig, model, batch, device: str):
     """One backward of the 9-way loss on `device`, train mode (BatchNorm
     on batch statistics, dropout and drop-path on, every draw from one CPU
     generator of one seed): (loss, {name: loss}, {parameter: gradient})."""
@@ -4909,38 +5280,57 @@ def _mtp_loss_and_grads(cfg, model, batch, device: str):
     return loss.item(), {k: v.item() for k, v in losses.items()}, grads
 
 
-def phase_mtp_gradients(model_cpu) -> None:
+def mtp_gradients_reference(path: MtpPath, model_cpu) -> dict:
+    """`phase_mtp_gradients`' CPU half: the CPU's run (loss, named losses,
+    gradients), its seconds, its max-pool picks and what its six RPNs and
+    three rotated assigners gave (`held`, replayed on the card)."""
+    cfg, batch = fp32(path.recipe), to_device(mtp_batch(MTP_STRIP, SEED + 3), "cpu")
+    held: Dict[str, list] = {"gen_proposals": [], "rbox_overlaps": []}
+    picks: Dict[tuple, torch.Tensor] = {}
+    t0 = time.perf_counter()
+    with mtp_replays(held), recorded_pool_picks(picks):
+        run = _mtp_loss_and_grads(cfg, model_cpu, batch, "cpu")
+    return {"cpu": run, "seconds": time.perf_counter() - t0, "picks": picks, "held": held}
+
+
+def mtp_replays(held: Dict[str, list]):
+    """The six RPNs' proposals and the rotated assigners' IoUs, recorded
+    where the CPU runs and replayed on the card (`cpu_replay`)."""
+    stack = contextlib.ExitStack()
+    for name in ("gen_proposals", "rbox_overlaps"):
+        stack.enter_context(cpu_replay(det_core, name, held[name]))
+    return stack
+
+
+def phase_mtp_gradients(path: MtpPath, model_cpu, ref: dict) -> None:
     """fp32 gradients of the 9-way loss at one image a dataset of the
-    strip, card against CPU (phase 6's rule: backbone rtol 1e-3, the
-    decoders and final layers 1e-2; the TF32 control must fail), and each
-    named loss within LOSS_RTOL.  Both sides take what the CPU decides
-    where rounding could tip a discrete choice (phases 19-21): the six
-    RPNs' proposals and the rotated assigners' IoUs (`cpu_replay`), the
-    fpn4 max-pool picks of the CPU's loss (`recorded_pool_picks`), and one
-    CPU generator's dropout, drop-path and sampler draws.  The ss
+    strip, card against CPU (`ref`, `mtp_gradients_reference`'s; phase 6's
+    rule: backbone rtol 1e-3, XL's 5e-3 as
+    phase 19's, the decoders and final layers 1e-2; the TF32 control must
+    fail), and each named loss within LOSS_RTOL.  Both sides take what the
+    CPU decides where rounding could tip a discrete choice (phases 19-21):
+    the six RPNs' proposals and the rotated assigners' IoUs (`cpu_replay`),
+    the fpn4 max-pool picks of the CPU's loss (`recorded_pool_picks`), and
+    one CPU generator's dropout, drop-path and sampler draws.  The ss
     trunk's BatchNorm runs per dataset on one image: its PSP pool-1 branch
     normalises one value a channel, whose gradient is 0 in exact
     arithmetic (the absolute floor, GRAD_ATOL·‖g_all‖, holds it)."""
-    path, tag = MtpPath(), "[grads mtp_vit]"
-    cfg = dataclasses.replace(MTP, backbone=dataclasses.replace(MTP.backbone, dtype="float32"))
+    tag, cfg = f"[grads {path.name}]", fp32(path.recipe)
     batch = to_device(mtp_batch(MTP_STRIP, SEED + 3), "cpu")
+    runs, picks = {"cpu": ref["cpu"]}, ref["picks"]
+    log(f"{tag} cpu: loss {runs['cpu'][0]:.6f} forward+backward {ref['seconds']:.1f} s")
     model_gpu = copy.deepcopy(model_cpu).cuda()
-    runs, picks = {}, {}
-    with cpu_replay(det_core, "gen_proposals"), cpu_replay(det_core, "rbox_overlaps"):
-        for device, model in (("cpu", model_cpu), ("cuda", model_gpu)):
-            reset_counters()
-            t0 = time.perf_counter()
-            with (recorded_pool_picks if device == "cpu" else fixed_pool_picks)(picks):
-                runs[device] = _mtp_loss_and_grads(cfg, model, batch, device)
-            if device == "cuda":
-                torch.cuda.synchronize()
-                launched = counters()
-            log(f"{tag} {device}: loss {runs[device][0]:.6f} forward+backward "
-                f"{time.perf_counter() - t0:.1f} s")
+    with mtp_replays(ref["held"]), fixed_pool_picks(picks):
+        reset_counters()
+        t0 = time.perf_counter()
+        runs["cuda"] = _mtp_loss_and_grads(cfg, model_gpu, batch, "cuda")
+        torch.cuda.synchronize()
+        launched = counters()
+        log(f"{tag} cuda: loss {runs['cuda'][0]:.6f} forward+backward "
+            f"{time.perf_counter() - t0:.1f} s")
         _tf32(True)
         try:
-            with fixed_pool_picks(picks):
-                control = _mtp_loss_and_grads(cfg, model_gpu, batch, "cuda")
+            control = _mtp_loss_and_grads(cfg, model_gpu, batch, "cuda")
         finally:
             _tf32(False)
     if launched != path.per_step:
@@ -4978,12 +5368,13 @@ def ordered_sample(assign, generator, num: int, pos_fraction: float):
                         (take(gt) - 1).clamp(min=0), take(assign.labels))
 
 
-def check_det_multi(model, batch: dict) -> None:
+def check_det_multi(path: MtpPath, model, batch: dict) -> None:
     """The concatenated detection form against the sequential one on the
     card, fp32, same weights and batch, train mode, one seed's draws for
     the encoder and the ss heads and `ordered_sample` for the samplers:
-    every named loss within LOSS_RTOL and every gradient by phase 6's rule."""
-    cfg = dataclasses.replace(MTP, backbone=dataclasses.replace(MTP.backbone, dtype="float32"))
+    every named loss within LOSS_RTOL and every gradient by the path's
+    phase-6 rule."""
+    cfg = fp32(path.recipe)
     runs = {}
     with mock.patch.object(det_core, "random_sample", ordered_sample):
         for multi in (False, True):
@@ -4992,15 +5383,15 @@ def check_det_multi(model, batch: dict) -> None:
     model.det_multi = False
     (l0, n0, g0), (l1, n1, g1) = runs[False], runs[True]
     rel = {k: abs(n1[k] - v) / max(abs(v), 1e-12) for k, v in n0.items()}
-    ok, summary = _grad_verdict(MtpPath(name="det_multi"), (l0, g0), (l1, g1))
+    ok, summary = _grad_verdict(path, (l0, g0), (l1, g1))
     worst = max(rel, key=rel.get)
-    log(f"[det_multi] fp32, the train batch, det_multi=True vs the sequential form on the "
+    log(f"[det_multi {path.name}] fp32, the train batch, det_multi=True vs the sequential form on the "
         f"card: {len(rel)} named losses, largest rel {rel[worst]:.3e} at {worst}; {summary}")
     if max(rel.values()) > LOSS_RTOL or not ok:
         raise AssertionError(f"the concatenated form differs: {summary}")
 
 
-def phase_mtp_train(card: str) -> dict:
+def phase_mtp_train(path: MtpPath, card: str) -> dict:
     """The recipe's train step at batch 3 of 448² (one image a dataset, the
     recipe's 24 = 3 a GPU × 8) through `MultiTaskPretrainTask.init_state` →
     `fit` (checkpoint and encoder export) → `evaluate`: launches, ms/step,
@@ -5008,19 +5399,22 @@ def phase_mtp_train(card: str) -> dict:
     named losses; the concatenated detection form (det_multi) against the
     sequential one (`check_det_multi`), its launches and its steps timed in
     the order A B B A; the 9-way evaluation on one batch, with a predict's
-    launches; the exported encoder loaded into the ViT-L segmentation task
-    at 384²; a fixed-batch sanity run whose loss must fall."""
-    tag, hw = "[train mtp_vit]", (MTP.backbone.img_size,) * 2
-    task = mtp_task()
+    launches; the exported encoder loaded into the segmentation recipe of
+    its backbone (`path.seg`) and run; a fixed-batch sanity run whose loss
+    must fall."""
+    cfg = path.recipe
+    tag, hw = f"[train {path.name}]", (cfg.backbone.img_size,) * 2
+    task = mtp_task(cfg)
     t0 = time.perf_counter()
     state = task.init_state(_gen(SEED))
     initial = host_copy(state.model)
-    opt = MTP.train.optimizer
+    opt = cfg.train.optimizer
     log(f"{tag} init_state {time.perf_counter() - t0:.1f} s; recipe lr {opt.lr} wd "
         f"{opt.weight_decay} layer decay {opt.layer_decay} clip {opt.clip_norm}, schedule "
-        f"{MTP.train.schedule.kind} ({MTP.train.schedule.warmup_steps} warm-up), drop-path "
-        f"{MTP.backbone.drop_path_rate}; batch 3 (one image a dataset; the recipe's "
-        f"{MTP.train.batch_size} over {MTP.train.batch_size // 3} GPUs), classes "
+        f"{cfg.train.schedule.kind} ({cfg.train.schedule.warmup_steps} warm-up), remat "
+        f"{cfg.backbone.remat}, drop-path {cfg.backbone.drop_path_rate}; batch 3 (one image a "
+        f"dataset; the recipe's {cfg.train.batch_size} over {cfg.train.batch_size // 3} GPUs), "
+        f"classes "
         f"{task.model.classes}")
     batches = [mtp_batch(hw, SEED + 10 + i) for i in range(3)]
     logs = []
@@ -5030,9 +5424,9 @@ def phase_mtp_train(card: str) -> dict:
     state, m = task.fit(state, cycle(batches), 1, log_every=1, log_fn=log_fn)
     torch.cuda.synchronize()
     launched = counters()
-    log(f"{tag} launches in one train step: {launched}, expected {MTP_STEP}")
-    if launched != MTP_STEP:
-        raise AssertionError(f"launch counts {launched} != {MTP_STEP}")
+    log(f"{tag} launches in one train step: {launched}, expected {path.step}")
+    if launched != path.step:
+        raise AssertionError(f"launch counts {launched} != {path.step}")
     with tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_") as tmp:
         enc_path = os.path.join(tmp, "mtp_encoder.pth")
         t0 = time.perf_counter()
@@ -5040,11 +5434,12 @@ def phase_mtp_train(card: str) -> dict:
                             ckpt=CheckpointStore(os.path.join(tmp, "ckpt")),
                             encoder_path=enc_path)
         t_save = time.perf_counter() - t0
-        export = load_encoder(enc_path, MTP.backbone)
+        export = load_encoder(enc_path, cfg.backbone)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     logs.clear()
-    state, _ = task.fit(state, cycle(batches), MTP_STEPS, log_every=1, log_fn=log_fn)
+    with timed_window():
+        state, _ = task.fit(state, cycle(batches), MTP_STEPS, log_every=1, log_fn=log_fn)
     peak = torch.cuda.max_memory_allocated()
     for m in logs:
         if not all(math.isfinite(v) for v in m.values()):
@@ -5057,7 +5452,7 @@ def phase_mtp_train(card: str) -> dict:
     named = {k: v for k, v in logs[-1].items() if k.startswith(("ss_", "is_", "rd_"))}
     if len(named) != 30:
         raise AssertionError(f"named losses {sorted(named)}")
-    flops = 3 * backbone_flops(MTP.backbone, hw) * 3
+    flops = 3 * path.flops(hw[0]) * 3
     log(f"{tag} recipe train step, batch 3 of {hw[0]}², bf16 autocast, drop-path and "
         f"dropout on, sequential detection: median {per:.2f} ms/step over {len(step_ms)} (min "
         f"{min(step_ms):.2f}, max {max(step_ms):.2f}), {3 / per * 1e3:.3f} images/s, "
@@ -5076,34 +5471,36 @@ def phase_mtp_train(card: str) -> dict:
         f"encoder artifact {len(export)} tensors")
 
     # the concatenated detection form: the same function, then its step
-    check_det_multi(state.model, dev_batch)
+    check_det_multi(path, state.model, dev_batch)
     model = state.model
     model.det_multi = True
     reset_counters()
     state, _ = task.fit(state, cycle(batches), 1)
     torch.cuda.synchronize()
     multi_launched = counters()
-    if multi_launched != MTP_STEP_MULTI:
-        raise AssertionError(f"det_multi launch counts {multi_launched} != {MTP_STEP_MULTI}")
+    if multi_launched != path.step_multi:
+        raise AssertionError(f"det_multi launch counts {multi_launched} != {path.step_multi}")
     blocks = []
     for multi in (False, True, True, False):
         model.det_multi = multi
         logs.clear()
-        state, _ = task.fit(state, cycle(batches), MTP_AB_STEPS, log_every=1, log_fn=log_fn)
+        with timed_window():
+            state, _ = task.fit(state, cycle(batches), MTP_AB_STEPS, log_every=1,
+                                log_fn=log_fn)
         blocks.append(statistics.median(m["step_time"] * 1e3 for m in logs))
     model.det_multi = False
     seq, multi = (blocks[0] + blocks[3]) / 2, (blocks[1] + blocks[2]) / 2
-    log(f"[det_multi] recipe step, batch 3 of {hw[0]}², bf16, A B B A blocks of "
+    log(f"[det_multi {path.name}] recipe step, batch 3 of {hw[0]}², bf16, A B B A blocks of "
         f"{MTP_AB_STEPS} steps (median each): sequential {blocks[0]:.2f} / {blocks[3]:.2f}, "
         f"det_multi {blocks[1]:.2f} / {blocks[2]:.2f} ms/step; det_multi / sequential "
-        f"{multi / seq:.3f}; launches a step: sequential {MTP_STEP}, det_multi "
+        f"{multi / seq:.3f}; launches a step: sequential {path.step}, det_multi "
         f"{multi_launched} | card {card}")
 
     # the 9-way validation on one batch, and one dataset's predict
     t0 = time.perf_counter()
     res = task.evaluate(state, iter([mtp_batch(hw, SEED + 20)]))
     t_eval = time.perf_counter() - t0
-    log(f"[eval mtp_vit] 9-way on one batch (3 images of {hw[0]}², random weights after "
+    log(f"[eval {path.name}] 9-way on one batch (3 images of {hw[0]}², random weights after "
         f"{state.step} steps, score_thr {SCORE_THR}; {t_eval:.1f} s): " + ", ".join(
             f"{k} {v:.3f}" for k, v in res.items()))
     if len(res) != 3 * 6 + 3 or not all(math.isfinite(v) for v in res.values()):
@@ -5114,25 +5511,28 @@ def phase_mtp_train(card: str) -> dict:
         task.predict_fn()(images, 0)
         torch.cuda.synchronize()
     p_launched = counters()
-    log(f"[predict mtp_vit] one dataset's predict (ss, Mask R-CNN, Oriented R-CNN): launches "
-        f"{p_launched}, expected {MTP_PREDICT}")
-    if p_launched != MTP_PREDICT:
-        raise AssertionError(f"predict launch counts {p_launched} != {MTP_PREDICT}")
+    log(f"[predict {path.name}] one dataset's predict (ss, Mask R-CNN, Oriented R-CNN): "
+        f"launches {p_launched}, expected {path.per_predict}")
+    if p_launched != path.per_predict:
+        raise AssertionError(f"predict launch counts {p_launched} != {path.per_predict}")
 
-    # the exported encoder in the ViT-L segmentation recipe at 384²
-    seg, crop = SegmentationTask(RVSA), RVSA.backbone.img_size
-    sd = backbone_state_dict(export, RVSA.backbone)
+    # the exported encoder in its backbone's segmentation recipe
+    seg_cfg = path.seg
+    seg, crop = SegmentationTask(seg_cfg), seg_cfg.backbone.img_size
+    sd = backbone_state_dict(export, seg_cfg.backbone)
     seg_state = seg.init_state(_gen(SEED), pretrained_backbone=sd)
-    same = torch.equal(seg_state.model.backbone.blocks[0].attn.qkv.weight.cpu(),
-                       export["blocks.0.attn.qkv.weight"])
-    x = torch.from_numpy(synthetic_batch(1, (crop, crop), RVSA.num_classes, SEED + 41)["image"])
+    loaded = seg_state.model.backbone.state_dict()
+    same = loaded.keys() == sd.keys() and all(torch.equal(v.cpu(), sd[k])
+                                              for k, v in loaded.items())
+    x = torch.from_numpy(synthetic_batch(1, (crop, crop), seg_cfg.num_classes,
+                                         SEED + 41)["image"])
     with torch.no_grad(), seg.autocast():
         out = seg_state.model.predict(x.cuda()).float()
-    log(f"[export mtp_vit] the fit's encoder artifact (grid {hw[0] // 16}) → "
-        f"rvsa-l-upernet-384 (grid {crop // 16}): pos_embed {tuple(sd['pos_embed'].shape)}, "
-        f"{len(sd)} tensors; loaded weights equal {same}; one forward {tuple(out.shape)} "
-        f"finite {bool(torch.isfinite(out).all())}")
-    if not same or out.shape != (1, crop, crop, RVSA.num_classes) or \
+    resized = (f"pos_embed {tuple(sd['pos_embed'].shape)}, " if "pos_embed" in sd else "")
+    log(f"[export {path.name}] the fit's encoder artifact ({hw[0]}²) → the {seg_cfg.backbone.name} "
+        f"segmentation recipe at {crop}²: {resized}{len(sd)} tensors; loaded weights equal "
+        f"{same}; one forward {tuple(out.shape)} finite {bool(torch.isfinite(out).all())}")
+    if not same or out.shape != (1, crop, crop, seg_cfg.num_classes) or \
             not torch.isfinite(out).all():
         raise AssertionError("the exported encoder did not load into the segmentor")
     del seg, seg_state, export
@@ -5142,23 +5542,22 @@ def phase_mtp_train(card: str) -> dict:
     return {"train": launched, "predict": p_launched}
 
 
-def run_mtp_path(card: str) -> dict:
-    """Phase 23: card vs CPU at the strip, then the train step, the
-    concatenated form, evaluate and the encoder export at 448²."""
+def run_mtp_path(path: MtpPath, card: str, refs: References) -> dict:
+    """Phase 23 for one recipe: card vs CPU at the strip, then the train
+    step, the concatenated form, evaluate and the encoder export at 448²."""
     free()
-    with phase_time("mtp_vit models"):
-        model_cpu = init_weights(MultiTaskPretrainModel(
-            MTP.backbone, det_overrides={"score_thr": SCORE_THR}, input_hw=MTP_STRIP),
-            _gen(SEED)).eval()
-    with phase_time("mtp_vit logits"):
-        phase_mtp_forward(model_cpu)
+    with phase_time(f"{path.name} models"):
+        ref = refs.take("mtp", path.name)
+        model_cpu = refs.model("mtp", path.name, ref)
+    with phase_time(f"{path.name} logits"):
+        phase_mtp_forward(path, model_cpu, ref.pop("forward"))
     free()
-    with phase_time("mtp_vit gradients"):
-        phase_mtp_gradients(model_cpu)
-    del model_cpu
+    with phase_time(f"{path.name} gradients"):
+        phase_mtp_gradients(path, model_cpu, ref.pop("grads"))
+    del model_cpu, ref
     free()
-    with phase_time("mtp_vit train"):
-        return phase_mtp_train(card)
+    with phase_time(f"{path.name} train"):
+        return phase_mtp_train(path, card)
 
 
 # ------------------------------------------------------------- phase 24 --
@@ -5748,6 +6147,165 @@ def phase_export(card: str, exports: ExportJobs) -> None:
         raise AssertionError("[export] " + "; ".join(failed))
 
 
+# ------------------------------------------------------- CPU references --
+
+# the card-vs-CPU checks' CPU halves run in one worker process beside this
+# process's card work: its torch threads (the card's host has 8 cores; this
+# process launches from one), and how many paths' references it computes
+# ahead of the path that takes them (each result a file of up to ~3 GB)
+REF_THREADS = 5
+REF_AHEAD = 4
+
+
+def reference_jobs() -> List[Tuple[str, str]]:
+    """(kind, path name) of every path whose checks take a reference from
+    the worker, in the order `main` runs them."""
+    return ([("seg", n) for n in PATHS]
+            + [("det", n) for n in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}]
+            + [("mtp", n) for n in MTP_PATHS])
+
+
+def reference_model(kind: str, name: str):
+    """The CPU model of a path's checks, undrawn (its weights come from the
+    worker's draw, or from `init_weights`)."""
+    if kind == "seg":
+        path = PATHS[name]
+        return Segmentor(path.recipe.backbone, path.recipe.num_classes, input_hw=path.cpu_hw)
+    if kind == "det":
+        path = {**DET_PATHS, **ROT_PATHS, **INST_PATHS}[name]
+        return build_detector(path.head, path.recipe.backbone, path.det, path.strip)
+    return MultiTaskPretrainModel(MTP_PATHS[name].recipe.backbone,
+                                  det_overrides={"score_thr": SCORE_THR}, input_hw=MTP_STRIP)
+
+
+def cpu_reference(kind: str, name: str, tmp: str) -> str:
+    """In the worker: the path's CPU model, drawn from the seed as this
+    process would draw it, its weights as drawn, and the CPU halves of its
+    checks (`logits_reference` and `gradients_reference`,
+    `det_forward_reference` and `det_gradients_reference`,
+    `mtp_forward_reference` and `mtp_gradients_reference`), written to a
+    file under `tmp`; returns the file."""
+    t0 = time.perf_counter()
+    model = init_weights(reference_model(kind, name), _gen(SEED)).eval()
+    out = {"state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+    if kind == "seg":
+        path = PATHS[name]
+        out["forward"] = logits_reference(path, model)
+        out["grads"] = gradients_reference(path, model)
+    elif kind == "det":
+        path = {**DET_PATHS, **ROT_PATHS, **INST_PATHS}[name]
+        out["forward"] = det_forward_reference(path, model)
+        out["grads"] = det_gradients_reference(path, model) if path.gradients else None
+    else:
+        path = MTP_PATHS[name]
+        out["forward"] = mtp_forward_reference(path, model)
+        out["grads"] = mtp_gradients_reference(path, model)
+    out["seconds"] = time.perf_counter() - t0
+    file = os.path.join(tmp, f"{kind}_{name}.pt")
+    torch.save(out, file + ".tmp")
+    os.replace(file + ".tmp", file)
+    return file
+
+
+def _reference_worker(jobs, done, tmp: str) -> None:
+    """The worker process: `cpu_reference` of each job from `jobs` in turn,
+    (job, file, error) to `done`; None ends it."""
+    torch.set_num_threads(REF_THREADS)
+    with init_weights.constructions_undrawn():
+        for job in iter(jobs.get, None):
+            try:
+                done.put((job, cpu_reference(*job, tmp), None))
+            except Exception:  # noqa: BLE001 -- raised in the parent by `take`
+                done.put((job, None, traceback.format_exc()))
+
+
+class References:
+    """The card-vs-CPU checks' CPU halves (the CPU model's draw, its fp32
+    forward and backward, and what the CPU decides for both runs:
+    proposals, max-pool picks, assigner IoUs and assignments), computed by
+    one spawned worker process in the order the paths take them, REF_AHEAD
+    paths ahead, beside this process's card work, but for the timed
+    windows (`timed_window`), in which it is stopped; each result is a
+    file that `take` reads and removes.  `close()` ends the worker."""
+
+    running: ClassVar[Optional["References"]] = None  # the worker `timed_window` stops
+
+    def __init__(self, jobs: List[Tuple[str, str]]):
+        self._dir = tempfile.TemporaryDirectory(prefix="mtp_chip_smoke_refs_")
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.jobs, self.done = ctx.Queue(), ctx.Queue()
+        self.pending, self.arrived = list(jobs), {}
+        self.proc = ctx.Process(target=_reference_worker,
+                                args=(self.jobs, self.done, self._dir.name), daemon=True)
+        self.proc.start()
+        self.queued = 0
+        self.stopped_at: Optional[float] = None
+        self.stops, self.stopped_s = 0, 0.0
+        References.running = self
+        self._queue()
+
+    def _signal(self, sig: int) -> None:
+        with contextlib.suppress(ProcessLookupError):  # the worker has ended
+            os.kill(self.proc.pid, sig)
+
+    def stop(self) -> None:
+        """Stops the worker (SIGSTOP) until `resume`."""
+        self._signal(signal.SIGSTOP)
+        self.stopped_at = time.perf_counter()
+
+    def resume(self) -> None:
+        self._signal(signal.SIGCONT)
+        self.stops += 1
+        self.stopped_s += time.perf_counter() - self.stopped_at
+        self.stopped_at = None
+
+    def _queue(self) -> None:
+        while self.pending and self.queued < REF_AHEAD:
+            self.jobs.put(self.pending.pop(0))
+            self.queued += 1
+
+    def take(self, kind: str, name: str) -> dict:
+        """The path's reference: {"state": the drawn weights, "forward",
+        "grads": its checks' CPU halves, "seconds"}."""
+        t0 = time.perf_counter()
+        while (kind, name) not in self.arrived:
+            if not self.proc.is_alive() and self.done.empty():
+                raise AssertionError(f"the reference worker ended (exit {self.proc.exitcode})")
+            try:
+                job, file, error = self.done.get(timeout=5.0)
+            except queue.Empty:  # look at the worker again
+                continue
+            self.arrived[tuple(job)] = (file, error)
+        file, error = self.arrived.pop((kind, name))
+        self.queued -= 1
+        self._queue()
+        if error is not None:
+            raise AssertionError(f"the CPU reference of {name} failed:\n{error}")
+        waited = time.perf_counter() - t0
+        ref = torch.load(file, weights_only=False)
+        os.remove(file)
+        log(f"[refs] {name}: the worker's CPU model and check halves ({ref['seconds']:.1f} s "
+            f"in the worker, {REF_THREADS} threads, its stops included); this process waited "
+            f"{waited:.1f} s for them, read them in {time.perf_counter() - t0 - waited:.1f} s")
+        return ref
+
+    def model(self, kind: str, name: str, ref: dict):
+        """The path's CPU model with the worker's drawn weights."""
+        model = reference_model(kind, name)
+        model.load_state_dict(ref.pop("state"))
+        return model.eval()
+
+    def close(self) -> None:
+        References.running = None
+        log(f"[refs] the worker was stopped for {self.stops} timed windows, "
+            f"{self.stopped_s:.1f} s in all")
+        self.jobs.cancel_join_thread()  # jobs the killed worker never took
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self._dir.cleanup()
+
+
 @contextlib.contextmanager
 def phase_time(what: str):
     """Logs the wall time the block took."""
@@ -5756,27 +6314,31 @@ def phase_time(what: str):
     log(f"[time] {what} {time.perf_counter() - t0:.1f} s")
 
 
-def free() -> None:
+def free(generation: int = 2) -> None:
     """Release what earlier phases left, so that each phase's peak memory
-    is its own."""
-    gc.collect()
+    is its own.  Between kernel cases, whose outputs no reference cycle
+    holds, `generation` 1 collects only the young objects: a full
+    collection walks this process's ~170,000 objects (~0.1 s a call on one
+    x86 core after the imports), and phases 3-3f call this ~1,000 times."""
+    gc.collect(generation)
     torch.cuda.empty_cache()
 
 
-def run_path(path: Path, card: str) -> dict:
+def run_path(path: Path, card: str, refs: References) -> dict:
     """Phases 4-7 (ViT), 8-11 (InternImage) or 12-15 (ViT at 2080²):
     {"serve": launches of one predict, "train": launches of one train
     step}."""
     free()
     crop = path.recipe.backbone.img_size
     with phase_time(f"{path.name} models"):
-        model = build_model(path, (crop, crop))
+        ref = refs.take("seg", path.name)
+        model_cpu = refs.model("seg", path.name, ref)
         # the ViT's pos_embed and full-attention tables are sized by the token
         # grid: a card-vs-CPU image of another shape needs a model of its own
         sized = not is_internimage(path.recipe.backbone) and path.cpu_hw != (crop, crop)
-        model_cpu = build_model(path, path.cpu_hw) if sized else model
+        model = build_model(path, (crop, crop)) if sized else model_cpu
     with phase_time(f"{path.name} logits"):
-        phase_logits(path, model_cpu)
+        phase_logits(path, model_cpu, ref["forward"])
     with phase_time(f"{path.name} serve"):
         served = phase_serving(path, model, card)
     del model
@@ -5785,8 +6347,8 @@ def run_path(path: Path, card: str) -> dict:
     ranks = DdpRanks(path) if path.name == "rvsa" else None
     try:
         with phase_time(f"{path.name} gradients"):
-            phase_gradients(path, model_cpu)
-        del model_cpu
+            phase_gradients(path, model_cpu, ref.pop("grads"))
+        del model_cpu, ref
         free()
         with phase_time(f"{path.name} train"):
             trained = phase_train(path, card, ranks)
@@ -5801,10 +6363,13 @@ def main() -> None:
     card = phase_device()
     dump = phase_build()
     record = {}
-    exports = None
+    exports = refs = None
     seeded = mock.patch.object(_fit, "init_weights", init_weights)  # the tasks' draws too
     seeded.start()
+    undrawn = init_weights.constructions_undrawn()
+    undrawn.__enter__()
     try:
+        refs = References(reference_jobs())  # beside phases 3-3f, then ahead of the paths
         for name, phase in (("3", phase_kernels), ("3b", phase_backward_kernels),
                             ("3c", phase_dcnv3_kernels), ("3d", phase_large_window_kernels),
                             ("3e", phase_nms_kernel), ("3g", phase_rotated_iou_kernel)):
@@ -5815,14 +6380,16 @@ def main() -> None:
                 record.update(phase())
         with phase_time("kernels 3f"):
             phase_800_kernels()
-        with phase_time("kernels 3f, phases 21-22's shapes"):
+        with phase_time("kernels 3f, phases 21-23's shapes"):
             phase_path_kernels()
+        with phase_time("kernels 3f, the XL paths' K8 shapes"):
+            phase_xl_path_kernels()
         with phase_time("kernels 3c/3f, the OSCD 96² shapes"):
             phase_oscd_kernels()
         exports.check()
         runs = {}
         for name, path in PATHS.items():
-            runs[name] = run_path(path, card)  # phase 25 inside phase 7
+            runs[name] = run_path(path, card, refs)  # phase 25 inside phase 7
         for name, path in TASK_PATHS.items():
             trained = run_task_path(path, card)
             if name == "cls_vit":  # phase 18 exports its encoder
@@ -5832,14 +6399,18 @@ def main() -> None:
             phase_checkpoint(vit_cls_backbone, card)
         del vit_cls_backbone
         for name, path in {**DET_PATHS, **ROT_PATHS, **INST_PATHS}.items():
-            runs[name] = run_det_path(path, card)
-        runs["mtp_vit"] = run_mtp_path(card)
+            runs[name] = run_det_path(path, card, refs)
+        for name, path in MTP_PATHS.items():
+            runs[name] = run_mtp_path(path, card, refs)
         with phase_time("cli"):
             runs["cli"] = phase_cli(card)
         with phase_time("export"):
             phase_export(card, exports)
     finally:
+        undrawn.__exit__(None, None, None)
         seeded.stop()
+        if refs is not None:
+            refs.close()
         if dump[0].poll() is None:
             dump[0].kill()
             dump[0].wait()

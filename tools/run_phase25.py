@@ -6,7 +6,8 @@ phases 25c and 25d (their CPU references while the ranks start, as in
 `chip_smoke.py`).
 
     python3 tools/run_phase25.py [--steps 3] [--cpu-witness] [--carafe-patch8]
-                                 [--idle-ab] [--profile]
+                                 [--idle-ab] [--profile] [--pick-witness]
+                                 [--repeat N]
 
 `--cpu-witness` also runs the first compared step's fp32 loss and backward
 on the CPU (the plain versions, the same state) and prints each gradient's
@@ -19,15 +20,28 @@ through `chip_smoke.py`'s phases 6 and 7), and after they are gone.
 `--profile` times the step with the process group (one NCCL rank) and
 without, interleaved, and traces one of each with torch.profiler (the
 card's activity): device ms by kernel group, and the host's ms in the
-gradient all-reduce.  Every result line names the card and its power
+gradient all-reduce.  `--pick-witness` runs no phase: at the state trained
+`--steps` steps and at the seeded initial state, both at identity RVSA
+sampling, it holds the first compared batch's fp32 gradients as two
+emulated ranks (`split_grads`) against the whole batch by
+`two_ranks_rule`, with each rank's own max-pool picks and with the whole
+batch's, counts the picks that differ, reads the whole batch against a
+second run of itself, and prints for each RVSA sampling regressor's output
+bias Σ|terms| / |Σ terms| over the tokens (the cancellation that rounding
+is amplified by).  `--repeat N` runs phases 25-26 N times, each from a
+state trained one step more than the last (`--steps`, `--steps` + 1, ...)
+with rank processes of its own, and prints each run's verdict: the
+steadiness of phase 25(b)'s and 26's `two_ranks_rule`.  Every result line names the card and its power
 limit; the last line is the total time.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -160,6 +174,101 @@ def profile_ddp(path, state, batches: List[dict], card: str, n: int) -> None:
             cs._load_snapshot(state, snap)
 
 
+def pick_witness(state, batches, card: str, label: str) -> None:
+    """See `--pick-witness`; the state is restored after."""
+    snap = cs._state_snapshot(state, "cuda")
+    cs.identity_sampling(state.model)
+    model = state.model
+    t32 = cs.SegmentationTask(cs.DDP_FP32, model=model)
+    loss_fn = lambda m, b: t32.loss_fn(m, b, None, deterministic=True)[0]
+    batch = cs.to_device(batches[0], t32.device)
+    rule = cs.two_ranks_rule(cs.PATHS["rvsa"])
+    terms: Dict[str, torch.Tensor] = {}
+
+    def keep(out, name):  # each regressor's output gradient (B, C, h, w)
+        out.register_hook(lambda g: terms.__setitem__(name, g.detach()))
+
+    hooks = [m.register_forward_hook(lambda mod, i, out, n=n: keep(out, n))
+             for n, m in model.named_modules() if re.search(r"attn\.sampling_\w+\.2$", n)]
+
+    def whole(record=None):
+        model.zero_grad(set_to_none=True)
+        ctx = cs.recorded_pool_picks(record) if record is not None else contextlib.nullcontext()
+        with ctx:
+            loss = loss_fn(model, batch)
+        loss.backward()
+        out = float(loss), {n: (torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+                            for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    picks: Dict[tuple, torch.Tensor] = {}
+    ref = whole(picks)
+    for h in hooks:
+        h.remove()
+    ratios = []
+    for n, g in terms.items():
+        g = g.double().movedim(1, -1).reshape(-1, g.shape[1])
+        ratios.append((float(g.abs().sum(0).norm() / g.sum(0).norm()), n))
+    ratios.sort()
+    again = whole()
+    own: Dict[tuple, torch.Tensor] = {}
+    split_own = cs.split_grads(loss_fn, model, batch, record=own)
+    split_fixed = cs.split_grads(loss_fn, model, batch, picks=picks)
+    differ, total = 0, 0
+    for key, idx in picks.items():
+        half = ((len(idx) // 2,) + key[0][1:],) + key[1:]
+        both = torch.cat([own[(0,) + half], own[(1,) + half]])
+        differ += int((both != idx).sum())
+        total += idx.numel()
+    for what, got in (("the whole batch again", again), ("two ranks, own picks", split_own),
+                      ("two ranks, the whole batch's picks", split_fixed)):
+        ok, summary = cs._grad_verdict(rule, ref, got)
+        cs.log(f"[pick witness {label}] {what} vs the whole batch: within {ok}; {summary} "
+               f"| card {card}")
+    cs.log(f"[pick witness {label}] max-pool picks the two ranks take differently from the "
+           f"whole batch: {differ} of {total}; Σ|terms| / |Σ terms| of the sampling "
+           f"regressors' output biases over {len(ratios)}: min {ratios[0][0]:.1f} median "
+           f"{statistics.median(r for r, _ in ratios):.1f} max {ratios[-1][0]:.1f} at "
+           f"{ratios[-1][1]}; largest five {[(n, round(r, 1)) for r, n in ratios[-5:]]} "
+           f"| card {card}")
+    cs._load_snapshot(state, snap)
+
+
+def steady(path, steps: int, repeat: int, card: str) -> None:
+    """Phases 25-26 `repeat` times, each from the state trained `steps`,
+    `steps` + 1, ... steps (fresh rank processes each time; the state moves
+    as phase 7's moves from run to run): each run's pass or failure and its
+    readings; stops after a failed first run; raises after the last run if
+    any failed."""
+    failed = []
+    train = [cs.synthetic_batch(8, (384, 384), path.recipe.num_classes, cs.SEED + 10 + i)
+             for i in range(4)]
+    for i in range(repeat):
+        t_run, task, state = time.perf_counter(), None, None
+        ranks = cs.DdpRanks(path)  # they start while the state trains
+        try:
+            task = cs.SegmentationTask(path.recipe)
+            state = task.init_state(cs._gen(cs.SEED))
+            state, _ = task.fit(state, cs.cycle(train), steps + i)
+            cs.phase_ddp(state, path, card, ranks)
+            verdict = "passed"
+        except Exception as e:  # noqa: BLE001 -- counted, raised after the last run
+            failed.append(i)
+            verdict = f"FAILED: {str(e)[:2000]}"
+        finally:
+            ranks.close()
+        cs.log(f"[steady] run {i + 1} of {repeat} (state trained {steps + i} steps): "
+               f"{verdict}; {time.perf_counter() - t_run:.1f} s | card {card}")
+        del task, state
+        cs.free()
+        if failed == [0]:  # the first run failed: no use in the rest
+            break
+    cs.log(f"[steady] {i + 1 - len(failed)} of {i + 1} runs of phases 25-26 passed | card {card}")
+    if failed:
+        raise AssertionError(f"runs {failed} failed")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=3)
@@ -167,11 +276,30 @@ def main() -> None:
     p.add_argument("--carafe-patch8", action="store_true")
     p.add_argument("--idle-ab", action="store_true")
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--pick-witness", action="store_true")
+    p.add_argument("--repeat", type=int, default=1)
     args = p.parse_args()
     t0 = time.perf_counter()
     card = cs.phase_device()
     cs.check_sass(cs.phase_build())
     path = cs.PATHS["rvsa"]
+    if args.pick_witness:
+        task = cs.SegmentationTask(path.recipe)
+        state = task.init_state(cs._gen(cs.SEED))
+        initial = cs.host_copy(state.model)
+        batches = cs._ddp_batches(path)
+        train = [cs.synthetic_batch(8, (384, 384), path.recipe.num_classes, cs.SEED + 10 + i)
+                 for i in range(4)]
+        state, _ = task.fit(state, cs.cycle(train), args.steps)
+        pick_witness(state, batches, card, f"trained {args.steps} steps")
+        state.model.load_state_dict(initial)
+        pick_witness(state, batches, card, "seeded initial")
+        cs.log(f"[time] total {time.perf_counter() - t0:.1f} s | {card}")
+        return
+    if args.repeat > 1:
+        steady(path, args.steps, args.repeat, card)
+        cs.log(f"[time] total {time.perf_counter() - t0:.1f} s | {card}")
+        return
     if not args.idle_ab:
         ranks = cs.DdpRanks(path)  # they start while the state trains
     task = cs.SegmentationTask(path.recipe)
